@@ -1,0 +1,76 @@
+"""The port imports on a machine without JAX.
+
+The card's machine has PyTorch, numpy, scipy and einops but no jax, flax,
+optax, PIL, safetensors, transformers or triton, and the port must not
+lean on the JAX package.  A subprocess installs an import hook that
+refuses those modules, then imports every module of `diffcodec_tpu_torch`,
+`chip_smoke` and `scripts/profile_torch_decode.py` (without running them).
+"""
+
+import os
+import pathlib
+import re
+import subprocess
+import sys
+
+REPO = pathlib.Path(__file__).resolve().parent.parent
+PKG = REPO / "diffcodec_tpu_torch"
+BLOCKED = ("jax", "jaxlib", "flax", "optax", "PIL", "safetensors",
+           "transformers", "triton", "diffcodec_tpu")
+
+_CHILD = r"""
+import importlib, importlib.abc, pkgutil, sys
+
+BLOCKED = set(sys.argv[1].split(","))
+
+
+class Refuse(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in BLOCKED:
+            raise ImportError(f"blocked import of {name}")
+        return None
+
+
+sys.meta_path.insert(0, Refuse())
+import diffcodec_tpu_torch
+names = ["diffcodec_tpu_torch"] + [
+    m.name for m in pkgutil.walk_packages(diffcodec_tpu_torch.__path__,
+                                          "diffcodec_tpu_torch.")]
+for name in names:
+    importlib.import_module(name)
+import chip_smoke
+sys.path.insert(0, "scripts")
+import profile_torch_decode
+loaded = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
+assert not loaded, loaded
+print("imported", len(names), "modules")
+"""
+
+
+def test_port_and_chip_smoke_import_without_jax():
+    env = dict(os.environ)
+    env.pop("PYTHONPATH", None)
+    proc = subprocess.run(
+        [sys.executable, "-c", _CHILD, ",".join(BLOCKED)], cwd=REPO, env=env,
+        capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    n = int(re.search(r"imported (\d+) modules", proc.stdout).group(1))
+    assert n >= 15  # the package, its subpackages and every module
+
+
+def test_kernel_sources_include_no_torch_headers():
+    sources = sorted(PKG.glob("csrc/*.cu*"))
+    assert {p.name for p in sources} >= {"attention.cu", "splat.cu"}
+    for p in sources:
+        includes = re.findall(r'#\s*include\s*[<"]([^>"]+)[>"]',
+                              p.read_text())
+        assert includes, p
+        assert not [i for i in includes if i.startswith(("torch/", "ATen/",
+                                                         "c10/"))], p
+
+
+def test_port_sources_name_no_jax():
+    for p in PKG.rglob("*.py"):
+        text = p.read_text()
+        assert not re.search(r"^\s*(import|from)\s+(jax|flax|diffcodec_tpu)\b",
+                             text, re.M), p
