@@ -5,35 +5,51 @@ Phases, each printed as one JSON line with the elapsed seconds `t`:
   device     the card, torch and CUDA versions (exits non-zero without CUDA)
   build      nvcc builds the kernels of `diffcodec_tpu_torch/csrc/`
   kernel     each kernel against its plain PyTorch version at every shape
-             the decode gives it: max abs error and tolerance, the kernel's,
+             the decodes give it: max abs error and tolerance, the kernel's,
              the plain version's and, where one PyTorch call computes the
-             same function, that call's time (CUDA events), and the bound
+             same function (or, for the convs, its conv part), that call's
+             time (CUDA events, median of per-call times), and the bound
   decode     the port's main path: `DualFlowPipeline.sample` at SD-1.5
              full width, 7 frames (one GOP-8) at 512 x 512, 30 UniPC steps
              with CFG 3.5, ControlNet scale 1.35 and FreeU, bf16, seeded
              random weights; launch counts are zeroed just before and read
              just after
+  decode_fusedconv
+             the same decode with `fused_conv=True` (the JAX package's
+             `exact_fusedconv` point): every conv3x3 of the VAE decoder
+             through the conv kernels (29 GN+SiLU+conv, 3 upsample+conv
+             launches); its VAE against the cuDNN one on the same latents
+  decode_distilled
+             `DistilledPipeline` with K = 4 consistency steps over the same
+             models, fused mode, no CFG (the JAX package's bench.py
+             distilled point)
   reference  the same pipeline at a tiny config on the card (bf16, kernels)
-             against the CPU (fp32, plain versions) on the same weights
+             against the CPU (fp32, plain versions) on the same weights,
+             with the VAE unfused and fused
 Then a {"kernels": [...]} line, the `nvidia-smi` name and power limit, and
 last {"ok": true, "device": {...}}.  Any failure raises and exits non-zero.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
+import statistics
 import subprocess
 import sys
 import time
 
 import torch
+import torch.nn.functional as F
 
 from diffcodec_tpu_torch import _kernels
-from diffcodec_tpu_torch.config import (ControlNetConfig, SamplerConfig,
-                                        UNetConfig, VAEConfig)
+from diffcodec_tpu_torch.config import (ControlNetConfig, DistillConfig,
+                                        SamplerConfig, UNetConfig, VAEConfig)
+from diffcodec_tpu_torch.ops import conv
 from diffcodec_tpu_torch.ops.attention import attention, attention_reference
 from diffcodec_tpu_torch.ops.softsplat import splat_sum, splat_sum_reference
-from diffcodec_tpu_torch.models.vae import decode_from_latents
+from diffcodec_tpu_torch.models.vae import AutoencoderKL, decode_from_latents
+from diffcodec_tpu_torch.sampling.distilled import DistilledPipeline
 from diffcodec_tpu_torch.sampling.pipeline import DualFlowPipeline
 
 T0 = time.perf_counter()
@@ -43,6 +59,8 @@ PEAK_BF16_FLOPS = 989e12
 PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
 
+# ~0.1 s of spinning at the H100's ~1.7-2 GHz SM clock (see time_ms)
+SPIN_CYCLES = 200_000_000
 FRAMES, RES, STEPS = 7, 512, 30   # one GOP-8 of inter frames, bench.py's
 BATCH = 2 * FRAMES                # CFG doubles the UNet/ControlNet batch
 HEADS = 8
@@ -72,6 +90,41 @@ ATTN_ULP = 2.0 ** -7
 ATTN_REL_NORM = 1e-2
 # Splat: fp32 atomics add in a varying order.
 SPLAT_TOL = dict(atol=1e-5, rtol=1e-5)
+# The 3x3 convs, in the attention check's form: bf16 outputs, so one ulp of
+# x is at most 2^-7 |x|.  The kernel rounds once (conv + bias + residual
+# in fp32); the plain version rounds the conv, then its sum with the
+# residual, and sums the taps in another order (the upsample kernel's
+# collapsed taps are also rounded to bf16 once more), so an element may
+# differ by an ulp of itself and one of the largest output: rtol = 2^-7,
+# atol = 2^-7 * max|plain|, with ||kernel - plain|| <= 1e-2 ||plain||.
+CONV_ULP = 2.0 ** -7
+CONV_REL_NORM = 1e-2
+# (B, H, W, C, O, residual) of every GN+SiLU+conv launch of the fused
+# decoder, heaviest first, then a UNet resnet's shape for the record (the
+# UNet is not routed to the kernel)
+GN_SHAPES = [
+    (7, 512, 512, 256, 128, False),  # up_3 resnet 0, conv1
+    (7, 512, 512, 128, 128, True),   # up_3 conv2 (+ shortcut)
+    (7, 512, 512, 128, 128, False),  # up_3 resnets 1-2, conv1
+    (7, 256, 256, 512, 256, False),  # up_2 resnet 0, conv1
+    (7, 128, 128, 512, 512, True),   # up_1 conv2
+    (7, 128, 128, 512, 512, False),  # up_1 conv1
+    (7, 256, 256, 256, 256, True),   # up_2 conv2
+    (7, 256, 256, 256, 256, False),  # up_2 resnets 1-2, conv1
+    (7, 64, 64, 512, 512, True),     # mid and up_0 conv2
+    (7, 64, 64, 512, 512, False),    # mid and up_0 conv1
+    (7, 512, 512, 128, 3, False),    # the out head
+    (14, 64, 64, 320, 320, True),    # a UNet resnet, for the record
+]
+# (B, H, W, C, O) of the decoder's three upsamplers (input resolution)
+UP_SHAPES = [(7, 256, 256, 256, 256), (7, 128, 128, 512, 512),
+             (7, 64, 64, 512, 512)]
+# row 4's entry (SiLU + conv, the affine compiled out) at the widest
+# decoder shape; no decode launches it (see PERF.md)
+SILU_SHAPES = [(7, 512, 512, 128, 128)]
+# the two launch counts of the fused decoder, asserted per decode
+FUSED_VAE_LAUNCHES = {"gn_silu_conv3x3": 29, "upsample_conv3x3": 3}
+DISTILL_STEPS = 4
 
 
 def compare(label: str, got, want, atol: float, rtol: float) -> float:
@@ -95,17 +148,23 @@ def log(phase: str, **fields):
 
 
 def time_ms(fn, reps: int) -> float:
-    """Mean ms per call over `reps` calls after one warm-up, CUDA events."""
+    """Median ms of `reps` calls after one warm-up, each call between its
+    own pair of CUDA events, so that one host stall moves one sample and
+    not the result.  The card first spins for ~0.1 s (`torch.cuda._sleep`)
+    while the host queues every call, so the calls then run back to back
+    and each pair of events brackets device time, not the host's time to
+    launch the call."""
     fn()
     torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
+    events = [(torch.cuda.Event(enable_timing=True),
+               torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
+    torch.cuda._sleep(SPIN_CYCLES)
+    for start, end in events:
+        start.record()
         fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / reps
+        end.record()
+    torch.cuda.synchronize()
+    return statistics.median(s.elapsed_time(e) for s, e in events)
 
 
 def bound(flops: float, nbytes: float, peak_flops: float):
@@ -182,6 +241,104 @@ def check_splat(gen) -> list:
     return rows
 
 
+def _conv_inputs(gen, B, H, W, C, O):
+    def randn(*shape, scale=1.0):
+        return torch.randn(shape, device="cuda", generator=gen) * scale
+    return dict(x=randn(B, H, W, C).bfloat16(),
+                scale=randn(B, C, scale=0.25) + 1.0, shift=randn(B, C),
+                weight=randn(O, C, 3, 3, scale=(9 * C) ** -0.5).bfloat16(),
+                bias=randn(O, scale=0.1).bfloat16())
+
+
+def _conv_row(name, shape, got, want, fn, plain, library, reps, taps,
+              nbytes) -> dict:
+    """Check `got` against `want` (the CONV tolerance), time the kernel,
+    the plain version and the library call, and bound the work: 2 * taps
+    FLOP per input pixel, input channel and output channel (taps = 9, or
+    16 collapsed for the upsample), and `nbytes` moved."""
+    B, H, W, C, O = shape[:5]
+    label = f"{name} {list(shape)}"
+    tol = dict(atol=CONV_ULP * want.float().abs().max().item(),
+               rtol=CONV_ULP, rel_norm=CONV_REL_NORM)
+    err = compare(label, got, want, tol["atol"], tol["rtol"])
+    rel_norm = ((got.float() - want.float()).norm()
+                / want.float().norm()).item()
+    if not rel_norm <= tol["rel_norm"]:
+        raise AssertionError(f"{label}: ||error|| / ||plain|| = {rel_norm} "
+                             f"> {tol['rel_norm']}")
+    b_ms, b_by = bound(2.0 * taps * B * H * W * C * O, nbytes,
+                       PEAK_BF16_FLOPS)
+    row = dict(kernel=name, shape=list(shape), max_abs_err=err,
+               rel_norm_err=rel_norm, tol=tol, ms=time_ms(fn, reps),
+               plain_ms=time_ms(plain, reps), library_ms=time_ms(library,
+                                                                 reps),
+               library="F.conv2d (cuDNN, channels-last) of the input "
+                       + ("already upsampled" if taps == 16 else
+                          "already activated")
+                       + ": the conv part of the function",
+               bound_ms=b_ms, bound_by=b_by)
+    log("kernel", **row)
+    return row
+
+
+def check_conv(gen) -> list:
+    """Each conv kernel at every shape the fused decoder gives it."""
+    rows = []
+    for B, H, W, C, O, residual in GN_SHAPES:
+        a = _conv_inputs(gen, B, H, W, C, O)
+        x, sc, sh, w, b = (a[k] for k in ("x", "scale", "shift", "weight",
+                                          "bias"))
+        res = (torch.randn(B, H, W, O, device="cuda", generator=gen)
+               .bfloat16() if residual else None)
+        act = F.silu((x.float() * sc[:, None, None, :]
+                      + sh[:, None, None, :]).bfloat16())
+        act_nchw = act.permute(0, 3, 1, 2)
+        n_out = B * H * W * O
+        rows.append(_conv_row(
+            "gn_silu_conv3x3", (B, H, W, C, O, residual),
+            conv.gn_silu_conv3x3(x, sc, sh, w, b, res),
+            conv.gn_silu_conv3x3_ref(x, sc, sh, w, b, res),
+            lambda: conv.gn_silu_conv3x3(x, sc, sh, w, b, res),
+            lambda: conv.gn_silu_conv3x3_ref(x, sc, sh, w, b, res),
+            lambda: F.conv2d(act_nchw, w, b, padding=1),
+            5 if H >= 256 else 20, 9,
+            # x, out, residual, weights in bf16; scale, shift, bias fp32
+            2 * (B * H * W * C + n_out * (2 if residual else 1)
+                 + 9 * C * O) + 4 * (2 * B * C + O)))
+        del a, x, res, act, act_nchw
+        torch.cuda.empty_cache()
+    for B, H, W, C, O in UP_SHAPES:
+        a = _conv_inputs(gen, B, H, W, C, O)
+        x, w, b = a["x"], a["weight"], a["bias"]
+        up_nchw = (x[:, :, None, :, None, :].expand(B, H, 2, W, 2, C)
+                   .reshape(B, 2 * H, 2 * W, C).permute(0, 3, 1, 2))
+        rows.append(_conv_row(
+            "upsample_conv3x3", (B, H, W, C, O),
+            conv.upsample_conv3x3(x, w, b),
+            conv.upsample_conv3x3_ref(x, w, b),
+            lambda: conv.upsample_conv3x3(x, w, b),
+            lambda: conv.upsample_conv3x3_ref(x, w, b),
+            lambda: F.conv2d(up_nchw, w, b, padding=1),
+            5, 16, 2 * (B * H * W * C + 4 * B * H * W * O + 9 * C * O)
+            + 4 * O))
+        del a, x, up_nchw
+        torch.cuda.empty_cache()
+    for B, H, W, C, O in SILU_SHAPES:
+        a = _conv_inputs(gen, B, H, W, C, O)
+        x, w, b = a["x"], a["weight"], a["bias"]
+        act_nchw = F.silu(x).permute(0, 3, 1, 2)
+        rows.append(_conv_row(
+            "silu_conv3x3", (B, H, W, C, O), conv.silu_conv3x3(x, w, b),
+            conv.silu_conv3x3_ref(x, w, b),
+            lambda: conv.silu_conv3x3(x, w, b),
+            lambda: conv.silu_conv3x3_ref(x, w, b),
+            lambda: F.conv2d(act_nchw, w, b, padding=1),
+            5, 9, 2 * (B * H * W * (C + O) + 9 * C * O) + 4 * O))
+        del a, x, act_nchw
+        torch.cuda.empty_cache()
+    return rows
+
+
 @torch.no_grad()
 def fill_params(module: torch.nn.Module, gen: torch.Generator):
     """Seeded random weights made on the card: kernels ~ N(0, 1/fan_in),
@@ -229,34 +386,60 @@ def build_decode(gen, steps: int = STEPS):
     return pipe, x
 
 
-def decode(gen) -> dict:
+def timed(fn):
+    """(fn(), host seconds), the card synchronised on both sides."""
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    result = fn()
+    torch.cuda.synchronize()
+    return result, time.perf_counter() - t
+
+
+def counted(fn):
+    """(fn(), seconds, launches of each kernel in that call)."""
+    counters = {"attention": attention, "splat_sum": splat_sum,
+                "gn_silu_conv3x3": conv.gn_silu_conv3x3,
+                "silu_conv3x3": conv.silu_conv3x3,
+                "upsample_conv3x3": conv.upsample_conv3x3}
+    for c in counters.values():
+        c.launches = 0
+    result, seconds = timed(fn)
+    return result, seconds, {k: c.launches for k, c in counters.items()}
+
+
+def check_images(label, images, frames=FRAMES, res=RES):
+    if tuple(images.shape) != (frames, res, res, 3):
+        raise AssertionError(f"{label}: shape {tuple(images.shape)}")
+    if not torch.isfinite(images).all():
+        raise AssertionError(f"{label}: non-finite values")
+
+
+def check_launches(label, launches, expected):
+    """expected: name -> exact count, or None for "at least once"."""
+    for name, n in expected.items():
+        if (n is None and launches[name] <= 0) or (n is not None
+                                                   and launches[name] != n):
+            raise AssertionError(f"{label}: {name} launched "
+                                 f"{launches[name]} times, expected "
+                                 f"{'> 0' if n is None else n}")
+
+
+def decode(gen):
     """The main path once with launch counts, once more for the
-    steady-state time, then its stages timed apart."""
+    steady-state time, then its stages timed apart.  Returns the line's
+    fields, the pipeline, its inputs and the final latents."""
     pipe, x = build_decode(gen)
     n_params = sum(p.numel() for m in (pipe.unet, pipe.controlnet, pipe.vae)
                    for p in m.parameters())
     log("decode_setup", params=n_params)
 
-    def timed(fn):
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        result = fn()
-        torch.cuda.synchronize()
-        return result, time.perf_counter() - t
-
     torch.cuda.reset_peak_memory_stats()
-    attention.launches = 0
-    splat_sum.launches = 0
-    images, first_s = timed(lambda: run(pipe, x))
-    launches = {"attention": attention.launches,
-                "splat_sum": splat_sum.launches}
-    if tuple(images.shape) != (FRAMES, RES, RES, 3):
-        raise AssertionError(f"decode shape {tuple(images.shape)}")
-    if not torch.isfinite(images).all():
-        raise AssertionError("decode produced non-finite values")
-    for name, n in launches.items():
-        if n <= 0:
-            raise AssertionError(f"{name} was not launched by the decode")
+    images, first_s, launches = counted(lambda: run(pipe, x))
+    check_images("decode", images)
+    # the exact point stays on cuDNN: no conv kernel
+    check_launches("decode", launches, {
+        "attention": None, "splat_sum": None, "gn_silu_conv3x3": 0,
+        "upsample_conv3x3": 0, "silu_conv3x3": 0})
 
     _, second_s = timed(lambda: run(pipe, x))
     # the pyramid alone, the denoise loop (pyramid included), the VAE
@@ -276,11 +459,88 @@ def decode(gen) -> dict:
                image_mean_abs=images.float().abs().mean().item(),
                image_std=images.float().std().item())
     log("decode", **out)
+    return out, pipe, x, final
+
+
+def fused_vae_of(vae: AutoencoderKL) -> AutoencoderKL:
+    """A fused-conv copy of `vae` with its weights, on its device."""
+    p = next(vae.parameters())
+    with torch.device(p.device):
+        fused = AutoencoderKL(vae.cfg, fused_conv=True)
+    fused.load_state_dict(vae.state_dict())
+    return fused.to(p.dtype).eval().requires_grad_(False)
+
+
+def decode_fusedconv(pipe, x, final) -> tuple:
+    """The main path with fused_conv=True on the same models and inputs;
+    its VAE against the cuDNN one on the same final latents."""
+    fused = dataclasses.replace(pipe, vae=fused_vae_of(pipe.vae))
+    torch.cuda.reset_peak_memory_stats()
+    images, first_s, launches = counted(lambda: run(fused, x))
+    check_images("decode_fusedconv", images)
+    check_launches("decode_fusedconv", launches,
+                   {"attention": None, "splat_sum": None, "silu_conv3x3": 0,
+                    **FUSED_VAE_LAUNCHES})
+    _, second_s = timed(lambda: run(fused, x))
+    with torch.no_grad():
+        _, pyramid_s = timed(lambda: fused.controlnet.extract_pyramid(
+            x["cond"], x["flow"]))
+        _, denoise_s = timed(lambda: fused.denoise(
+            x["latents"], x["text"], x["uncond"], x["cond"], x["flow"]))
+        got, vae_s = timed(lambda: decode_from_latents(fused.vae, final))
+        want = decode_from_latents(pipe.vae, final)
+    diff = (got.float().clamp(-1, 1) - want.float().clamp(-1, 1)).abs()
+    # bf16 through ~30 convs rounded at other places (the kernel rounds
+    # each conv + bias + residual once, the cuDNN path two or three
+    # times), on images in [-1, 1]: the reference phase's limits
+    tol = dict(max_abs=0.25, mean_abs=0.02)
+    vs_cudnn = dict(max_abs_err=diff.max().item(),
+                    mean_abs_err=diff.mean().item(), tol=tol)
+    out = dict(frames=FRAMES, res=RES, steps=STEPS, first_s=first_s,
+               second_s=second_s, frames_per_s=FRAMES / second_s,
+               stages_s=dict(pyramid=pyramid_s, denoise=denoise_s,
+                             vae=vae_s),
+               peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+               launches=launches, vae_vs_cudnn=vs_cudnn,
+               image_mean_abs=images.float().abs().mean().item())
+    log("decode_fusedconv", **out)
+    if not (vs_cudnn["max_abs_err"] <= tol["max_abs"]
+            and vs_cudnn["mean_abs_err"] <= tol["mean_abs"]):
+        raise AssertionError(f"fused VAE disagrees with cuDNN's: {vs_cudnn}")
+    return out, fused
+
+
+def decode_distilled(fused, x, gen) -> dict:
+    """K-step consistency decode over the fused pipeline's models: no
+    CFG, so no uncond embeddings; the K - 1 re-noises from `gen`."""
+    dpipe = DistilledPipeline.from_pipeline(
+        fused, DistillConfig(num_student_steps=DISTILL_STEPS))
+
+    def go():
+        return dpipe.sample(x["latents"], x["text"], x["cond"], x["flow"],
+                            generator=gen)
+
+    torch.cuda.reset_peak_memory_stats()
+    images, first_s, launches = counted(go)
+    check_images("decode_distilled", images)
+    check_launches("decode_distilled", launches,
+                   {"attention": None, "splat_sum": None, "silu_conv3x3": 0,
+                    **FUSED_VAE_LAUNCHES})
+    _, second_s = timed(go)
+    out = dict(frames=FRAMES, res=RES, steps=DISTILL_STEPS,
+               timesteps=[int(t) for t in dpipe.step_schedule()],
+               first_s=first_s, second_s=second_s,
+               frames_per_s=FRAMES / second_s,
+               peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+               launches=launches,
+               image_mean_abs=images.float().abs().mean().item())
+    log("decode_distilled", **out)
     return out
 
 
 def reference_check():
-    """Tiny pipeline: card (bf16, kernels) against CPU (fp32, plain)."""
+    """Tiny pipeline: card (bf16, kernels) against CPU (fp32, plain), with
+    the VAE unfused and fused."""
     vae_cfg = VAEConfig(base_channels=8, channel_mults=(1, 1, 2, 2),
                         layers_per_block=1)
     sampler = SamplerConfig(num_inference_steps=3)
@@ -296,41 +556,49 @@ def reference_check():
         g.load_state_dict(c.state_dict())
     x = make_inputs(torch.Generator().manual_seed(8), 2, 64, 32, "cpu",
                     torch.float32)
-    want = run(cpu, x)
-    before = (attention.launches, splat_sum.launches)
     # the initial noise stays fp32, as the pipeline carries it
     x_card = {k: v.cuda() if k == "latents" else v.cuda().bfloat16()
               for k, v in x.items()}
-    got = run(card, x_card)
-    torch.cuda.synchronize()
-    if (attention.launches == before[0]
-            or splat_sum.launches == before[1]):
-        raise AssertionError("the tiny decode on the card did not launch "
-                             "both kernels")
-    diff = (got.float().cpu() - want).abs()
     # bf16 (8-bit mantissa) through the networks and 3 UniPC steps against
     # fp32 on the CPU
     tol = dict(max_abs=0.25, mean_abs=0.02)
-    out = dict(max_abs_err=diff.max().item(), mean_abs_err=diff.mean().item(),
-               tol=tol, want_mean_abs=want.abs().mean().item())
-    log("reference", **out)
-    if not (out["max_abs_err"] <= tol["max_abs"]
-            and out["mean_abs_err"] <= tol["mean_abs"]):
-        raise AssertionError(f"tiny decode on the card disagrees with the "
-                             f"CPU: {out}")
+    for mode, fused in (("unfused", False), ("fused", True)):
+        if fused:
+            cpu = dataclasses.replace(cpu, vae=fused_vae_of(cpu.vae))
+            card = dataclasses.replace(card, vae=fused_vae_of(card.vae))
+        want = run(cpu, x)
+        got, _, launches = counted(lambda: run(card, x_card))
+        expected = {"attention": None, "splat_sum": None}
+        if fused:
+            expected.update(gn_silu_conv3x3=None, upsample_conv3x3=None)
+        check_launches(f"reference ({mode})", launches, expected)
+        diff = (got.float().cpu() - want).abs()
+        out = dict(vae=mode, max_abs_err=diff.max().item(),
+                   mean_abs_err=diff.mean().item(), tol=tol,
+                   want_mean_abs=want.abs().mean().item(),
+                   launches=launches)
+        log("reference", **out)
+        if not (out["max_abs_err"] <= tol["max_abs"]
+                and out["mean_abs_err"] <= tol["mean_abs"]):
+            raise AssertionError(f"tiny decode on the card disagrees with "
+                                 f"the CPU: {out}")
 
 
-def summary(rows, launches, name, source, replaces):
+def summary(rows, paths, name, source, replaces, main_path, **extra):
+    """One kernel's entry of the `kernels` line: its heaviest shape's
+    numbers (the largest bound), its worst error over every shape (each
+    shape's limit is on its own `kernel` line), and its launches in
+    `main_path`'s run and in every decode's."""
     mine = [r for r in rows if r["kernel"] == name]
-    top = mine[0]  # the heaviest shape of the decode comes first
+    top = max(mine, key=lambda r: r["bound_ms"])
     return dict(name=name, route="cuda", source=source, replaces=replaces,
-                launches=launches[name],
-                # the worst over every shape; each shape's limit is on its
-                # own `kernel` line
+                launches=paths[main_path][name], launches_in=main_path,
+                launches_by_path={p: n[name] for p, n in paths.items()},
                 max_abs_err=max(r["max_abs_err"] for r in mine),
                 shape=top["shape"], ms=top["ms"],
                 plain_ms=top["plain_ms"], bound_ms=top["bound_ms"],
-                bound_by=top["bound_by"], library_ms=top["library_ms"])
+                bound_by=top["bound_by"], library_ms=top["library_ms"],
+                **extra)
 
 
 def main() -> int:
@@ -351,19 +619,36 @@ def main() -> int:
         compiled=_kernels.LIBRARY.compiled, library=_kernels.LIBRARY.path)
 
     gen = torch.Generator(device="cuda").manual_seed(0)
-    rows = check_attention(gen) + check_splat(gen)
-    dec = decode(gen)
+    rows = check_attention(gen) + check_splat(gen) + check_conv(gen)
+    dec, pipe, x, final = decode(gen)
+    fused_out, fused = decode_fusedconv(pipe, x, final)
+    distilled = decode_distilled(fused, x, gen)
+    del pipe, fused, final
+    torch.cuda.empty_cache()
     reference_check()
 
+    paths = {"decode": dec["launches"],
+             "decode_fusedconv": fused_out["launches"],
+             "decode_distilled": distilled["launches"]}
+    cu = "diffcodec_tpu_torch/csrc/"
     kernels = [
-        dict(summary(rows, dec["launches"], "attention",
-                     "diffcodec_tpu_torch/csrc/attention.cu",
-                     "diffcodec_tpu/ops/attention.py:94"),
-             # the same function's other TPU kernel (stock Pallas flash)
-             also_replaces="diffcodec_tpu/models/layers.py:195"),
-        summary(rows, dec["launches"], "splat_sum",
-                "diffcodec_tpu_torch/csrc/splat.cu",
-                "diffcodec_tpu/ops/softsplat_pallas.py:112"),
+        summary(rows, paths, "attention", cu + "attention.cu",
+                "diffcodec_tpu/ops/attention.py:94", "decode",
+                # the same function's other TPU kernel (stock Pallas flash)
+                also_replaces="diffcodec_tpu/models/layers.py:195"),
+        summary(rows, paths, "splat_sum", cu + "splat.cu",
+                "diffcodec_tpu/ops/softsplat_pallas.py:112", "decode"),
+        summary(rows, paths, "gn_silu_conv3x3", cu + "conv3x3.cu",
+                "diffcodec_tpu/ops/conv_pallas.py:211", "decode_fusedconv"),
+        summary(rows, paths, "upsample_conv3x3", cu + "conv3x3.cu",
+                "diffcodec_tpu/ops/conv_pallas.py:531", "decode_fusedconv"),
+        summary(rows, paths, "silu_conv3x3", cu + "conv3x3.cu",
+                "diffcodec_tpu/ops/conv_pallas.py:96", "decode_fusedconv",
+                also_replaces="scripts/conv_kernel_experiment.py:100",
+                note="gn_silu_conv3x3's kernel with the affine compiled "
+                     "out; no decode path calls it (the JAX package never "
+                     "launched it at 512 px either), so it is held here "
+                     "against its plain version only"),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

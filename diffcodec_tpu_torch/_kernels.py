@@ -44,6 +44,8 @@ _I = ctypes.c_int
 _SIGNATURES = {
     "dc_attention_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, ctypes.c_float, _P],
     "dc_splat_sum": [_P, _P, _P, _I, _I, _I, _I, _P],
+    "dc_conv3x3": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "dc_upsample_conv3x3": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
 }
 
 

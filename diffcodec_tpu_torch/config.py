@@ -1,6 +1,6 @@
 """Typed configuration of the port: the model and sampler configs of
-`diffcodec_tpu/config.py` (:16-120), copied so the port imports nothing of
-the JAX package.  Frozen dataclasses, hashable, with the same defaults
+`diffcodec_tpu/config.py` (:16-120) and its `DistillConfig` (:164-190),
+copied so the port imports nothing of the JAX package.  Frozen dataclasses, hashable, with the same defaults
 (SD-1.5 widths) and the same `tiny()` test sizes."""
 
 from __future__ import annotations
@@ -86,6 +86,32 @@ class SamplerConfig:
     # recompute the UNet down path every k-th step and reuse its hidden and
     # skip stack in between; 1 = exact
     unet_encoder_interval: int = 1
+    freeu: bool = True
+    freeu_s1: float = 0.9
+    freeu_s2: float = 0.2
+    freeu_b1: float = 1.2
+    freeu_b2: float = 1.4
+
+
+@dataclasses.dataclass(frozen=True)
+class DistillConfig:
+    """Consistency (step) distillation of the decoder and the K-step decode
+    of its student (`sampling/distilled.py`).  The guidance and
+    conditioning scales pin the one operating point the student absorbs:
+    the codec's decode settings (SamplerConfig defaults)."""
+    num_teacher_steps: int = 50
+    guidance_scale: float = 3.5
+    controlnet_conditioning_scale: float = 1.35
+    # consistency boundary parameterization (c_skip(0)=1 / c_out(0)=0)
+    sigma_data: float = 0.5
+    timestep_scaling: float = 10.0
+    ema_decay: float = 0.995
+    loss: str = "huber"  # 'huber' | 'l2'
+    huber_c: float = 0.001
+    # K-step decode schedule length used by sampling/distilled.py
+    num_student_steps: int = 4
+    # FreeU, matching SamplerConfig's decode settings (the student trains
+    # and decodes with the teacher's UNet scaling)
     freeu: bool = True
     freeu_s1: float = 0.9
     freeu_s2: float = 0.2

@@ -13,7 +13,14 @@ Numerics kept from the JAX package:
     ControlNet attention call (self and cross) goes to
     `ops.attention.attention`, the CUDA kernel on the card;
     `AttentionBlock2D` (the VAE's single head, D = 512) stays a plain
-    matmul + softmax, as XLA computed it outside any Pallas kernel.
+    matmul + softmax, as XLA computed it outside any Pallas kernel;
+  * `ResnetBlock2D` and `Upsample2D` take `fused_conv`: off, GroupNorm,
+    SiLU and the upsampling are separate passes around a cuDNN conv (the
+    JAX package with `DIFFCODEC_FUSED_SILU_CONV` unset); on, each conv3x3
+    is one call of the kernels of `ops.conv` (`gn_silu_conv3x3` with the
+    folded GroupNorm affine and the shortcut as its residual,
+    `upsample_conv3x3`), as the JAX package's `exact_fusedconv` point
+    routes them (`layers.py:159-192`, `:532-584`).
 """
 
 from __future__ import annotations
@@ -25,7 +32,8 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from diffcodec_tpu_torch.ops.attention import attention
-from diffcodec_tpu_torch.ops.conv import conv2d_nhwc, silu_conv3x3
+from diffcodec_tpu_torch.ops.conv import (conv2d_nhwc, gn_silu_conv3x3,
+                                          upsample_conv3x3)
 
 
 def timestep_embedding(timesteps: torch.Tensor, dim: int,
@@ -110,11 +118,16 @@ def conv1x1(cin: int, cout: int) -> Conv2d:
 
 
 class ResnetBlock2D(nn.Module):
-    """GN-SiLU-conv, + time embedding, GN-SiLU-conv, + shortcut."""
+    """GN-SiLU-conv, + time embedding, GN-SiLU-conv, + shortcut.
+
+    fused_conv: each GN-SiLU-conv is one `gn_silu_conv3x3` call on the
+    folded GroupNorm affine, the second with the shortcut as its residual.
+    """
 
     def __init__(self, cin: int, cout: int, temb_dim: int = None,
-                 eps: float = 1e-5):
+                 eps: float = 1e-5, fused_conv: bool = False):
         super().__init__()
+        self.fused_conv = fused_conv
         self.norm1 = GroupNorm32(cin, eps)
         self.conv1 = conv3x3(cin, cout)
         if temb_dim is not None:
@@ -126,12 +139,19 @@ class ResnetBlock2D(nn.Module):
         self.conv_shortcut = conv1x1(cin, cout) if cin != cout else None
 
     def forward(self, x, temb=None):
-        h = silu_conv3x3(self.norm1(x), self.conv1.weight, self.conv1.bias)
+        if self.fused_conv:
+            h = gn_silu_conv3x3(x, *self.norm1.affine(x), self.conv1.weight,
+                                self.conv1.bias)
+        else:
+            h = self.conv1(F.silu(self.norm1(x)))
         if self.time_emb_proj is not None:
             h = h + self.time_emb_proj(F.silu(temb))[:, None, None, :]
         res = x if self.conv_shortcut is None else self.conv_shortcut(x)
-        return silu_conv3x3(self.norm2(h), self.conv2.weight,
-                            self.conv2.bias) + res
+        if self.fused_conv:
+            return gn_silu_conv3x3(h, *self.norm2.affine(h),
+                                   self.conv2.weight, self.conv2.bias,
+                                   residual=res)
+        return self.conv2(F.silu(self.norm2(h))) + res
 
 
 class Attention(nn.Module):
@@ -242,13 +262,17 @@ class Downsample2D(nn.Module):
 
 
 class Upsample2D(nn.Module):
-    """Nearest 2x upsampling, then a 3x3 conv."""
+    """Nearest 2x upsampling, then a 3x3 conv; fused_conv: one
+    `upsample_conv3x3` call, which never forms the 2x tensor."""
 
-    def __init__(self, channels: int):
+    def __init__(self, channels: int, fused_conv: bool = False):
         super().__init__()
+        self.fused_conv = fused_conv
         self.conv = conv3x3(channels, channels)
 
     def forward(self, x):
+        if self.fused_conv:
+            return upsample_conv3x3(x, self.conv.weight, self.conv.bias)
         B, H, W, C = x.shape
         up = x[:, :, None, :, None, :].expand(B, H, 2, W, 2, C)
         return self.conv(up.reshape(B, 2 * H, 2 * W, C))

@@ -5,26 +5,34 @@ Counterpart: `diffcodec_tpu/models/vae.py` (`Decoder` :62-92, `_out_head`
 resnet-attention-resnet, up blocks of layers_per_block + 1 resnets with
 nearest-2x upsampling, GN - SiLU - conv3x3 out head.  The encoder is not
 ported yet.
+
+`fused_conv` routes every resnet conv, every upsampler and the out head to
+the conv kernels of `ops.conv` (the JAX package's `exact_fusedconv` point,
+at every shape of the decoder: the TPU's shape gates are not copied); the
+out head is then one `gn_silu_conv3x3` call with O = 3, the function JAX's
+projected XLA form computes there (`vae.py:52-60`,
+`conv_pallas.py:424-443`).  Off by default, as the JAX flag is.
 """
 
 from __future__ import annotations
 
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
 
 from diffcodec_tpu_torch.config import VAEConfig
 from diffcodec_tpu_torch.models.layers import (AttentionBlock2D,
                                                GroupNorm32, ResnetBlock2D,
                                                Upsample2D, conv1x1, conv3x3)
-from diffcodec_tpu_torch.ops.conv import silu_conv3x3
+from diffcodec_tpu_torch.ops.conv import gn_silu_conv3x3
 
 
 class _VAEMid(nn.Module):
-    def __init__(self, channels: int):
+    def __init__(self, channels: int, fused_conv: bool):
         super().__init__()
         self.resnets = nn.ModuleList([
-            ResnetBlock2D(channels, channels, None, eps=1e-6),
-            ResnetBlock2D(channels, channels, None, eps=1e-6)])
+            ResnetBlock2D(channels, channels, None, eps=1e-6,
+                          fused_conv=fused_conv) for _ in range(2)])
         self.attentions = nn.ModuleList([AttentionBlock2D(channels)])
 
     def forward(self, x):
@@ -34,12 +42,14 @@ class _VAEMid(nn.Module):
 
 
 class _VAEUpBlock(nn.Module):
-    def __init__(self, cin: int, cout: int, layers: int, add_upsample: bool):
+    def __init__(self, cin: int, cout: int, layers: int, add_upsample: bool,
+                 fused_conv: bool):
         super().__init__()
         self.resnets = nn.ModuleList([
-            ResnetBlock2D(cin if j == 0 else cout, cout, None, eps=1e-6)
+            ResnetBlock2D(cin if j == 0 else cout, cout, None, eps=1e-6,
+                          fused_conv=fused_conv)
             for j in range(layers)])
-        self.upsamplers = (nn.ModuleList([Upsample2D(cout)])
+        self.upsamplers = (nn.ModuleList([Upsample2D(cout, fused_conv)])
                            if add_upsample else None)
 
     def forward(self, x):
@@ -51,11 +61,12 @@ class _VAEUpBlock(nn.Module):
 
 
 class Decoder(nn.Module):
-    def __init__(self, cfg: VAEConfig):
+    def __init__(self, cfg: VAEConfig, fused_conv: bool = False):
         super().__init__()
+        self.fused_conv = fused_conv
         top = cfg.base_channels * cfg.channel_mults[-1]
         self.conv_in = conv3x3(cfg.latent_channels, top)
-        self.mid_block = _VAEMid(top)
+        self.mid_block = _VAEMid(top, fused_conv)
         self.up_blocks = nn.ModuleList()
         prev = top
         rev = list(reversed(cfg.channel_mults))
@@ -63,7 +74,7 @@ class Decoder(nn.Module):
             ch = cfg.base_channels * mult
             self.up_blocks.append(_VAEUpBlock(
                 prev, ch, cfg.layers_per_block + 1,
-                add_upsample=i < len(rev) - 1))
+                add_upsample=i < len(rev) - 1, fused_conv=fused_conv))
             prev = ch
         self.conv_norm_out = GroupNorm32(prev, 1e-6)
         self.conv_out = conv3x3(prev, cfg.in_channels)
@@ -72,21 +83,25 @@ class Decoder(nn.Module):
         x = self.mid_block(self.conv_in(z))
         for block in self.up_blocks:
             x = block(x)
-        return _out_head(x, self.conv_norm_out, self.conv_out)
+        return _out_head(x, self.conv_norm_out, self.conv_out,
+                         self.fused_conv)
 
 
-def _out_head(h, norm: GroupNorm32, conv: nn.Conv2d):
+def _out_head(h, norm: GroupNorm32, conv: nn.Conv2d, fused: bool):
     """GN -> SiLU -> conv3x3."""
-    return silu_conv3x3(norm(h), conv.weight, conv.bias)
+    if fused:
+        return gn_silu_conv3x3(h, *norm.affine(h), conv.weight, conv.bias)
+    return conv(F.silu(norm(h)))
 
 
 class AutoencoderKL(nn.Module):
     """The VAE's decoding half: post_quant_conv + Decoder."""
 
-    def __init__(self, cfg: VAEConfig = VAEConfig()):
+    def __init__(self, cfg: VAEConfig = VAEConfig(),
+                 fused_conv: bool = False):
         super().__init__()
         self.cfg = cfg
-        self.decoder = Decoder(cfg)
+        self.decoder = Decoder(cfg, fused_conv)
         self.post_quant_conv = conv1x1(cfg.latent_channels,
                                        cfg.latent_channels)
 

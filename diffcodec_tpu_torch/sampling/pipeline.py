@@ -43,16 +43,19 @@ class DualFlowPipeline:
                sampler: SamplerConfig = SamplerConfig(),
                scheduler_cfg: SchedulerConfig = SchedulerConfig(),
                dtype: torch.dtype = torch.bfloat16,
-               device="cuda") -> "DualFlowPipeline":
+               device="cuda", fused_conv: bool = False
+               ) -> "DualFlowPipeline":
         """Build the three models on `device` with their weights in
         `dtype` (initialised by PyTorch; load real ones with
-        `weights.load_pipeline_params`)."""
+        `weights.load_pipeline_params`).  fused_conv: the VAE decoder's
+        convs run through the conv kernels of `ops.conv` (the JAX
+        package's `exact_fusedconv` point); off, they stay on cuDNN."""
         if controlnet_cfg is None:
             controlnet_cfg = ControlNetConfig(unet=unet_cfg)
         with torch.device(device):
             models = [UNet2DConditionModel(unet_cfg),
                       DualFlowControlNet(controlnet_cfg),
-                      AutoencoderKL(vae_cfg)]
+                      AutoencoderKL(vae_cfg, fused_conv)]
         unet, controlnet, vae = (m.to(dtype).eval().requires_grad_(False)
                                  for m in models)
         return cls(unet=unet, controlnet=controlnet, vae=vae,

@@ -46,13 +46,30 @@ class NoiseSchedule:
         abar = np.cumprod(1.0 - make_betas(cfg))
         return cls(cfg=cfg, alphas_cumprod=abar.astype(np.float32))
 
+    def _coeffs(self, timestep: int):
+        """(sqrt(abar_t), sqrt(1 - abar_t)) in fp32, as Python floats."""
+        abar = self.alphas_cumprod[int(timestep)]
+        return (float(np.sqrt(abar)),
+                float(np.sqrt(np.float32(1.0) - abar)))
+
+    def add_noise(self, sample: torch.Tensor, noise: torch.Tensor,
+                  timestep: int) -> torch.Tensor:
+        """q(x_t | x_0): sqrt(abar_t) x0 + sqrt(1 - abar_t) eps, fp32."""
+        sa, so = self._coeffs(timestep)
+        return sa * sample.float() + so * noise.float()
+
+    def velocity(self, sample: torch.Tensor, noise: torch.Tensor,
+                 timestep: int) -> torch.Tensor:
+        """v-prediction target: sqrt(abar_t) eps - sqrt(1 - abar_t) x0,
+        fp32."""
+        sa, so = self._coeffs(timestep)
+        return sa * noise.float() - so * sample.float()
+
     def pred_original_sample(self, sample: torch.Tensor,
                              model_output: torch.Tensor,
                              timestep: int) -> torch.Tensor:
         """x0 from (x_t, model output, t), in fp32."""
-        abar = self.alphas_cumprod[int(timestep)]
-        sa = float(np.sqrt(abar))
-        so = float(np.sqrt(np.float32(1.0) - abar))
+        sa, so = self._coeffs(timestep)
         sample = sample.float()
         model_output = model_output.float()
         if self.cfg.prediction_type == "epsilon":

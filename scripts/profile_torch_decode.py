@@ -36,6 +36,7 @@ from chip_smoke import (FRAMES, RES, STEPS, build_decode,  # noqa: E402
 GROUPS = [
     ("attention kernel", ("attention_fwd_kernel",)),
     ("splat kernel", ("splat_sum_kernel",)),
+    ("conv3x3 kernel", ("conv3x3_kernel",)),
     ("convolution", ("conv", "implicit", "xmma_fprop", "cudnn", "sm90_xmma",
                      "nchwToNhwc", "nhwcToNchw")),
     ("matrix product", ("gemm", "cutlass", "cublas", "nvjet", "sm90_")),

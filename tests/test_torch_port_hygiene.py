@@ -4,7 +4,8 @@ The card's machine has PyTorch, numpy, scipy and einops but no jax, flax,
 optax, PIL, safetensors, transformers or triton, and the port must not
 lean on the JAX package.  A subprocess installs an import hook that
 refuses those modules, then imports every module of `diffcodec_tpu_torch`,
-`chip_smoke` and `scripts/profile_torch_decode.py` (without running them).
+`chip_smoke`, `scripts/profile_torch_decode.py` and
+`scripts/conv_kernel_breakdown.py` (without running them).
 """
 
 import os
@@ -41,6 +42,7 @@ for name in names:
 import chip_smoke
 sys.path.insert(0, "scripts")
 import profile_torch_decode
+import conv_kernel_breakdown
 loaded = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
 assert not loaded, loaded
 print("imported", len(names), "modules")
@@ -60,7 +62,8 @@ def test_port_and_chip_smoke_import_without_jax():
 
 def test_kernel_sources_include_no_torch_headers():
     sources = sorted(PKG.glob("csrc/*.cu*"))
-    assert {p.name for p in sources} >= {"attention.cu", "splat.cu"}
+    assert {p.name for p in sources} >= {"attention.cu", "splat.cu",
+                                         "conv3x3.cu"}
     for p in sources:
         includes = re.findall(r'#\s*include\s*[<"]([^>"]+)[>"]',
                               p.read_text())
