@@ -26,6 +26,29 @@ Phases, each printed as one JSON line with the elapsed seconds `t`:
   reference  the same pipeline at a tiny config on the card (bf16, kernels)
              against the CPU (fp32, plain versions) on the same weights,
              with the VAE unfused and fused
+  kernel     (training shapes) the attention forward with its log-sum-exp
+             and the dQ and dK/dV backward kernels against autograd of the
+             plain version at every shape of a batch-8 training step (SDPA's
+             backward timed beside them); the stride-2 conv against its
+             plain version and cuDNN at the encoder's three shapes and both
+             paddings; the GN+SiLU+conv at the encoder's shapes and the
+             splat at the extractor's batch-8 shapes
+  train      the training path: `ControlNetTrainer.train_step` at SD-1.5
+             full width, batch 8 at 512 x 512, 77 text tokens, the fused VAE
+             encoder on the fly, MSE, AdamW lr 1e-5 with clipping at 1.0,
+             bf16 compute over fp32 ControlNet masters, seeded random
+             weights; TRAIN_STEPS steps (the first includes set-up):
+             samples/s from the median step, stage seconds of one step
+             synchronised stage by stage, peak memory, launches per step
+             (backward attention launches asserted equal to the forward
+             launches that need a gradient, 20 GN+SiLU+conv and 3 stride-2
+             launches), finite losses, ControlNet masters moved, frozen
+             models unmoved, non-zero gradients upstream of the splats
+  train_reference
+             one step at a tiny config on the card (bf16, kernels) against
+             the CPU (fp32, plain versions) on the same weights, batch and
+             draws: loss, global gradient norm and the cosine of the
+             ControlNet's gradients
 Then a {"kernels": [...]} line, the `nvidia-smi` name and power limit, and
 last {"ok": true, "device": {...}}.  Any failure raises and exits non-zero.
 """
@@ -34,6 +57,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -44,13 +68,23 @@ import torch.nn.functional as F
 
 from diffcodec_tpu_torch import _kernels
 from diffcodec_tpu_torch.config import (ControlNetConfig, DistillConfig,
-                                        SamplerConfig, UNetConfig, VAEConfig)
+                                        SamplerConfig, SchedulerConfig,
+                                        TrainConfig, UNetConfig, VAEConfig)
 from diffcodec_tpu_torch.ops import conv
-from diffcodec_tpu_torch.ops.attention import attention, attention_reference
+from diffcodec_tpu_torch.ops.attention import (attention, attention_backward,
+                                               attention_bwd_dkv,
+                                               attention_bwd_dq,
+                                               attention_forward,
+                                               attention_reference)
 from diffcodec_tpu_torch.ops.softsplat import splat_sum, splat_sum_reference
+from diffcodec_tpu_torch.models.controlnet import DualFlowControlNet
+from diffcodec_tpu_torch.models.unet2d_condition import UNet2DConditionModel
 from diffcodec_tpu_torch.models.vae import AutoencoderKL, decode_from_latents
 from diffcodec_tpu_torch.sampling.distilled import DistilledPipeline
 from diffcodec_tpu_torch.sampling.pipeline import DualFlowPipeline
+from diffcodec_tpu_torch.sampling.schedulers import NoiseSchedule
+from diffcodec_tpu_torch.train.trainer import (ControlNetTrainer, Optimizer,
+                                               TrainState)
 
 T0 = time.perf_counter()
 # NVIDIA H100 SXM data sheet: dense bf16 tensor-core rate, fp32 rate
@@ -125,6 +159,33 @@ SILU_SHAPES = [(7, 512, 512, 128, 128)]
 # the two launch counts of the fused decoder, asserted per decode
 FUSED_VAE_LAUNCHES = {"gn_silu_conv3x3": 29, "upsample_conv3x3": 3}
 DISTILL_STEPS = 4
+# training: scripts/bench_train.py's point, batch 8 at 512 x 512
+TRAIN_BATCH, TRAIN_STEPS = 8, 6
+TRAIN_BH = TRAIN_BATCH * HEADS
+# the fused encoder's launches in a step: 10 resnets of 2 GN+SiLU+conv, 3
+# stride-2 downsamplers
+ENCODER_LAUNCHES = {"gn_silu_conv3x3": 20, "downsample_conv3x3": 3}
+# (B, H, W, C, O, residual) of the encoder's GN+SiLU+conv launches
+ENCODER_GN_SHAPES = [
+    (8, 512, 512, 128, 128, False), (8, 512, 512, 128, 128, True),
+    (8, 256, 256, 128, 256, False), (8, 256, 256, 256, 256, True),
+    (8, 256, 256, 256, 256, False), (8, 128, 128, 256, 512, False),
+    (8, 128, 128, 512, 512, True), (8, 128, 128, 512, 512, False),
+    (8, 64, 64, 512, 512, True), (8, 64, 64, 512, 512, False)]
+# (B, H, W, C, O) of the encoder's stride-2 convs (input resolution)
+DOWN_SHAPES = [(8, 512, 512, 128, 128), (8, 256, 256, 256, 256),
+               (8, 128, 128, 512, 512)]
+# Attention gradients, against autograd of the plain version: the kernels
+# round P and dS to bf16 before their products, the plain version P and
+# dP, and each rounds its output, so an element differs by a sum of many
+# bf16 roundings.  ||kernel - plain|| <= 1e-2 ||plain|| (the forward's
+# form) and, elementwise, 2^-5 of itself and of the largest gradient.
+GRAD_ULP = 2.0 ** -5
+# train_reference: bf16 through the tiny ControlNet, UNet and encoder,
+# forward and backward, against fp32 on the CPU.  The loss is a mean over
+# all latents (bf16 error averages out); the gradients carry bf16's 2^-8
+# relative rounding through a dozen layers
+TRAIN_REF_TOL = dict(loss_rel=0.02, grad_norm_rel=0.05, grad_cosine=0.98)
 
 
 def compare(label: str, got, want, atol: float, rtol: float) -> float:
@@ -175,6 +236,20 @@ def bound(flops: float, nbytes: float, peak_flops: float):
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
+def _attention_close(label, got, want, ulp) -> tuple:
+    """(max abs error, ||error|| / ||plain||), raising past the limits:
+    elementwise `ulp` of each element and of the largest, and the norm
+    limit ATTN_REL_NORM."""
+    err = compare(label, got, want, ulp * want.float().abs().max().item(),
+                  ulp)
+    rel = ((got.float() - want.float()).norm()
+           / want.float().norm()).item()
+    if not rel <= ATTN_REL_NORM:
+        raise AssertionError(f"{label}: ||error|| / ||plain|| = {rel} > "
+                             f"{ATTN_REL_NORM}")
+    return err, rel
+
+
 def check_attention(gen) -> list:
     rows = []
     for Lq, Lk, D in ATTN_SHAPES:
@@ -184,15 +259,10 @@ def check_attention(gen) -> list:
         scale = D ** -0.5
         got = attention(q, k, v, scale)
         want = attention_reference(q, k, v, scale)
-        label = f"attention {[BH, Lq, Lk, D]}"
         tol = dict(atol=ATTN_ULP * want.float().abs().max().item(),
                    rtol=ATTN_ULP, rel_norm=ATTN_REL_NORM)
-        err = compare(label, got, want, tol["atol"], tol["rtol"])
-        rel_norm = ((got.float() - want.float()).norm()
-                    / want.float().norm()).item()
-        if not rel_norm <= tol["rel_norm"]:
-            raise AssertionError(f"{label}: ||error|| / ||plain|| = "
-                                 f"{rel_norm} > {tol['rel_norm']}")
+        err, rel_norm = _attention_close(f"attention {[BH, Lq, Lk, D]}",
+                                         got, want, ATTN_ULP)
         del got, want
         reps = 5 if Lq >= 1024 else 20
         sdpa = torch.nn.functional.scaled_dot_product_attention
@@ -215,22 +285,24 @@ def check_attention(gen) -> list:
     return rows
 
 
-def check_splat(gen) -> list:
+def check_splat(gen, batch: int = BATCH) -> list:
+    """The splat at the extractor's shapes for `batch` splats (2 flow
+    directions per sample)."""
     rows = []
     for R, C in SPLAT_SHAPES:
-        vals = torch.randn(BATCH, R, R, C, device="cuda", generator=gen)
-        flow = torch.randn(BATCH, R, R, 2, device="cuda", generator=gen) * 3
+        vals = torch.randn(batch, R, R, C, device="cuda", generator=gen)
+        flow = torch.randn(batch, R, R, 2, device="cuda", generator=gen) * 3
         flow[0, 1, :4, 0] = float("nan")        # dropped pixels
         flow[1, :, -1, 0] = R + 2.0             # lands out of frame
         flow[2, 0, :, 1] = -1e9
-        err = compare(f"splat_sum {[BATCH, R, R, C]}", splat_sum(vals, flow),
+        err = compare(f"splat_sum {[batch, R, R, C]}", splat_sum(vals, flow),
                       splat_sum_reference(vals, flow), **SPLAT_TOL)
-        n = BATCH * R * R
+        n = batch * R * R
         # a multiply and an add per corner and channel, fp32; vals and
         # flow read, out written
         b_ms, b_by = bound(4 * 2 * n * C, 4 * n * (2 * C + 2),
                            PEAK_FP32_FLOPS)
-        row = dict(kernel="splat_sum", shape=[BATCH, R, R, C],
+        row = dict(kernel="splat_sum", shape=[batch, R, R, C],
                    max_abs_err=err, tol=SPLAT_TOL,
                    ms=time_ms(lambda: splat_sum(vals, flow), 20),
                    plain_ms=time_ms(lambda: splat_sum_reference(vals, flow),
@@ -251,11 +323,12 @@ def _conv_inputs(gen, B, H, W, C, O):
 
 
 def _conv_row(name, shape, got, want, fn, plain, library, reps, taps,
-              nbytes) -> dict:
+              nbytes, out_pixels=None, library_label=None) -> dict:
     """Check `got` against `want` (the CONV tolerance), time the kernel,
     the plain version and the library call, and bound the work: 2 * taps
-    FLOP per input pixel, input channel and output channel (taps = 9, or
-    16 collapsed for the upsample), and `nbytes` moved."""
+    FLOP per pixel, input channel and output channel (taps = 9, or 16
+    collapsed for the upsample; the input's pixels, or `out_pixels` for
+    the stride-2 conv), and `nbytes` moved."""
     B, H, W, C, O = shape[:5]
     label = f"{name} {list(shape)}"
     tol = dict(atol=CONV_ULP * want.float().abs().max().item(),
@@ -266,25 +339,26 @@ def _conv_row(name, shape, got, want, fn, plain, library, reps, taps,
     if not rel_norm <= tol["rel_norm"]:
         raise AssertionError(f"{label}: ||error|| / ||plain|| = {rel_norm} "
                              f"> {tol['rel_norm']}")
-    b_ms, b_by = bound(2.0 * taps * B * H * W * C * O, nbytes,
-                       PEAK_BF16_FLOPS)
+    pixels = B * H * W if out_pixels is None else out_pixels
+    b_ms, b_by = bound(2.0 * taps * pixels * C * O, nbytes, PEAK_BF16_FLOPS)
     row = dict(kernel=name, shape=list(shape), max_abs_err=err,
                rel_norm_err=rel_norm, tol=tol, ms=time_ms(fn, reps),
                plain_ms=time_ms(plain, reps), library_ms=time_ms(library,
                                                                  reps),
-               library="F.conv2d (cuDNN, channels-last) of the input "
-                       + ("already upsampled" if taps == 16 else
-                          "already activated")
-                       + ": the conv part of the function",
+               library=library_label or (
+                   "F.conv2d (cuDNN, channels-last) of the input "
+                   + ("already upsampled" if taps == 16 else
+                      "already activated")
+                   + ": the conv part of the function"),
                bound_ms=b_ms, bound_by=b_by)
     log("kernel", **row)
     return row
 
 
-def check_conv(gen) -> list:
-    """Each conv kernel at every shape the fused decoder gives it."""
+def check_gn_conv(gen, shapes) -> list:
+    """The GN+SiLU+conv kernel at (B, H, W, C, O, residual) `shapes`."""
     rows = []
-    for B, H, W, C, O, residual in GN_SHAPES:
+    for B, H, W, C, O, residual in shapes:
         a = _conv_inputs(gen, B, H, W, C, O)
         x, sc, sh, w, b = (a[k] for k in ("x", "scale", "shift", "weight",
                                           "bias"))
@@ -307,6 +381,12 @@ def check_conv(gen) -> list:
                  + 9 * C * O) + 4 * (2 * B * C + O)))
         del a, x, res, act, act_nchw
         torch.cuda.empty_cache()
+    return rows
+
+
+def check_conv(gen) -> list:
+    """Each conv kernel at every shape the fused decoder gives it."""
+    rows = check_gn_conv(gen, GN_SHAPES)
     for B, H, W, C, O in UP_SHAPES:
         a = _conv_inputs(gen, B, H, W, C, O)
         x, w, b = a["x"], a["weight"], a["bias"]
@@ -397,10 +477,14 @@ def timed(fn):
 
 def counted(fn):
     """(fn(), seconds, launches of each kernel in that call)."""
-    counters = {"attention": attention, "splat_sum": splat_sum,
+    counters = {"attention": attention,
+                "attention_bwd_dkv": attention_bwd_dkv,
+                "attention_bwd_dq": attention_bwd_dq,
+                "splat_sum": splat_sum,
                 "gn_silu_conv3x3": conv.gn_silu_conv3x3,
                 "silu_conv3x3": conv.silu_conv3x3,
-                "upsample_conv3x3": conv.upsample_conv3x3}
+                "upsample_conv3x3": conv.upsample_conv3x3,
+                "downsample_conv3x3": conv.downsample_conv3x3}
     for c in counters.values():
         c.launches = 0
     result, seconds = timed(fn)
@@ -412,6 +496,11 @@ def check_images(label, images, frames=FRAMES, res=RES):
         raise AssertionError(f"{label}: shape {tuple(images.shape)}")
     if not torch.isfinite(images).all():
         raise AssertionError(f"{label}: non-finite values")
+
+
+# a decode runs no backward and no encoder
+NO_TRAIN_KERNELS = {"attention_bwd_dkv": 0, "attention_bwd_dq": 0,
+                    "downsample_conv3x3": 0}
 
 
 def check_launches(label, launches, expected):
@@ -439,7 +528,7 @@ def decode(gen):
     # the exact point stays on cuDNN: no conv kernel
     check_launches("decode", launches, {
         "attention": None, "splat_sum": None, "gn_silu_conv3x3": 0,
-        "upsample_conv3x3": 0, "silu_conv3x3": 0})
+        "upsample_conv3x3": 0, "silu_conv3x3": 0, **NO_TRAIN_KERNELS})
 
     _, second_s = timed(lambda: run(pipe, x))
     # the pyramid alone, the denoise loop (pyramid included), the VAE
@@ -480,7 +569,7 @@ def decode_fusedconv(pipe, x, final) -> tuple:
     check_images("decode_fusedconv", images)
     check_launches("decode_fusedconv", launches,
                    {"attention": None, "splat_sum": None, "silu_conv3x3": 0,
-                    **FUSED_VAE_LAUNCHES})
+                    **FUSED_VAE_LAUNCHES, **NO_TRAIN_KERNELS})
     _, second_s = timed(lambda: run(fused, x))
     with torch.no_grad():
         _, pyramid_s = timed(lambda: fused.controlnet.extract_pyramid(
@@ -525,7 +614,7 @@ def decode_distilled(fused, x, gen) -> dict:
     check_images("decode_distilled", images)
     check_launches("decode_distilled", launches,
                    {"attention": None, "splat_sum": None, "silu_conv3x3": 0,
-                    **FUSED_VAE_LAUNCHES})
+                    **FUSED_VAE_LAUNCHES, **NO_TRAIN_KERNELS})
     _, second_s = timed(go)
     out = dict(frames=FRAMES, res=RES, steps=DISTILL_STEPS,
                timesteps=[int(t) for t in dpipe.step_schedule()],
@@ -584,6 +673,327 @@ def reference_check():
                                  f"the CPU: {out}")
 
 
+def check_attention_train(gen) -> list:
+    """The attention kernels at every shape of a batch-8 training step:
+    the forward with its log-sum-exp, and the dK/dV and dQ kernels against
+    autograd of the plain version.  The plain and the library times of the
+    backward rows are those of the whole backward (dQ, dK and dV: neither
+    has a call for one part)."""
+    rows = []
+    sdpa = F.scaled_dot_product_attention
+    for Lq, Lk, D in ATTN_SHAPES:
+        BH, scale = TRAIN_BH, D ** -0.5
+        shape = [BH, Lq, Lk, D]
+        q, k, v, dout = (torch.randn(BH, L, D, device="cuda", generator=gen)
+                         .bfloat16() for L in (Lq, Lk, Lk, Lq))
+        reps = 3 if Lq >= 1024 else 10
+        out, lse = attention_forward(q, k, v, scale, with_lse=True)
+        err, rel = _attention_close(f"attention (lse) {shape}", out,
+                                    attention_reference(q, k, v, scale),
+                                    ATTN_ULP)
+        logits = torch.einsum("bqd,bkd->bqk", q.float(), k.float()) * scale
+        want_lse = torch.logsumexp(logits, -1)
+        del logits
+        # fp32 sums of exponentials in another order: a few ulps of lse
+        lse_err = compare(f"lse {shape}", lse, want_lse, 1e-4, 1e-5)
+        b_ms, b_by = bound(4.0 * BH * Lq * Lk * D,
+                           2 * 2 * BH * D * (Lq + Lk) + 4 * BH * Lq,
+                           PEAK_BF16_FLOPS)
+        row = dict(kernel="attention", shape=shape, with_lse=True,
+                   max_abs_err=err, rel_norm_err=rel, lse_max_abs_err=lse_err,
+                   tol=dict(atol=ATTN_ULP, rtol=ATTN_ULP,
+                            rel_norm=ATTN_REL_NORM, lse_atol=1e-4,
+                            lse_rtol=1e-5),
+                   ms=time_ms(lambda: attention_forward(q, k, v, scale,
+                                                        with_lse=True), reps),
+                   plain_ms=time_ms(
+                       lambda: attention_reference(q, k, v, scale), reps),
+                   library_ms=time_ms(
+                       lambda: sdpa(q[None], k[None], v[None], scale=scale),
+                       reps),
+                   bound_ms=b_ms, bound_by=b_by)
+        log("kernel", **row)
+        rows.append(row)
+
+        dq, dk, dv = attention_backward(q, k, v, out, lse, dout, scale)
+        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+        ref = attention_reference(*leaves, scale)
+        gq, gk, gv = torch.autograd.grad(ref, leaves, dout, retain_graph=True)
+        errs = {n: _attention_close(f"d{n} {shape}", g_, w_, GRAD_ULP)
+                for n, g_, w_ in (("q", dq, gq), ("k", dk, gk),
+                                  ("v", dv, gv))}
+        del dq, dk, dv, gq, gk, gv
+        plain_ms = time_ms(lambda: torch.autograd.grad(
+            ref, leaves, dout, retain_graph=True), reps)
+        del ref, leaves
+        torch.cuda.empty_cache()
+        sq = [t.detach()[None].requires_grad_() for t in (q, k, v)]
+        s_out = sdpa(*sq, scale=scale)
+        library_ms = time_ms(lambda: torch.autograd.grad(
+            s_out, sq, dout[None], retain_graph=True), reps)
+        del s_out, sq
+        delta = (dout.float() * out.float()).sum(-1)
+        io = 2 * 2 * BH * D * (Lq + Lk) + 4 * 2 * BH * Lq  # q k v dout lse Di
+        tol = dict(atol=GRAD_ULP, rtol=GRAD_ULP, rel_norm=ATTN_REL_NORM)
+        common = dict(shape=shape, tol=tol, plain_ms=plain_ms,
+                      library_ms=library_ms,
+                      plain="autograd of attention_reference (dQ, dK, dV)",
+                      library="SDPA's backward (dQ, dK, dV)")
+        # dK/dV: P recomputed, dV, dP, dK (4 products); dQ: P, dP, dQ (3)
+        b_ms, b_by = bound(8.0 * BH * Lq * Lk * D, io + 2 * 2 * BH * Lk * D,
+                           PEAK_BF16_FLOPS)
+        row = dict(kernel="attention_bwd_dkv",
+                   max_abs_err=max(errs["k"][0], errs["v"][0]),
+                   rel_norm_err=max(errs["k"][1], errs["v"][1]),
+                   ms=time_ms(lambda: attention_bwd_dkv(
+                       q, k, v, dout, lse, delta, scale), reps),
+                   bound_ms=b_ms, bound_by=b_by, **common)
+        log("kernel", **row)
+        rows.append(row)
+        b_ms, b_by = bound(6.0 * BH * Lq * Lk * D, io + 2 * BH * Lq * D,
+                           PEAK_BF16_FLOPS)
+        row = dict(kernel="attention_bwd_dq", max_abs_err=errs["q"][0],
+                   rel_norm_err=errs["q"][1],
+                   ms=time_ms(lambda: attention_bwd_dq(
+                       q, k, v, dout, lse, delta, scale), reps),
+                   bound_ms=b_ms, bound_by=b_by, **common)
+        log("kernel", **row)
+        rows.append(row)
+        del q, k, v, dout, out, lse, delta
+        torch.cuda.empty_cache()
+    return rows
+
+
+def check_downsample(gen) -> list:
+    """The stride-2 conv at the encoder's shapes, with both paddings;
+    cuDNN's stride-2 conv of the input already padded beside it."""
+    rows = []
+    for B, H, W, C, O in DOWN_SHAPES:
+        for asymmetric_pad in (True, False):
+            a = _conv_inputs(gen, B, H, W, C, O)
+            x, w, b = a["x"], a["weight"], a["bias"]
+            pad = 0 if asymmetric_pad else 1
+            Ho, Wo = (H + pad - 2) // 2 + 1, (W + pad - 2) // 2 + 1
+            xp = F.pad(x, (0, 0, pad, 1, pad, 1)).permute(0, 3, 1, 2)
+            rows.append(_conv_row(
+                "downsample_conv3x3", (B, H, W, C, O, asymmetric_pad),
+                conv.downsample_conv3x3(x, w, b, asymmetric_pad),
+                conv.downsample_conv3x3_ref(x, w, b, asymmetric_pad),
+                lambda: conv.downsample_conv3x3(x, w, b, asymmetric_pad),
+                lambda: conv.downsample_conv3x3_ref(x, w, b, asymmetric_pad),
+                lambda: F.conv2d(xp, w, b, stride=2), 5, 9,
+                # x, out, weights in bf16, bias fp32
+                2 * (B * H * W * C + B * Ho * Wo * O + 9 * C * O) + 4 * O,
+                out_pixels=B * Ho * Wo,
+                library_label="F.conv2d stride 2 (cuDNN, channels-last) of "
+                              "the input already padded"))
+            del a, x, xp
+            torch.cuda.empty_cache()
+    return rows
+
+
+def make_trainer(unet, controlnet, vae, cfg: TrainConfig, dtype):
+    """(trainer, state) over fp32 models: the ControlNet's fp32 masters in
+    the TrainState, the models cast to `dtype` (the ControlNet as the
+    working copy, the UNet and the VAE frozen)."""
+    state = TrainState.create(dict(controlnet.named_parameters()),
+                              Optimizer(cfg))
+    trainer = ControlNetTrainer(
+        unet=unet.to(dtype).eval(), controlnet=controlnet.to(dtype),
+        vae=vae.to(dtype).eval(),
+        schedule=NoiseSchedule.create(SchedulerConfig()), config=cfg)
+    return trainer, state
+
+
+def train_models(unet_cfg, cn_cfg, vae_cfg, device):
+    """fp32 UNet, ControlNet and fused-conv VAE on `device`."""
+    with torch.device(device):
+        return (UNet2DConditionModel(unet_cfg), DualFlowControlNet(cn_cfg),
+                AutoencoderKL(vae_cfg, fused_conv=True))
+
+
+def train_batch(gen, B, res, ctx_dim, device, dtype):
+    """A synthetic batch: ground-truth images and anchors uniform in
+    [-1, 1], flow ~ 4 N(0, 1) pixels, 77 text tokens."""
+    def rand(*shape):
+        return torch.rand(shape, device=device, generator=gen) * 2 - 1
+    return dict(image=rand(B, res, res, 3).to(dtype),
+                cond=rand(B, res, res, 6).to(dtype),
+                flow=torch.randn((B, res, res, 4), device=device,
+                                 generator=gen) * 4,
+                text_embeds=(torch.randn((B, 77, ctx_dim), device=device,
+                                         generator=gen) * 0.02).to(dtype))
+
+
+def fingerprint(*modules) -> torch.Tensor:
+    return torch.stack([p.float().sum() for m in modules
+                        for p in m.parameters()])
+
+
+@torch.no_grad()
+def positive_confidence(controlnet):
+    """Set each level's confidence head (the last bias of `metric_net`, one
+    scalar) to 1.  With random weights the extractor's features are small,
+    so a level's confidence takes that bias's sign at every pixel: negative
+    for half the levels, where `soft_fuse` clamps it to 0 and the level
+    passes no gradient back to the extractor at all, whatever the kernels
+    do.  A trained extractor's confidences are positive."""
+    for warper in controlnet.feature_extractor.wrapper:
+        warper.metric_net[2].bias.fill_(1.0)
+
+
+def upstream_of_splats(controlnet):
+    """The feature extractor's parameters that feed the splats: the
+    pre-extractors, the per-scale extractors and the metric nets."""
+    return {n: p for n, p in
+            controlnet.feature_extractor.named_parameters()
+            if n.startswith(("first_pre", "last_pre", "extractors_",
+                             "wrapper."))}
+
+
+def train(gen) -> dict:
+    """The training path at the operating point: TRAIN_STEPS steps, one
+    counted, then one step timed stage by stage."""
+    unet_cfg, cfg = UNetConfig(), TrainConfig()
+    models = train_models(unet_cfg, ControlNetConfig(unet=unet_cfg),
+                          VAEConfig(), "cuda")
+    for m in models:
+        fill_params(m, gen)
+    positive_confidence(models[1])
+    trainer, state = make_trainer(*models, cfg, torch.bfloat16)
+    batch = train_batch(gen, TRAIN_BATCH, RES, unet_cfg.cross_attention_dim,
+                        "cuda", torch.bfloat16)
+    log("train_setup", batch=TRAIN_BATCH, res=RES,
+        trainable=sum(p.numel() for p in state.params.values()),
+        frozen=sum(p.numel() for m in (trainer.unet, trainer.vae)
+                   for p in m.parameters()))
+    masters0 = {n: p.clone() for n, p in state.params.items()}
+    frozen0 = fingerprint(trainer.unet, trainer.vae)
+
+    torch.cuda.reset_peak_memory_stats()
+    step_s, losses, launches = [], [], None
+    for i in range(TRAIN_STEPS):
+        def step():
+            return trainer.train_step(state, batch, gen)[1]["loss"].item()
+        if i == 1:
+            loss, s, launches = counted(step)
+        else:
+            loss, s = timed(step)
+        step_s.append(s)
+        losses.append(loss)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+
+    # one more step, synchronised stage by stage
+    moments, encode_s = timed(lambda: trainer.moments(batch))
+    (loss, _), forward_s = timed(lambda: trainer.loss_fn(batch, gen,
+                                                         moments=moments))
+    _, backward_s = timed(loss.backward)
+    upstream = upstream_of_splats(trainer.controlnet)
+    dead = [n for n, p in upstream.items()
+            if p.grad is None or not bool(p.grad.abs().sum() > 0)]
+    _, update_s = timed(lambda: trainer.update(state))
+    losses.append(loss.item())
+
+    # the frozen UNet's down path and mid block do not depend on the
+    # ControlNet (its mid residual is added after the mid block), so their
+    # attention calls need no gradient (JAX's VJP drops them too)
+    unet = trainer.unet
+
+    def independent_of_controlnet():
+        t = torch.zeros(TRAIN_BATCH, dtype=torch.long, device="cuda")
+        h, _ = unet.encode(torch.zeros(TRAIN_BATCH, RES // 8, RES // 8, 4,
+                                       device="cuda"), t,
+                           batch["text_embeds"])
+        unet.mid_block(h, unet.time_emb(t, TRAIN_BATCH),
+                       batch["text_embeds"].to(unet.dtype))
+
+    with torch.no_grad():
+        _, _, frozen_launches = counted(independent_of_controlnet)
+    with_grad = launches["attention"] - frozen_launches["attention"]
+    changed = [n for n, p in state.params.items()
+               if not torch.equal(p, masters0[n])]
+    out = dict(batch=TRAIN_BATCH, res=RES, steps=TRAIN_STEPS,
+               step_s=step_s,
+               samples_per_s=TRAIN_BATCH / statistics.median(step_s[1:]),
+               stages_s=dict(encode=encode_s, forward=forward_s,
+                             backward=backward_s, update=update_s),
+               peak_mem_gib=peak, losses=losses, launches=launches,
+               attention_launches_needing_grad=with_grad,
+               masters_changed=f"{len(changed)}/{len(state.params)}",
+               upstream_of_splats_with_zero_grad=dead)
+    log("train", **out)
+    if not all(map(math.isfinite, losses)):
+        raise AssertionError(f"train: non-finite loss {losses}")
+    check_launches("train", launches, {
+        **ENCODER_LAUNCHES, "splat_sum": None, "upsample_conv3x3": 0,
+        "silu_conv3x3": 0, "attention_bwd_dkv": with_grad,
+        "attention_bwd_dq": with_grad})
+    if with_grad <= 0:
+        raise AssertionError("train: no attention call needed a gradient")
+    if len(changed) < 0.95 * len(state.params):
+        raise AssertionError(f"train: only {out['masters_changed']} master "
+                             "tensors changed")
+    if not torch.equal(fingerprint(trainer.unet, trainer.vae), frozen0):
+        raise AssertionError("train: a frozen parameter changed")
+    if not upstream or dead:
+        raise AssertionError(f"train: no gradient upstream of the splats: "
+                             f"{dead}")
+    return out
+
+
+def train_reference():
+    """One step's loss and ControlNet gradients at a tiny config: the card
+    (bf16, kernels) against the CPU (fp32, plain versions)."""
+    cfgs = (UNetConfig.tiny(), ControlNetConfig.tiny(),
+            VAEConfig(base_channels=8, channel_mults=(1, 1, 2, 2),
+                      layers_per_block=1))
+    cpu_models = train_models(*cfgs, "cpu")
+    card_models = train_models(*cfgs, "cuda")
+    for c, g in zip(cpu_models, card_models):
+        fill_params(c, torch.Generator().manual_seed(7))
+        if isinstance(c, DualFlowControlNet):
+            positive_confidence(c)
+        g.load_state_dict(c.state_dict())
+    cfg = TrainConfig()
+    cpu, _ = make_trainer(*cpu_models, cfg, torch.float32)
+    card, _ = make_trainer(*card_models, cfg, torch.bfloat16)
+    g = torch.Generator().manual_seed(8)
+    batch = train_batch(g, 2, 64, 32, "cpu", torch.float32)
+    draws = dict(noise=torch.randn(2, 8, 8, 4, generator=g),
+                 timesteps=torch.randint(0, 1000, (2,), generator=g),
+                 latent_eps=torch.randn(2, 8, 8, 4, generator=g))
+
+    def grads(trainer, batch, draws):
+        loss, _ = trainer.loss_fn(batch, **draws)
+        loss.backward()
+        gr = trainer.gradients()
+        return loss.item(), torch.cat([gr[n].flatten().cpu() for n in
+                                       sorted(gr)])
+
+    want_loss, want = grads(cpu, batch, draws)
+    card_batch = {k: v.cuda() if k == "flow" else v.cuda().bfloat16()
+                  for k, v in batch.items()}
+    (got_loss, got), _, launches = counted(lambda: grads(
+        card, card_batch, {k: v.cuda() for k, v in draws.items()}))
+    out = dict(loss=got_loss, loss_cpu=want_loss,
+               loss_rel_err=abs(got_loss - want_loss) / abs(want_loss),
+               grad_norm=got.norm().item(), grad_norm_cpu=want.norm().item(),
+               grad_norm_rel_err=abs(got.norm().item() - want.norm().item())
+               / want.norm().item(),
+               grad_cosine=F.cosine_similarity(got, want, dim=0).item(),
+               tol=TRAIN_REF_TOL, launches=launches)
+    log("train_reference", **out)
+    check_launches("train_reference", launches, {
+        name: None for name in ("attention", "attention_bwd_dkv",
+                                "attention_bwd_dq", "splat_sum",
+                                "gn_silu_conv3x3", "downsample_conv3x3")})
+    if not (out["loss_rel_err"] <= TRAIN_REF_TOL["loss_rel"]
+            and out["grad_norm_rel_err"] <= TRAIN_REF_TOL["grad_norm_rel"]
+            and out["grad_cosine"] >= TRAIN_REF_TOL["grad_cosine"]):
+        raise AssertionError(f"tiny training step on the card disagrees "
+                             f"with the CPU: {out}")
+
+
 def summary(rows, paths, name, source, replaces, main_path, **extra):
     """One kernel's entry of the `kernels` line: its heaviest shape's
     numbers (the largest bound), its worst error over every shape (each
@@ -627,21 +1037,40 @@ def main() -> int:
     torch.cuda.empty_cache()
     reference_check()
 
+    rows += (check_attention_train(gen) + check_downsample(gen)
+             + check_gn_conv(gen, ENCODER_GN_SHAPES)
+             + check_splat(gen, 2 * TRAIN_BATCH))
+    trained = train(gen)
+    torch.cuda.empty_cache()
+    train_reference()
+
     paths = {"decode": dec["launches"],
              "decode_fusedconv": fused_out["launches"],
-             "decode_distilled": distilled["launches"]}
+             "decode_distilled": distilled["launches"],
+             "train": trained["launches"]}
     cu = "diffcodec_tpu_torch/csrc/"
+    flash = "jax/experimental/pallas/ops/tpu/flash_attention.py"
     kernels = [
         summary(rows, paths, "attention", cu + "attention.cu",
                 "diffcodec_tpu/ops/attention.py:94", "decode",
                 # the same function's other TPU kernel (stock Pallas flash)
                 also_replaces="diffcodec_tpu/models/layers.py:195"),
+        summary(rows, paths, "attention_bwd_dkv", cu + "attention.cu",
+                flash + ":941", "train",
+                note="plain_ms and library_ms time the whole backward "
+                     "(dQ, dK and dV)"),
+        summary(rows, paths, "attention_bwd_dq", cu + "attention.cu",
+                flash + ":1287", "train",
+                note="plain_ms and library_ms time the whole backward "
+                     "(dQ, dK and dV)"),
         summary(rows, paths, "splat_sum", cu + "splat.cu",
                 "diffcodec_tpu/ops/softsplat_pallas.py:112", "decode"),
         summary(rows, paths, "gn_silu_conv3x3", cu + "conv3x3.cu",
                 "diffcodec_tpu/ops/conv_pallas.py:211", "decode_fusedconv"),
         summary(rows, paths, "upsample_conv3x3", cu + "conv3x3.cu",
                 "diffcodec_tpu/ops/conv_pallas.py:531", "decode_fusedconv"),
+        summary(rows, paths, "downsample_conv3x3", cu + "conv3x3.cu",
+                "diffcodec_tpu/ops/conv_pallas.py:703", "train"),
         summary(rows, paths, "silu_conv3x3", cu + "conv3x3.cu",
                 "diffcodec_tpu/ops/conv_pallas.py:96", "decode_fusedconv",
                 also_replaces="scripts/conv_kernel_experiment.py:100",

@@ -16,6 +16,11 @@ compiler's output; nothing falls back.
 Each C function takes its pointers and the CUDA stream as `void*` and
 returns the `cudaError_t` of its launch; `check` turns a non-zero code into
 an exception.
+
+`PlainBackward` gives a kernel wrapper its gradient: the forward is the
+kernel (its plain version on a CPU tensor), the backward autograd's of the
+plain version, recomputed from the saved inputs; the JAX package's
+`custom_vjp`s around its Pallas kernels do the same.
 """
 
 from __future__ import annotations
@@ -41,11 +46,15 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 # C name -> argument types (every pointer and the stream are c_void_p, so
 # ctypes never cuts a 64-bit address to 32 bits)
+_F = ctypes.c_float
 _SIGNATURES = {
-    "dc_attention_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, ctypes.c_float, _P],
+    "dc_attention_fwd": [_P] * 5 + [_I] * 4 + [_F, _P],
+    "dc_attention_bwd_dkv": [_P] * 8 + [_I] * 4 + [_F, _P],
+    "dc_attention_bwd_dq": [_P] * 7 + [_I] * 4 + [_F, _P],
     "dc_splat_sum": [_P, _P, _P, _I, _I, _I, _I, _P],
     "dc_conv3x3": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "dc_upsample_conv3x3": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "dc_downsample_conv3x3": [_P] * 4 + [_I] * 6 + [_P],
 }
 
 
@@ -142,3 +151,30 @@ def check(code: int, name: str):
 def stream_ptr(device) -> int:
     """PyTorch's current CUDA stream on `device`, as a C pointer value."""
     return torch.cuda.current_stream(device).cuda_stream
+
+
+class PlainBackward(torch.autograd.Function):
+    """y = fast(*args), with the gradient of plain(*args).
+
+    `args` are tensors or None; the backward recomputes `plain` on the
+    saved inputs under autograd and returns its vector-Jacobian product
+    for every input that needs a gradient."""
+
+    @staticmethod
+    def forward(ctx, fast, plain, *args):
+        ctx.plain = plain
+        ctx.save_for_backward(*args)
+        return fast(*args)
+
+    @staticmethod
+    def backward(ctx, grad):
+        args = ctx.saved_tensors
+        needs = ctx.needs_input_grad[2:]
+        with torch.enable_grad():
+            leaves = [a.detach().requires_grad_(n) if a is not None else None
+                      for a, n in zip(args, needs)]
+            out = ctx.plain(*leaves)
+        wanted = [a for a, n in zip(leaves, needs) if n]
+        grads = iter(torch.autograd.grad(out, wanted, grad,
+                                         allow_unused=True))
+        return (None, None, *(next(grads) if n else None for n in needs))

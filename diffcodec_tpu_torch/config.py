@@ -1,12 +1,13 @@
 """Typed configuration of the port: the model and sampler configs of
-`diffcodec_tpu/config.py` (:16-120) and its `DistillConfig` (:164-190),
-copied so the port imports nothing of the JAX package.  Frozen dataclasses, hashable, with the same defaults
-(SD-1.5 widths) and the same `tiny()` test sizes."""
+`diffcodec_tpu/config.py` (:16-120), its `TrainConfig` (:122-161) and its
+`DistillConfig` (:164-190), copied so the port imports nothing of the JAX
+package.  Frozen dataclasses, hashable, with the same defaults (SD-1.5
+widths) and the same `tiny()` test sizes."""
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Optional, Tuple
 
 
 @dataclasses.dataclass(frozen=True)
@@ -91,6 +92,40 @@ class SamplerConfig:
     freeu_s2: float = 0.2
     freeu_b1: float = 1.2
     freeu_b2: float = 1.4
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    """ControlNet training (`train/trainer.py`): AdamW with clipping by
+    global norm and optional gradient accumulation, the reference's
+    defaults (`train_controlnet.py`)."""
+    learning_rate: float = 1e-5
+    lr_scheduler: str = "constant"  # | constant_with_warmup | linear | cosine
+    lr_warmup_steps: int = 500
+    max_train_steps: int = 100000
+    adam_beta1: float = 0.9
+    adam_beta2: float = 0.999
+    adam_weight_decay: float = 1e-2
+    adam_epsilon: float = 1e-8
+    max_grad_norm: float = 1.0
+    gradient_accumulation_steps: int = 1
+    lpips_weight: float = 0.0
+    edge_weight: float = 0.0
+    text_dropout_prob: float = 0.3
+    mixed_precision: str = "bf16"
+    checkpointing_steps: int = 500
+    checkpoints_total_limit: Optional[int] = None
+    seed: int = 0
+    # recompute the ControlNet and UNet forwards in the backward
+    # (activation checkpointing, the reference's --gradient_checkpointing)
+    remat: bool = False
+    # store the Adam moments in bfloat16 (fp32 math; the reference's
+    # --use_8bit_adam analogue): 4 instead of 8 bytes a parameter
+    lowp_adam_moments: bool = False
+    # the JAX package serialises its fused update over this many groups of
+    # tensors to bound XLA's fp32 transients; the port's eager update already
+    # runs tensor by tensor, so it has no effect here
+    adam_update_chunks: int = 0
 
 
 @dataclasses.dataclass(frozen=True)

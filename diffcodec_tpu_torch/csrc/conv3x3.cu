@@ -1,5 +1,5 @@
-// 3x3 convolutions of the VAE decoder, NHWC, bf16 in / bf16 out, fp32
-// accumulation: one implicit-GEMM kernel with two entry points.
+// 3x3 convolutions of the VAE, NHWC, bf16 in / bf16 out, fp32
+// accumulation: one implicit-GEMM kernel with three entry points.
 //
 // Replaces the TPU kernels of diffcodec_tpu/ops/conv_pallas.py:
 //   * gn_silu_conv3x3_pallas (:211, pallas_call :239): (x * scale + shift)
@@ -10,7 +10,14 @@
 //     dc_conv3x3 with prologue 1 (the affine compiled out);
 //   * upsample_conv3x3_pallas (:531, pallas_call :544): conv3x3 of the
 //     nearest-2x upsampled input, as four output phases of 2x2 collapsed
-//     taps at the input resolution -> dc_upsample_conv3x3.
+//     taps at the input resolution -> dc_upsample_conv3x3;
+//   * downsample_conv3x3_pallas (:703, pallas_call :736): conv3x3 at
+//     stride 2, padded bottom/right (the VAE encoder) or on all sides (the
+//     UNet) -> dc_downsample_conv3x3, the stride template (8 x 16 output
+//     pixels a block, a 17 x 33 input halo, 64 output channels).  The
+//     stride halves the products per halo byte; the encoder's three
+//     launches are bound by the operations at 256 and 128 px and by the
+//     bytes at 512 px.
 //
 // What bounds it on an H100: 2 * taps * B * H * W * C * O FLOP of bf16
 // products (taps = 9, or 16 collapsed for the upsample) against the
@@ -67,15 +74,23 @@ namespace {
 constexpr int kThreads = 512;     // 16 warps
 constexpr int kStages = 3;        // shared-memory stages of the chunk ring
 constexpr int kWarps = kThreads / 32;
-constexpr int kTH = 16;           // output rows of a block's tile
 constexpr int kTW = 16;           // output columns of a block's tile
-constexpr int kBM = kTH * kTW;    // output pixels of a block
 constexpr int kBK = 16;           // input channels per chunk
 constexpr int kVec = kBK / 8;     // 16-byte vectors per chunk row
 constexpr int kLD = kBK + 8;      // bf16 row stride in shared memory
-constexpr int kHaloW = kTW + 2;
-constexpr int kHalo = (kTH + 2) * kHaloW;
 constexpr int kMaxDevices = 64;
+
+// A block's output tile (TH rows of kTW pixels) and the input halo it
+// reads at stride S: 16 x 16 pixels and an 18 x 18 halo at stride 1; 8 x 16
+// pixels and a 17 x 33 halo at stride 2, so that three stages still fit in
+// shared memory
+template <int S>
+struct Tile {
+  static constexpr int TH = S == 1 ? 16 : 8;
+  static constexpr int BM = TH * kTW;               // output pixels
+  static constexpr int HALO_W = S * (kTW - 1) + 3;
+  static constexpr int HALO = (S * (TH - 1) + 3) * HALO_W;
+};
 
 enum Prologue { kNone = 0, kSilu = 1, kAffineSilu = 2 };
 
@@ -156,17 +171,20 @@ __device__ __forceinline__ void prologue(uint4& raw,
   }
 }
 
-template <int TAPS, int BN>
+template <int TAPS, int BN, int S>
 struct Smem {
-  static constexpr int kStage = (kHalo + TAPS * BN) * kLD;  // bf16
+  static constexpr int kStage = (Tile<S>::HALO + TAPS * BN) * kLD;  // bf16
   static constexpr size_t kBytes =
       kStages * sizeof(__nv_bfloat16) * kStage;
 };
 
 // PRO: prologue; RES: add a residual [B, H, W, O] in the epilogue; UP: the
 // upsample's 4 phases of 4 collapsed taps, else 9 taps; BN: output channels
-// of a block; WARPS_M x WARPS_N = 16 warps over the 256 x BN tile.
-template <int PRO, bool RES, bool UP, int BN, int WARPS_M>
+// of a block; WARPS_M x WARPS_N = 16 warps over the BM x BN tile; S: the
+// stride (2 only without UP).  Output pixel (oy, ox) of the base grid
+// Hb x Wb (the output, or for UP the input resolution) reads input pixel
+// (S * oy + dy - pad, S * ox + dx - pad) at tap (dy, dx).
+template <int PRO, bool RES, bool UP, int BN, int WARPS_M, int S = 1>
 __global__ void __launch_bounds__(kThreads, 1)
 conv3x3_kernel(const __nv_bfloat16* __restrict__ x,
                const float* __restrict__ scale,
@@ -175,14 +193,19 @@ conv3x3_kernel(const __nv_bfloat16* __restrict__ x,
                const float* __restrict__ bias,
                const __nv_bfloat16* __restrict__ res,
                __nv_bfloat16* __restrict__ out, int H, int W, int C, int O,
-               int tiles_w) {
+               int Hb, int Wb, int pad, int tiles_w) {
+  static_assert(S == 1 || (S == 2 && !UP && PRO == kNone), "stride");
   constexpr int TAPS = UP ? 4 : 9;
+  constexpr int kTH = Tile<S>::TH;
+  constexpr int kBM = Tile<S>::BM;
+  constexpr int kHaloW = Tile<S>::HALO_W;
+  constexpr int kHalo = Tile<S>::HALO;
   constexpr int WARPS_N = kWarps / WARPS_M;
   constexpr int WM = kBM / WARPS_M;  // rows (pixels) of a warp
   constexpr int WN = BN / WARPS_N;   // columns (channels) of a warp
   constexpr int MT = WM / 16;
   constexpr int NT = WN / 8;
-  constexpr int kStage = Smem<TAPS, BN>::kStage;
+  constexpr int kStage = Smem<TAPS, BN, S>::kStage;
   static_assert(WM % 16 == 0 && WN % 16 == 0, "warp tile");
   extern __shared__ __align__(16) unsigned char smem[];
   // kStages stages of [halo kHalo][kLD] then [weights TAPS * BN][kLD]
@@ -190,6 +213,8 @@ conv3x3_kernel(const __nv_bfloat16* __restrict__ x,
 
   const int ty0 = (blockIdx.x / tiles_w) * kTH;
   const int tx0 = (blockIdx.x % tiles_w) * kTW;
+  const int iy0 = S * ty0 - pad;  // input pixel of the halo's corner
+  const int ix0 = S * tx0 - pad;
   const int n0 = blockIdx.y * BN;
   const int phase = UP ? (blockIdx.z & 3) : 0;
   const int b = UP ? (blockIdx.z >> 2) : blockIdx.z;
@@ -215,8 +240,8 @@ conv3x3_kernel(const __nv_bfloat16* __restrict__ x,
     for (int i = threadIdx.x; i < kHalo * kVec; i += kThreads) {
       const int p = i / kVec;
       const int v = i - p * kVec;
-      const int y = ty0 + p / kHaloW - 1;
-      const int xx = tx0 + p % kHaloW - 1;
+      const int y = iy0 + p / kHaloW;
+      const int xx = ix0 + p % kHaloW;
       const int c = c0 + v * 8;
       const bool ok = y >= 0 && y < H && xx >= 0 && xx < W && c < C;
       cp_async16(stage + p * kLD + v * 8,
@@ -243,8 +268,8 @@ conv3x3_kernel(const __nv_bfloat16* __restrict__ x,
     for (int i = threadIdx.x; i < kHalo * kVec; i += kThreads) {
       const int p = i / kVec;
       const int v = i - p * kVec;
-      const int y = ty0 + p / kHaloW - 1;
-      const int xx = tx0 + p % kHaloW - 1;
+      const int y = iy0 + p / kHaloW;
+      const int xx = ix0 + p % kHaloW;
       const int c = c0 + v * 8;
       if (y >= 0 && y < H && xx >= 0 && xx < W && c < C) {
         uint4* q = reinterpret_cast<uint4*>(stage + p * kLD + v * 8);
@@ -300,8 +325,8 @@ conv3x3_kernel(const __nv_bfloat16* __restrict__ x,
       for (int mt = 0; mt < MT; ++mt) {
         // an m-tile is one tile row of 16 pixels
         const int py = (wm * WM + mt * 16) / kTW;
-        ldmatrix_x4(a[mt],
-                    sx + ((py + dy) * kHaloW + dx + a_row) * kLD + a_k);
+        ldmatrix_x4(a[mt], sx + ((S * py + dy) * kHaloW + dx + S * a_row) *
+                                    kLD + a_k);
       }
 #pragma unroll
       for (int nt = 0; nt < NT; nt += 2) {
@@ -321,8 +346,8 @@ conv3x3_kernel(const __nv_bfloat16* __restrict__ x,
   // epilogue: + bias (+ residual) in fp32, one rounding to bf16
   const int g = lane >> 2;  // accumulator row group
   const int t = lane & 3;   // accumulator column pair
-  const int Ho = UP ? 2 * H : H;
-  const int Wo = UP ? 2 * W : W;
+  const int Ho = UP ? 2 * Hb : Hb;
+  const int Wo = UP ? 2 * Wb : Wb;
   const bool pairs = (O & 1) == 0;
 #pragma unroll
   for (int mt = 0; mt < MT; ++mt) {
@@ -331,7 +356,7 @@ conv3x3_kernel(const __nv_bfloat16* __restrict__ x,
       const int r = wm * WM + mt * 16 + g + 8 * half;
       const int y = ty0 + r / kTW;
       const int xx = tx0 + r % kTW;
-      if (y >= H || xx >= W) continue;
+      if (y >= Hb || xx >= Wb) continue;
       const int oy = UP ? 2 * y + di : y;
       const int ox = UP ? 2 * xx + dj : xx;
       const size_t o_off = (((size_t)b * Ho + oy) * Wo + ox) * O;
@@ -364,12 +389,14 @@ conv3x3_kernel(const __nv_bfloat16* __restrict__ x,
   }
 }
 
-template <int PRO, bool RES, bool UP, int BN, int WARPS_M>
+template <int PRO, bool RES, bool UP, int BN, int WARPS_M, int S = 1>
 int launch(const void* x, const void* scale, const void* shift,
            const void* w, const void* bias, const void* res, void* out,
-           int B, int H, int W, int C, int O, cudaStream_t stream) {
-  constexpr size_t smem = Smem<UP ? 4 : 9, BN>::kBytes;
-  auto kernel = conv3x3_kernel<PRO, RES, UP, BN, WARPS_M>;
+           int B, int H, int W, int C, int O, int Hb, int Wb, int pad,
+           cudaStream_t stream) {
+  constexpr size_t smem = Smem<UP ? 4 : 9, BN, S>::kBytes;
+  constexpr int kTH = Tile<S>::TH;
+  auto kernel = conv3x3_kernel<PRO, RES, UP, BN, WARPS_M, S>;
   // the shared-memory limit is a per-device attribute of the function: set
   // it once for each device, not on every launch
   static std::atomic<bool> smem_set[kMaxDevices];
@@ -384,8 +411,8 @@ int launch(const void* x, const void* scale, const void* shift,
     if (err != cudaSuccess) return (int)err;
     smem_set[dev].store(true, std::memory_order_release);
   }
-  const int tiles_w = (W + kTW - 1) / kTW;
-  const int tiles_h = (H + kTH - 1) / kTH;
+  const int tiles_w = (Wb + kTW - 1) / kTW;
+  const int tiles_h = (Hb + kTH - 1) / kTH;
   const dim3 grid(tiles_w * tiles_h, (O + BN - 1) / BN, UP ? 4 * B : B);
   if (grid.y > 65535 || grid.z > 65535) return (int)cudaErrorInvalidValue;
   kernel<<<grid, kThreads, smem, stream>>>(
@@ -393,7 +420,7 @@ int launch(const void* x, const void* scale, const void* shift,
       static_cast<const float*>(scale), static_cast<const float*>(shift),
       static_cast<const __nv_bfloat16*>(w), static_cast<const float*>(bias),
       static_cast<const __nv_bfloat16*>(res),
-      static_cast<__nv_bfloat16*>(out), H, W, C, O, tiles_w);
+      static_cast<__nv_bfloat16*>(out), H, W, C, O, Hb, Wb, pad, tiles_w);
   return (int)cudaGetLastError();
 }
 
@@ -404,10 +431,10 @@ int launch_bn(const void* x, const void* scale, const void* shift,
               int B, int H, int W, int C, int O, cudaStream_t stream) {
   if (O <= 16) {
     return launch<PRO, RES, UP, 16, 16>(x, scale, shift, w, bias, res, out,
-                                        B, H, W, C, O, stream);
+                                        B, H, W, C, O, H, W, 1, stream);
   }
   return launch<PRO, RES, UP, 128, 8>(x, scale, shift, w, bias, res, out, B,
-                                      H, W, C, O, stream);
+                                      H, W, C, O, H, W, 1, stream);
 }
 
 bool bad_shape(int B, int H, int W, int C, int O) {
@@ -456,4 +483,26 @@ extern "C" int dc_upsample_conv3x3(const void* x, const void* w,
   return launch_bn<kNone, false, true>(x, nullptr, nullptr, w, bias, nullptr,
                                        out, B, H, W, C, O,
                                        (cudaStream_t)stream);
+}
+
+// out [B, Ho, Wo, O] = conv3x3 stride 2 (x padded by `pad` rows and
+// columns at the top and left and by 1 at the bottom and right) + bias,
+// Ho = (H + pad - 2) / 2 + 1 and Wo likewise: pad 0 is the VAE encoder's
+// downsampler, pad 1 the UNet's (symmetric).  x [B, H, W, C] bf16; w, bias
+// as for dc_conv3x3; same requirements and return.  A block computes 8 x 16
+// output pixels by 64 output channels (shared memory holds three stages of
+// the 17 x 33 input halo and 9 x 64 weight rows).
+extern "C" int dc_downsample_conv3x3(const void* x, const void* w,
+                                     const void* bias, void* out, int B,
+                                     int H, int W, int C, int O, int pad,
+                                     void* stream) {
+  if (bad_shape(B, H, W, C, O) || (pad != 0 && pad != 1) || H + pad < 2 ||
+      W + pad < 2) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const int Ho = (H + pad - 2) / 2 + 1;
+  const int Wo = (W + pad - 2) / 2 + 1;
+  return launch<kNone, false, false, 64, 8, 2>(
+      x, nullptr, nullptr, w, bias, nullptr, out, B, H, W, C, O, Ho, Wo, pad,
+      (cudaStream_t)stream);
 }

@@ -14,13 +14,16 @@ Numerics kept from the JAX package:
     `ops.attention.attention`, the CUDA kernel on the card;
     `AttentionBlock2D` (the VAE's single head, D = 512) stays a plain
     matmul + softmax, as XLA computed it outside any Pallas kernel;
-  * `ResnetBlock2D` and `Upsample2D` take `fused_conv`: off, GroupNorm,
-    SiLU and the upsampling are separate passes around a cuDNN conv (the
-    JAX package with `DIFFCODEC_FUSED_SILU_CONV` unset); on, each conv3x3
-    is one call of the kernels of `ops.conv` (`gn_silu_conv3x3` with the
-    folded GroupNorm affine and the shortcut as its residual,
-    `upsample_conv3x3`), as the JAX package's `exact_fusedconv` point
-    routes them (`layers.py:159-192`, `:532-584`).
+  * `ResnetBlock2D`, `Upsample2D` and `Downsample2D` take `fused_conv`:
+    off, GroupNorm, SiLU and the upsampling are separate passes around a
+    cuDNN conv (the JAX package with `DIFFCODEC_FUSED_SILU_CONV` unset);
+    on, each conv3x3 is one call of the kernels of `ops.conv`
+    (`gn_silu_conv3x3` with the folded GroupNorm affine and the shortcut as
+    its residual, `upsample_conv3x3`, `downsample_conv3x3`), as the JAX
+    package's `exact_fusedconv` point routes the first two
+    (`layers.py:159-192`, `:532-584`; its stride-2 gate,
+    `conv_pallas.py:794`, was left off on a TPU measurement that does not
+    carry over).
 """
 
 from __future__ import annotations
@@ -32,8 +35,9 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from diffcodec_tpu_torch.ops.attention import attention
-from diffcodec_tpu_torch.ops.conv import (conv2d_nhwc, gn_silu_conv3x3,
-                                          upsample_conv3x3)
+from diffcodec_tpu_torch.ops.conv import (conv2d_nhwc, downsample_conv3x3,
+                                          downsample_conv3x3_ref,
+                                          gn_silu_conv3x3, upsample_conv3x3)
 
 
 def timestep_embedding(timesteps: torch.Tensor, dim: int,
@@ -93,10 +97,15 @@ class GroupNorm32(nn.Module):
         return scale, shift
 
     def forward(self, x):
-        # one fused pass: x * scale + shift computed in fp32, written in
-        # x's dtype (the form `ops.conv.gn_silu_conv3x3_ref` also takes)
+        # x * scale + shift computed in fp32, rounded once to x's dtype (the
+        # form `ops.conv.gn_silu_conv3x3_ref` also takes); without autograd
+        # in one fused pass that writes x's dtype (autograd takes no out=)
         scale, shift = self.affine(x)
         shape = (x.shape[0],) + (1,) * (x.dim() - 2) + (x.shape[-1],)
+        if torch.is_grad_enabled() and (scale.requires_grad
+                                        or shift.requires_grad):
+            return torch.addcmul(shift.view(shape), x,
+                                 scale.view(shape)).to(x.dtype)
         return torch.addcmul(shift.view(shape), x, scale.view(shape),
                              out=torch.empty_like(x))
 
@@ -251,13 +260,24 @@ class Transformer2D(nn.Module):
 
 
 class Downsample2D(nn.Module):
-    """Stride-2 3x3 conv, symmetric padding (the UNet's)."""
+    """Stride-2 3x3 conv, padded on all sides (the UNet's) or, with
+    `asymmetric_pad`, at the bottom and right only (the VAE encoder's: HF
+    pads (0, 1, 0, 1) and convolves unpadded).  fused_conv: one
+    `downsample_conv3x3` call."""
 
-    def __init__(self, channels: int):
+    def __init__(self, channels: int, asymmetric_pad: bool = False,
+                 fused_conv: bool = False):
         super().__init__()
+        self.asymmetric_pad, self.fused_conv = asymmetric_pad, fused_conv
         self.conv = conv3x3(channels, channels, stride=2)
 
     def forward(self, x):
+        if self.fused_conv:
+            return downsample_conv3x3(x, self.conv.weight, self.conv.bias,
+                                      self.asymmetric_pad)
+        if self.asymmetric_pad:
+            return downsample_conv3x3_ref(x, self.conv.weight,
+                                          self.conv.bias)
         return self.conv(x)
 
 

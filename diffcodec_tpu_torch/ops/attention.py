@@ -1,13 +1,19 @@
-"""Exact softmax attention: the CUDA kernel and its plain version.
+"""Exact softmax attention and its gradient: the CUDA kernels and their plain
+version.
 
 Counterparts: `diffcodec_tpu/ops/attention.py::fused_attention` and
 `diffcodec_tpu/models/layers.py::_flash_self_attention`, the two TPU kernels
-that computed the model's attention.  Here one kernel
-(`csrc/attention.cu`) serves every self- and cross-attention call of the
-UNet and the ControlNet.
+that computed the model's attention, and the stock Pallas flash backward
+that training reaches through the latter
+(`jax/experimental/pallas/ops/tpu/flash_attention.py`:
+`_flash_attention_bwd_dkv` and `_flash_attention_bwd_dq`).  Here
+`csrc/attention.cu` holds three kernels: the forward, which serves every
+self- and cross-attention call of the UNet and the ControlNet and, when a
+gradient is wanted, also writes each row's log-sum-exp; and the backward's
+dK/dV and dQ kernels, which recompute the probabilities from it.
 
 Layout at this boundary: q [BH, Lq, D], k and v [BH, Lk, D] (heads folded
-into the batch), the form the kernel reads.
+into the batch), the form the kernels read.
 """
 
 from __future__ import annotations
@@ -16,8 +22,8 @@ import torch
 
 from diffcodec_tpu_torch import _kernels
 
-# head widths the kernel is built for: the UNet's (40, 80, 160) and the tiny
-# configs' (16, 32)
+# head widths the kernels are built for: the UNet's (40, 80, 160) and the
+# tiny configs' (16, 32)
 KERNEL_HEAD_DIMS = (16, 32, 40, 80, 160)
 
 
@@ -32,48 +38,153 @@ def attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return torch.einsum("bqk,bkd->bqd", probs, v)
 
 
-def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-              scale: float) -> torch.Tensor:
-    """softmax(q k^T * scale) v per batch*head.
-
-    On a CPU tensor this is `attention_reference`.  On a CUDA tensor it
-    launches `csrc/attention.cu` on q's device (bf16, contiguous, D in
-    `KERNEL_HEAD_DIMS`) or raises; `attention.launches` counts the
-    launches.
-    """
-    if q.device.type == "cpu":
-        return attention_reference(q, k, v, scale)
+def _check(name: str, Lk: int, **tensors):
+    """Raise unless every tensor lies on q's CUDA device, contiguous and
+    16-byte aligned, with its dtype and shape: bf16 [BH, Lq, D] (q, dout)
+    or [BH, Lk, D] (k, v), fp32 [BH, Lq] (lse, delta).  Returns BH, Lq,
+    D."""
+    q = tensors["q"]
     if q.device.type != "cuda":
-        raise ValueError(f"attention: unsupported device {q.device}")
+        raise ValueError(f"{name}: unsupported device {q.device}")
     BH, Lq, D = q.shape
-    Lk = k.shape[1]
-    for name, t, shape in (("q", q, (BH, Lq, D)), ("k", k, (BH, Lk, D)),
-                           ("v", v, (BH, Lk, D))):
+    for label, t in tensors.items():
+        if label in ("lse", "delta"):
+            dtype, shape = torch.float32, (BH, Lq)
+        else:
+            dtype = torch.bfloat16
+            shape = (BH, Lk, D) if label in ("k", "v") else (BH, Lq, D)
         if t.device != q.device:
-            raise ValueError(f"attention: {name} on {t.device}, q on "
+            raise ValueError(f"{name}: {label} on {t.device}, q on "
                              f"{q.device}")
-        if t.dtype != torch.bfloat16:
-            raise TypeError(f"attention: {name} must be bfloat16, got "
+        if t.dtype != dtype:
+            raise TypeError(f"{name}: {label} must be {dtype}, got "
                             f"{t.dtype}")
         if tuple(t.shape) != shape:
-            raise ValueError(f"attention: {name} has shape "
+            raise ValueError(f"{name}: {label} has shape "
                              f"{tuple(t.shape)}, expected {shape}")
         if not t.is_contiguous() or t.data_ptr() % 16:
-            raise ValueError(f"attention: {name} must be contiguous and "
+            raise ValueError(f"{name}: {label} must be contiguous and "
                              "16-byte aligned")
     if D not in KERNEL_HEAD_DIMS or Lk < 1:
-        raise ValueError(f"attention: needs D in {KERNEL_HEAD_DIMS} and "
+        raise ValueError(f"{name}: needs D in {KERNEL_HEAD_DIMS} and "
                          f"Lk >= 1, got D={D}, Lk={Lk}")
+    return BH, Lq, D
+
+
+def attention_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      scale: float, with_lse: bool = False):
+    """(out, lse): one launch of the forward kernel (bf16, contiguous, D in
+    `KERNEL_HEAD_DIMS`) on q's CUDA device, or raises; lse is the fp32
+    [BH, Lq] natural-log log-sum-exp of the scaled logits where asked for,
+    else None.  `attention.launches` counts the launches."""
+    BH, Lq, D = _check("attention", k.shape[1], q=q, k=k, v=v)
     out = torch.empty_like(q)
+    lse = (torch.empty(BH, Lq, device=q.device, dtype=torch.float32)
+           if with_lse else None)
     lib = _kernels.lib()
     with torch.cuda.device(q.device):
-        code = lib.dc_attention_fwd(q.data_ptr(), k.data_ptr(),
-                                    v.data_ptr(), out.data_ptr(), BH, Lq, Lk,
-                                    D, float(scale),
-                                    _kernels.stream_ptr(q.device))
+        code = lib.dc_attention_fwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            None if lse is None else lse.data_ptr(), BH, Lq, k.shape[1], D,
+            float(scale), _kernels.stream_ptr(q.device))
     _kernels.check(code, "dc_attention_fwd")
     attention.launches += 1
-    return out
+    return out, lse
+
+
+def attention_bwd_dkv(q, k, v, dout, lse, delta, scale: float):
+    """(dk, dv) of the forward, given its lse and delta = rowsum(dout * out)
+    in fp32: one launch of the dK/dV kernel, or raises.
+    `attention_bwd_dkv.launches` counts the launches."""
+    BH, Lq, D = _check("attention_bwd_dkv", k.shape[1], q=q, k=k, v=v,
+                       dout=dout, lse=lse, delta=delta)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    lib = _kernels.lib()
+    with torch.cuda.device(q.device):
+        code = lib.dc_attention_bwd_dkv(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            BH, Lq, k.shape[1], D, float(scale),
+            _kernels.stream_ptr(q.device))
+    _kernels.check(code, "dc_attention_bwd_dkv")
+    attention_bwd_dkv.launches += 1
+    return dk, dv
+
+
+attention_bwd_dkv.launches = 0
+
+
+def attention_bwd_dq(q, k, v, dout, lse, delta, scale: float):
+    """dq of the forward, given its lse and delta: one launch of the dQ
+    kernel, or raises.  `attention_bwd_dq.launches` counts the launches."""
+    BH, Lq, D = _check("attention_bwd_dq", k.shape[1], q=q, k=k, v=v,
+                       dout=dout, lse=lse, delta=delta)
+    dq = torch.empty_like(q)
+    lib = _kernels.lib()
+    with torch.cuda.device(q.device):
+        code = lib.dc_attention_bwd_dq(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), BH, Lq,
+            k.shape[1], D, float(scale), _kernels.stream_ptr(q.device))
+    _kernels.check(code, "dc_attention_bwd_dq")
+    attention_bwd_dq.launches += 1
+    return dq
+
+
+attention_bwd_dq.launches = 0
+
+
+def attention_backward(q, k, v, out, lse, dout, scale: float):
+    """(dq, dk, dv) on the card: delta = rowsum(dout * out) in fp32 (a
+    torch reduction, as JAX computes it outside its Pallas kernels), then
+    the dK/dV and the dQ kernels."""
+    dout = dout.contiguous()
+    delta = (dout.float() * out.float()).sum(-1)
+    dk, dv = attention_bwd_dkv(q, k, v, dout, lse, delta, scale)
+    return attention_bwd_dq(q, k, v, dout, lse, delta, scale), dk, dv
+
+
+class _Attention(torch.autograd.Function):
+    """The kernels on a CUDA tensor; on a CPU tensor the plain version,
+    whose gradient the backward recomputes by autograd."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale, with_grad):
+        ctx.scale = scale
+        if q.device.type == "cpu":
+            ctx.save_for_backward(q, k, v)
+            return attention_reference(q, k, v, scale)
+        out, lse = attention_forward(q, k, v, scale, with_lse=with_grad)
+        if with_grad:
+            ctx.save_for_backward(q, k, v, out, lse)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        saved = ctx.saved_tensors  # unpacked once (activation checkpointing)
+        if len(saved) == 3:
+            q, k, v = (t.detach().requires_grad_() for t in saved)
+            with torch.enable_grad():
+                out = attention_reference(q, k, v, ctx.scale)
+            grads = torch.autograd.grad(out, (q, k, v), dout)
+        else:
+            grads = attention_backward(*saved, dout, ctx.scale)
+        return (*grads, None, None)
+
+
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              scale: float) -> torch.Tensor:
+    """softmax(q k^T * scale) v per batch*head, differentiable.
+
+    On a CPU tensor this is `attention_reference`, and so is its gradient.
+    On a CUDA tensor the forward kernel runs on q's device (bf16,
+    contiguous, D in `KERNEL_HEAD_DIMS`) or raises, saving the row
+    log-sum-exp where a gradient is wanted; the backward runs the dK/dV and
+    dQ kernels.  `attention.launches` counts the forward launches.
+    """
+    with_grad = torch.is_grad_enabled() and (
+        q.requires_grad or k.requires_grad or v.requires_grad)
+    return _Attention.apply(q, k, v, scale, with_grad)
 
 
 attention.launches = 0

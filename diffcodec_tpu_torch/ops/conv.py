@@ -13,10 +13,17 @@ The kernels and their plain versions (counterparts in
   * `gn_silu_conv3x3`   <- `gn_silu_conv3x3_pallas` (:211), plain version
     `gn_silu_conv3x3_ref` (:260);
   * `upsample_conv3x3`  <- `upsample_conv3x3_pallas` (:531), plain version
-    `upsample_conv3x3_ref` (:578).
+    `upsample_conv3x3_ref` (:578);
+  * `downsample_conv3x3` <- `downsample_conv3x3_pallas` (:703), plain
+    version `downsample_conv3x3_ref` (:763): stride 2, padded bottom/right
+    (the VAE encoder's) or on all sides (the UNet's).
 On a CPU tensor a wrapper computes its plain version.  On a CUDA tensor it
-launches the kernel (one `dc_conv3x3` or `dc_upsample_conv3x3` call) or
-raises; `<wrapper>.launches` counts the launches.  Each wrapper turns the
+launches the kernel (one `dc_conv3x3`, `dc_upsample_conv3x3` or
+`dc_downsample_conv3x3` call) or raises; `<wrapper>.launches` counts the
+launches.  Every wrapper is differentiable: its gradient is autograd's of
+the plain version (`_kernels.PlainBackward`), as the JAX package's
+`custom_vjp`s take the VJP of their `*_ref` forms (`conv_pallas.py:270-307,
+328-342, 589-603, 783-791`).  Each wrapper turns the
 OIHW weight into the kernel's layout per call: the taps [O, 9, C] of the
 3x3 conv, or for the upsample the collapsed taps [4, O, 4, C] (phase
 di * 2 + dj, tap a * 2 + b, summed in fp32 and rounded to the weight's
@@ -75,6 +82,18 @@ def upsample_conv3x3_ref(x: torch.Tensor, weight: torch.Tensor,
     B, H, W, C = x.shape
     up = x[:, :, None, :, None, :].expand(B, H, 2, W, 2, C)
     return conv2d_nhwc(up.reshape(B, 2 * H, 2 * W, C), weight, bias)
+
+
+def downsample_conv3x3_ref(x: torch.Tensor, weight: torch.Tensor,
+                           bias: torch.Tensor,
+                           asymmetric_pad: bool = True) -> torch.Tensor:
+    """Plain version: a 3x3 stride-2 conv plus bias of x zero-padded by one
+    row and column at the bottom and right, and also at the top and left
+    unless `asymmetric_pad`.  [B, H, W, C] -> [B, Ho, Wo, O] with
+    Ho = (H + pad - 2) // 2 + 1, pad = 0 if asymmetric_pad else 1."""
+    pad = 0 if asymmetric_pad else 1
+    xp = F.pad(x, (0, 0, pad, 1, pad, 1))
+    return conv2d_nhwc(xp, weight, bias, stride=2, padding=0)
 
 
 def conv3x3_taps(weight: torch.Tensor) -> torch.Tensor:
@@ -187,6 +206,11 @@ def silu_conv3x3(x: torch.Tensor, weight: torch.Tensor,
     """SiLU, then a 3x3 SAME conv plus bias: `silu_conv3x3_ref` on a CPU
     tensor, `csrc/conv3x3.cu` (prologue 1) on a CUDA tensor (bf16
     contiguous x, C % 8 == 0) or raises."""
+    return _kernels.PlainBackward.apply(_silu_conv3x3, silu_conv3x3_ref, x,
+                                        weight, bias)
+
+
+def _silu_conv3x3(x, weight, bias):
     if x.device.type == "cpu":
         return silu_conv3x3_ref(x, weight, bias)
     out = _conv_cuda("silu_conv3x3", x, weight, bias)
@@ -205,6 +229,12 @@ def gn_silu_conv3x3(x: torch.Tensor, scale: torch.Tensor,
     conv plus bias, plus an optional residual [B, H, W, O]; scale, shift
     fp32 [B, C].  `gn_silu_conv3x3_ref` on a CPU tensor, `csrc/conv3x3.cu`
     (prologue 2) on a CUDA tensor or raises."""
+    return _kernels.PlainBackward.apply(_gn_silu_conv3x3,
+                                        gn_silu_conv3x3_ref, x, scale, shift,
+                                        weight, bias, residual)
+
+
+def _gn_silu_conv3x3(x, scale, shift, weight, bias, residual):
     if x.device.type == "cpu":
         return gn_silu_conv3x3_ref(x, scale, shift, weight, bias, residual)
     out = _conv_cuda("gn_silu_conv3x3", x, weight, bias, scale, shift,
@@ -222,6 +252,11 @@ def upsample_conv3x3(x: torch.Tensor, weight: torch.Tensor,
     -> [B, 2H, 2W, O].  `upsample_conv3x3_ref` on a CPU tensor,
     `csrc/conv3x3.cu` (`dc_upsample_conv3x3`) on a CUDA tensor (bf16
     contiguous x, C % 8 == 0) or raises."""
+    return _kernels.PlainBackward.apply(_upsample_conv3x3,
+                                        upsample_conv3x3_ref, x, weight, bias)
+
+
+def _upsample_conv3x3(x, weight, bias):
     if x.device.type == "cpu":
         return upsample_conv3x3_ref(x, weight, bias)
     B, H, W, C, O = _check_cuda("upsample_conv3x3", x, weight, bias)
@@ -240,6 +275,44 @@ def upsample_conv3x3(x: torch.Tensor, weight: torch.Tensor,
 
 
 upsample_conv3x3.launches = 0
+
+
+def downsample_conv3x3(x: torch.Tensor, weight: torch.Tensor,
+                       bias: torch.Tensor,
+                       asymmetric_pad: bool = True) -> torch.Tensor:
+    """3x3 stride-2 conv plus bias, padded bottom/right (asymmetric_pad,
+    the VAE encoder's) or on all sides (the UNet's): [B, H, W, C] ->
+    [B, Ho, Wo, O].  `downsample_conv3x3_ref` on a CPU tensor,
+    `csrc/conv3x3.cu` (`dc_downsample_conv3x3`) on a CUDA tensor (bf16
+    contiguous x, C % 8 == 0) or raises."""
+    def plain(x, weight, bias):
+        return downsample_conv3x3_ref(x, weight, bias, asymmetric_pad)
+
+    def fast(x, weight, bias):
+        if x.device.type == "cpu":
+            return plain(x, weight, bias)
+        pad = 0 if asymmetric_pad else 1
+        B, H, W, C, O = _check_cuda("downsample_conv3x3", x, weight, bias)
+        if H + pad < 2 or W + pad < 2:
+            raise ValueError(f"downsample_conv3x3: input {H} x {W} too small")
+        out = torch.empty(B, (H + pad - 2) // 2 + 1, (W + pad - 2) // 2 + 1,
+                          O, device=x.device, dtype=torch.bfloat16)
+        taps = chunk_taps(conv3x3_taps(weight)[None])
+        bias32 = bias.float()
+        lib = _kernels.lib()
+        with torch.cuda.device(x.device):
+            code = lib.dc_downsample_conv3x3(
+                x.data_ptr(), taps.data_ptr(), bias32.data_ptr(),
+                out.data_ptr(), B, H, W, C, O, pad,
+                _kernels.stream_ptr(x.device))
+        _kernels.check(code, "dc_downsample_conv3x3")
+        downsample_conv3x3.launches += 1
+        return out
+
+    return _kernels.PlainBackward.apply(fast, plain, x, weight, bias)
+
+
+downsample_conv3x3.launches = 0
 
 
 def conv_silu_chain(x: torch.Tensor, weights: Sequence[torch.Tensor],

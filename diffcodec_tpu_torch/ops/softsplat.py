@@ -77,12 +77,20 @@ def splat_sum_reference(vals: torch.Tensor,
 
 
 def splat_sum(vals: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
-    """'sum'-mode forward splat, fp32 in and out.
+    """'sum'-mode forward splat, fp32 in and out, differentiable in vals
+    and flow.
 
     On a CPU tensor this is `splat_sum_reference`.  On a CUDA tensor it
     launches `csrc/splat.cu` on that tensor's device or raises;
-    `splat_sum.launches` counts the launches.
+    `splat_sum.launches` counts the launches.  The gradient is autograd's
+    of `splat_sum_reference` on either device, as the JAX package's is the
+    VJP of its XLA form (`ops/softsplat.py::_splat_sum_auto_bwd`).
     """
+    return _kernels.PlainBackward.apply(_splat_sum_fast, splat_sum_reference,
+                                       vals, flow)
+
+
+def _splat_sum_fast(vals: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
     if vals.device.type == "cpu":
         return splat_sum_reference(vals, flow)
     if vals.device.type != "cuda":

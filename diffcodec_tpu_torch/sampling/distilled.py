@@ -31,6 +31,19 @@ from diffcodec_tpu_torch.sampling.schedulers import NoiseSchedule
 from diffcodec_tpu_torch.train.distill import boundary_scalings, ddim_grid
 
 
+
+def _linspace_f32(stop: int, num: int) -> np.ndarray:
+    """`jnp.linspace(0, stop, num)` as XLA computes it: in float32, point i
+    is float32(i) * step with step = float32(stop) * float32(1 / (num - 1))
+    (XLA folds jnp's stop * (i / (num - 1)) into one constant), and the
+    last point is exactly stop."""
+    if num == 1:
+        return np.zeros(1, np.float32)
+    step = np.float32(stop) * (np.float32(1) / np.float32(num - 1))
+    return np.append(np.arange(num - 1, dtype=np.float32) * step,
+                     np.float32(stop))
+
+
 @dataclasses.dataclass(eq=False)
 class DistilledPipeline:
     """A frozen student (UNet, ControlNet, VAE) -> K-step decoder."""
@@ -74,12 +87,16 @@ class DistilledPipeline:
 
     def step_schedule(self) -> np.ndarray:
         """K timesteps, descending, subsampled evenly from the teacher's
-        DDIM grid (the first is the top of the schedule).  numpy rounds
-        half to even, as jnp does."""
+        DDIM grid (the first is the top of the schedule).  The indices are
+        `jnp.linspace(0, n - 1, K).round()` as the JAX package computes
+        them, in float32 (`_linspace_f32`), rounded half to even.  numpy's
+        float64 linspace lands exactly on x.5 where float32 lands above it
+        (K = 15, 29, 31, 35, 43 at n = 50), and so picks another
+        timestep."""
         grid = ddim_grid(self.schedule, self.config.num_teacher_steps)
         K = self.config.num_student_steps
-        idx = np.linspace(0, grid.shape[0] - 1, K).round().astype(np.int64)
-        return grid[idx]
+        return grid[_linspace_f32(grid.shape[0] - 1, K).round()
+                    .astype(np.int64)]
 
     @torch.no_grad()
     def denoise(self, latents, text_embeds, controlnet_cond, flow_cond,

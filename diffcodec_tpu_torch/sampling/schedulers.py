@@ -46,30 +46,40 @@ class NoiseSchedule:
         abar = np.cumprod(1.0 - make_betas(cfg))
         return cls(cfg=cfg, alphas_cumprod=abar.astype(np.float32))
 
-    def _coeffs(self, timestep: int):
-        """(sqrt(abar_t), sqrt(1 - abar_t)) in fp32, as Python floats."""
-        abar = self.alphas_cumprod[int(timestep)]
+    def _coeffs(self, timesteps, ndim: int):
+        """(sqrt(abar_t), sqrt(1 - abar_t)) in fp32: Python floats for one
+        timestep (an int or a 0-d tensor), or for a [B] tensor of them (one
+        per sample, as training draws them) two [B, 1, ..., 1] tensors of
+        `ndim` dimensions on the timesteps' device."""
+        if isinstance(timesteps, torch.Tensor) and timesteps.dim() > 0:
+            abar = torch.from_numpy(self.alphas_cumprod).to(
+                timesteps.device)[timesteps.long()]
+            shape = (-1,) + (1,) * (ndim - 1)
+            return (torch.sqrt(abar).reshape(shape),
+                    torch.sqrt(1.0 - abar).reshape(shape))
+        abar = self.alphas_cumprod[int(timesteps)]
         return (float(np.sqrt(abar)),
                 float(np.sqrt(np.float32(1.0) - abar)))
 
     def add_noise(self, sample: torch.Tensor, noise: torch.Tensor,
-                  timestep: int) -> torch.Tensor:
-        """q(x_t | x_0): sqrt(abar_t) x0 + sqrt(1 - abar_t) eps, fp32."""
-        sa, so = self._coeffs(timestep)
+                  timesteps) -> torch.Tensor:
+        """q(x_t | x_0): sqrt(abar_t) x0 + sqrt(1 - abar_t) eps, fp32;
+        timesteps: an int or a [B] tensor (see `_coeffs`)."""
+        sa, so = self._coeffs(timesteps, sample.dim())
         return sa * sample.float() + so * noise.float()
 
     def velocity(self, sample: torch.Tensor, noise: torch.Tensor,
-                 timestep: int) -> torch.Tensor:
+                 timesteps) -> torch.Tensor:
         """v-prediction target: sqrt(abar_t) eps - sqrt(1 - abar_t) x0,
         fp32."""
-        sa, so = self._coeffs(timestep)
+        sa, so = self._coeffs(timesteps, sample.dim())
         return sa * noise.float() - so * sample.float()
 
     def pred_original_sample(self, sample: torch.Tensor,
                              model_output: torch.Tensor,
-                             timestep: int) -> torch.Tensor:
+                             timesteps) -> torch.Tensor:
         """x0 from (x_t, model output, t), in fp32."""
-        sa, so = self._coeffs(timestep)
+        sa, so = self._coeffs(timesteps, sample.dim())
         sample = sample.float()
         model_output = model_output.float()
         if self.cfg.prediction_type == "epsilon":

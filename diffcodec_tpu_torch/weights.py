@@ -154,9 +154,31 @@ def _vae_attn_map(t: str, f: Tuple[str, ...]) -> List[Entry]:
 
 
 def vae_name_map(cfg: VAEConfig) -> List[Entry]:
-    """The decoding half of the JAX package's `vae_name_map`: the decoder
-    and post_quant_conv (the encoder's entries come with its port)."""
-    out = _conv("decoder.conv_in", ("decoder", "conv_in"))
+    """The JAX package's `vae_name_map`: the encoder, the decoder,
+    quant_conv and post_quant_conv."""
+    out = _conv("encoder.conv_in", ("encoder", "conv_in"))
+    prev = cfg.base_channels
+    for i, mult in enumerate(cfg.channel_mults):
+        ch = cfg.base_channels * mult
+        for j in range(cfg.layers_per_block):
+            f_res = ("encoder", f"down_{i}_resnet_{j}")
+            t_res = f"encoder.down_blocks.{i}.resnets.{j}"
+            out += _resnet_map(t_res, f_res, time_emb=False)
+            if (prev if j == 0 else ch) != ch:
+                out += _shortcut_map(t_res, f_res)
+        if i < len(cfg.channel_mults) - 1:
+            out += _conv(f"encoder.down_blocks.{i}.downsamplers.0.conv",
+                         ("encoder", f"down_{i}_downsample", "conv"))
+        prev = ch
+    out += _resnet_map("encoder.mid_block.resnets.0",
+                       ("encoder", "mid_resnet_0"), time_emb=False)
+    out += _vae_attn_map("encoder.mid_block.attentions.0",
+                         ("encoder", "mid_attn"))
+    out += _resnet_map("encoder.mid_block.resnets.1",
+                       ("encoder", "mid_resnet_1"), time_emb=False)
+    out += _gn("encoder.conv_norm_out", ("encoder", "conv_norm_out"))
+    out += _conv("encoder.conv_out", ("encoder", "conv_out"))
+    out += _conv("decoder.conv_in", ("decoder", "conv_in"))
     out += _resnet_map("decoder.mid_block.resnets.0",
                        ("decoder", "mid_resnet_0"), time_emb=False)
     out += _vae_attn_map("decoder.mid_block.attentions.0",
@@ -179,6 +201,7 @@ def vae_name_map(cfg: VAEConfig) -> List[Entry]:
         prev = ch
     out += _gn("decoder.conv_norm_out", ("decoder", "conv_norm_out"))
     out += _conv("decoder.conv_out", ("decoder", "conv_out"))
+    out += _conv("quant_conv", ("quant_conv",))
     out += _conv("post_quant_conv", ("post_quant_conv",))
     return out
 

@@ -64,14 +64,20 @@ def test_ddim_grid_matches_jax(n):
                                   np.asarray(jdistill.ddim_grid(jsched, n)))
 
 
-@pytest.mark.parametrize("K", [1, 2, 3, 4, 8])
-def test_step_schedule_matches_jax(K):
+@pytest.mark.parametrize("n,K", [(n, K) for n in (50, 30)
+                                 for K in range(1, n + 1)])
+def test_step_schedule_matches_jax(n, K):
+    """Every K of the default 50 teacher steps and of 30: numpy's float64
+    linspace picks other timesteps than jnp's float32 one at K = 15, 29,
+    31, 35, 43 (n = 50) and 23, 27 (n = 30), exactly."""
     jsched, tsched = _schedules()
     want = JDistilled(unet=None, controlnet=None, vae=None, schedule=jsched,
-                      config=jcfg.DistillConfig(num_student_steps=K))
+                      config=jcfg.DistillConfig(num_teacher_steps=n,
+                                                num_student_steps=K))
     got = DistilledPipeline(unet=None, controlnet=None, vae=None,
                             schedule=tsched,
-                            config=tcfg.DistillConfig(num_student_steps=K))
+                            config=tcfg.DistillConfig(num_teacher_steps=n,
+                                                      num_student_steps=K))
     np.testing.assert_array_equal(got.step_schedule(),
                                   np.asarray(want.step_schedule()))
 

@@ -1,9 +1,10 @@
 """The port's CUDA kernels and their build layer.
 
-Tests marked `cuda` hold each kernel (attention, splat, the 3x3 convs)
-against its plain PyTorch version on the card and skip where there is
-none.  This file imports no JAX, so on the
-card's machine it runs without the repo's conftest:
+Tests marked `cuda` hold each kernel (attention forward and backward,
+splat, the 3x3 convs, the stride-2 conv) against its plain PyTorch version
+on the card, and each differentiable wrapper's gradient against autograd
+of its plain version, and skip where there is no card.  This file imports
+no JAX, so on the card's machine it runs without the repo's conftest:
 
     python -m pytest --noconftest -m cuda tests/test_torch_port_kernels.py
 
@@ -20,7 +21,12 @@ import torch
 
 from diffcodec_tpu_torch import _kernels
 from diffcodec_tpu_torch.ops import conv
-from diffcodec_tpu_torch.ops.attention import attention, attention_reference
+from diffcodec_tpu_torch.ops.attention import (attention,
+                                               attention_backward,
+                                               attention_bwd_dkv,
+                                               attention_bwd_dq,
+                                               attention_forward,
+                                               attention_reference)
 from diffcodec_tpu_torch.ops.softsplat import (softsplat, splat_sum,
                                                splat_sum_reference)
 
@@ -206,6 +212,155 @@ def test_conv_wrappers_reject_what_they_do_not_take(cuda_device):
     odd = x[..., :12].contiguous()  # C % 8 != 0
     with pytest.raises(ValueError):
         conv.silu_conv3x3(odd, w[:, :12].contiguous(), b)
+
+
+def _assert_grad_close(label, got, want):
+    """A gradient of bf16 attention against autograd of the plain version:
+    the kernels round P and dS to bf16 before their products, the plain
+    version rounds P and dP, and each rounds its output once, so the
+    difference is a sum of many bf16 roundings.  Over the whole tensor
+    ||kernel - plain|| <= 1e-2 ||plain|| (the forward's form); elementwise
+    2^-5 of the largest value and of itself, which a fault local to a row
+    block or a column tile crosses."""
+    got, want = got.float(), want.float()
+    assert (got - want).norm() <= 1e-2 * want.norm(), label
+    tol = 2.0 ** -5
+    torch.testing.assert_close(got, want, rtol=tol,
+                               atol=tol * want.abs().max().item(), msg=label)
+
+
+def _attention_inputs(device, BH, Lq, Lk, D, seed):
+    g = torch.Generator(device=device).manual_seed(seed)
+    q, k, v, dout = (torch.randn(BH, L, D, device=device, generator=g)
+                     .bfloat16() for L in (Lq, Lk, Lk, Lq))
+    return q, k, v, dout
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("BH,Lq,Lk,D", [
+    (4, 128, 128, 40), (4, 256, 77, 80), (4, 64, 64, 160),
+    (3, 100, 77, 160), (2, 33, 5, 32), (2, 64, 300, 16), (3, 17, 130, 40),
+    (64, 4096, 4096, 40)])
+def test_attention_backward_kernels_match_plain(cuda_device, BH, Lq, Lk, D):
+    """dQ, dK, dV of the kernels against autograd of the plain version; Lk
+    = 77 and 5 leave a masked tail in the last key chunk, Lq = 100, 33 and
+    17 one in the last query chunk."""
+    q, k, v, dout = _attention_inputs(cuda_device, BH, Lq, Lk, D,
+                                      seed=BH * Lq + D)
+    scale = D ** -0.5
+    out, lse = attention_forward(q, k, v, scale, with_lse=True)
+    logits = torch.einsum("bqd,bkd->bqk", q.float(), k.float()) * scale
+    torch.testing.assert_close(lse, torch.logsumexp(logits, -1), atol=1e-4,
+                               rtol=1e-5)
+    del logits
+    before = (attention_bwd_dq.launches, attention_bwd_dkv.launches)
+    got = attention_backward(q, k, v, out, lse, dout, scale)
+    assert (attention_bwd_dq.launches, attention_bwd_dkv.launches) == (
+        before[0] + 1, before[1] + 1)
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    want = torch.autograd.grad(attention_reference(*leaves, scale), leaves,
+                               dout)
+    for name, g_, w_ in zip("qkv", got, want):
+        assert g_.shape == w_.shape and g_.dtype == torch.bfloat16
+        _assert_grad_close(f"d{name}", g_, w_)
+
+
+@pytest.mark.cuda
+def test_attention_backward_kernels_reject_what_they_do_not_take(
+        cuda_device):
+    q, k, v, dout = _attention_inputs(cuda_device, 2, 16, 16, 40, seed=0)
+    lse = torch.zeros(2, 16, device=cuda_device)
+    with pytest.raises(TypeError):  # bf16 lse
+        attention_bwd_dq(q, k, v, dout, lse.bfloat16(), lse, 0.1)
+    with pytest.raises(ValueError):  # delta of the wrong length
+        attention_bwd_dkv(q, k, v, dout, lse, lse[:, :8].contiguous(), 0.1)
+    with pytest.raises(ValueError):  # dout not contiguous
+        attention_bwd_dkv(q, k, v, dout.transpose(0, 1).contiguous()
+                          .transpose(0, 1), lse, lse, 0.1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("asymmetric_pad", [True, False])
+@pytest.mark.parametrize("B,H,W,C,O", [
+    (2, 16, 32, 16, 16),        # one 8 x 16 output tile per image
+    (1, 13, 21, 8, 3),          # odd H, W: off the tile; narrow O
+    (1, 34, 66, 32, 130),       # O one past two 64-channel tiles
+    (2, 64, 64, 128, 128)])
+def test_downsample_conv3x3_kernel_matches_plain(cuda_device, B, H, W, C, O,
+                                                 asymmetric_pad):
+    a = _conv_args(cuda_device, B, H, W, C, O, seed=H + W + C)
+    before = conv.downsample_conv3x3.launches
+    got = conv.downsample_conv3x3(a["x"], a["weight"], a["bias"],
+                                  asymmetric_pad)
+    assert conv.downsample_conv3x3.launches == before + 1
+    want = conv.downsample_conv3x3_ref(a["x"], a["weight"], a["bias"],
+                                       asymmetric_pad)
+    pad = 0 if asymmetric_pad else 1
+    assert got.shape == want.shape == (B, (H + pad - 2) // 2 + 1,
+                                       (W + pad - 2) // 2 + 1, O)
+    _assert_conv_close(got, want)
+
+
+def _grads(fn, *args):
+    """Gradients of sum(fn(*args) * cotangent) for the float tensors among
+    args, with a fixed seeded cotangent."""
+    leaves = [a.detach().requires_grad_() if a is not None
+              and a.is_floating_point() else a for a in args]
+    out = fn(*leaves)
+    g = torch.Generator(device=out.device).manual_seed(1)
+    ct = torch.randn(out.shape, device=out.device, generator=g).to(out.dtype)
+    wanted = [a for a in leaves if a is not None and a.requires_grad]
+    return torch.autograd.grad(out, wanted, ct)
+
+
+@pytest.mark.cuda
+def test_attention_gradient_through_autograd_matches_plain(cuda_device):
+    q, k, v, _ = _attention_inputs(cuda_device, 4, 96, 77, 80, seed=5)
+    before = attention.launches
+    got = _grads(lambda *t: attention(*t, 80 ** -0.5), q, k, v)
+    assert attention.launches == before + 1
+    want = _grads(lambda *t: attention_reference(*t, 80 ** -0.5), q, k, v)
+    for name, g_, w_ in zip("qkv", got, want):
+        _assert_grad_close(f"d{name}", g_, w_)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", ["splat", "gn", "gn_res", "silu", "up",
+                                   "down", "down_sym"])
+def test_kernel_wrapper_gradients_match_plain(cuda_device, which):
+    """The kernel wrappers' backward is autograd of their plain versions on
+    the same inputs: the same functions on the same device, so they agree
+    to the plain version's own run-to-run spread (atomics in the splat's
+    index_add_, cuDNN's choice of algorithm)."""
+    a = _conv_args(cuda_device, 2, 12, 10, 16, 24, seed=3)
+    rng = np.random.default_rng(4)
+    vals = torch.from_numpy(rng.standard_normal((2, 9, 11, 5)).astype(
+        np.float32)).to(cuda_device)
+    flow = _flow(rng, 2, 9, 11).to(cuda_device)
+    flow = torch.nan_to_num(flow, nan=0.0, posinf=30.0)
+    x, sc, sh, w, b, res = (a[n] for n in ("x", "scale", "shift", "weight",
+                                           "bias", "residual"))
+    cases = {
+        "splat": (splat_sum, splat_sum_reference, (vals, flow)),
+        "gn": (conv.gn_silu_conv3x3, conv.gn_silu_conv3x3_ref,
+               (x, sc, sh, w, b, None)),
+        "gn_res": (conv.gn_silu_conv3x3, conv.gn_silu_conv3x3_ref,
+                   (x, sc, sh, w, b, res)),
+        "silu": (conv.silu_conv3x3, conv.silu_conv3x3_ref, (x, w, b)),
+        "up": (conv.upsample_conv3x3, conv.upsample_conv3x3_ref, (x, w, b)),
+        "down": (conv.downsample_conv3x3, conv.downsample_conv3x3_ref,
+                 (x, w, b)),
+        "down_sym": (lambda *t: conv.downsample_conv3x3(*t, False),
+                     lambda *t: conv.downsample_conv3x3_ref(*t, False),
+                     (x, w, b)),
+    }
+    fast, plain, args = cases[which]
+    got = _grads(fast, *args)
+    want = _grads(plain, *args)
+    assert len(got) == len(want) > 0
+    for g_, w_ in zip(got, want):
+        torch.testing.assert_close(g_.float(), w_.float(), atol=1e-5,
+                                   rtol=1e-3)
 
 
 def test_build_raises_without_nvcc(monkeypatch, tmp_path):

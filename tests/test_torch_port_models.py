@@ -111,10 +111,7 @@ def test_weight_bridge_matches_export_state_dict(jax_params, which):
     params = jax_params[which]
     got = weights.export_state_dict(params, port_map)
     want = hf_import.export_state_dict(params, jax_map)
-    if which == "vae":
-        # the port has the decoding half of the VAE
-        want = {k: v for k, v in want.items()
-                if k.startswith(("decoder.", "post_quant_conv."))}
+    assert port_map == jax_map
     assert got.keys() == want.keys()
     for k in want:
         np.testing.assert_array_equal(got[k], want[k], err_msg=k)
