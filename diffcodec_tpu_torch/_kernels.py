@@ -8,7 +8,9 @@ library with a plain C interface, at first use, and loaded with `ctypes`:
         csrc/*.cu
 
 The sources include CUDA's headers only, never PyTorch's, so the build takes
-seconds.  `<hash>` is a digest of the sources and the flags, so an edited
+seconds.  The library links the CUDA runtime alone: the one driver call it
+makes, `cuTensorMapEncodeTiled` (the conv kernel's TMA descriptors), is
+fetched at run time through `cudaGetDriverEntryPoint`, so no `-lcuda`.  `<hash>` is a digest of the sources and the flags, so an edited
 source builds anew and an unchanged one loads the library already built.
 A missing `nvcc`, a failed build or a failed load raises with the
 compiler's output; nothing falls back.

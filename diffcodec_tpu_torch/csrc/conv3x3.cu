@@ -1,5 +1,5 @@
 // 3x3 convolutions of the VAE, NHWC, bf16 in / bf16 out, fp32
-// accumulation: one implicit-GEMM kernel with three entry points.
+// accumulation: implicit GEMMs behind three entry points.
 //
 // Replaces the TPU kernels of diffcodec_tpu/ops/conv_pallas.py:
 //   * gn_silu_conv3x3_pallas (:211, pallas_call :239): (x * scale + shift)
@@ -13,54 +13,95 @@
 //     taps at the input resolution -> dc_upsample_conv3x3;
 //   * downsample_conv3x3_pallas (:703, pallas_call :736): conv3x3 at
 //     stride 2, padded bottom/right (the VAE encoder) or on all sides (the
-//     UNet) -> dc_downsample_conv3x3, the stride template (8 x 16 output
-//     pixels a block, a 17 x 33 input halo, 64 output channels).  The
-//     stride halves the products per halo byte; the encoder's three
-//     launches are bound by the operations at 256 and 128 px and by the
-//     bytes at 512 px.
+//     UNet) -> dc_downsample_conv3x3.
 //
-// What bounds it on an H100: 2 * taps * B * H * W * C * O FLOP of bf16
-// products (taps = 9, or 16 collapsed for the upsample) against the
-// 989 TFLOP/s dense bf16 rate.  At the decoder's heaviest launch,
-// [7, 512, 512, 256 -> 128], that is 1.08 TFLOP (1.09 ms at peak) while
-// the input and output are 0.7 GB (0.21 ms at 3.35 TB/s): the operations
-// bound every launch of the decoder but the 128 -> 3 out-head, which the
-// bytes bound.
+// What bounds each entry on an H100 (989 TFLOP/s dense bf16, 3.35 TB/s):
+//   * dc_conv3x3: 2 * 9 * B * H * W * C * O FLOP.  At the decoder's
+//     heaviest launch, [7, 512, 512, 256 -> 128], that is 1.08 TFLOP
+//     (1.09 ms at peak) against 0.7 GB of input and output (0.21 ms): the
+//     operations bound every launch but the 128 -> 3 out-head, which the
+//     bytes bound.
+//   * dc_downsample_conv3x3: a quarter of the products per input byte.
+//     The encoder's [8, 512, 512, 128 -> 128] is bound by its 0.67 GB
+//     (0.200 ms), its 256 and 128 px launches by the operations (0.156 ms).
+//   * dc_upsample_conv3x3: 16 collapsed taps at the input resolution, bound
+//     by the operations.
 //
-// Design (mma.sync; no wgmma, no TMA yet):
-//   * a block of 16 warps computes 256 output pixels (a 16 x 16 spatial
-//     tile of one image, one output phase for the upsample) by BN output
-//     channels: BN = 128, or 16 where O <= 16 (the 128 -> 3 out-head and
-//     the tiny configs), so a narrow head does not pay for 128 columns;
-//   * the input channels are walked in chunks of 16.  A chunk is the
-//     (16 + 2) x (16 + 2) halo of the tile and the chunk's weights, [taps][BN]
-//     rows of 16 channels (the wrapper lays the weights out chunk by chunk,
-//     so a chunk's are one contiguous run), copied with cp.async into one
-//     of three shared-memory stages: chunk j + 2 is in flight and chunk
-//     j + 1 is activated while chunk j is multiplied, one barrier a chunk;
-//   * activation happens once per halo element and chunk, in shared memory,
-//     by the thread that copied it: fp32 affine, round to bf16, SiLU, round
-//     to bf16 (the rounding order of conv_pallas.py:185-187,194); halo
-//     positions outside the image were zero-filled by the copy and are left
-//     0 (the pad-ring rule of :188-194: a padded zero must not become
-//     silu(shift)); the 9 (or 4) taps then read the halo at shifted
-//     offsets;
-//   * fragments come from shared memory with ldmatrix.x4 at a row stride of
-//     24 bf16 (48 bytes), which puts the 8 rows of a matrix in 8 different
-//     bank groups; products are mma.sync m16n8k16 (bf16 operands, fp32
-//     accumulators), each warp a 32 x 64 tile (16 x 16 where BN = 16);
+// Two main loops.
+//
+// The Hopper loop (conv3x3_hopper): dc_conv3x3 where O > 16, and
+// dc_downsample_conv3x3 at every O.  Persistent: one block of 512 threads
+// per SM walks tiles i, i + #SMs, ...; its roles walk the same sequence of
+// (tile, chunk of 64 input channels) steps, so the copies and the
+// activation run ahead into the next tile while the consumers finish one.
+//   * warp 0, one thread: the producer.  It keeps TMA copies in flight on
+//     mbarriers: the input halo of a step (one 128-byte row a pixel,
+//     128-byte swizzle) into a ring of 3 stages (2 at stride 2), and the
+//     step's weights tap by tap (128 output channels x 64 input channels,
+//     16 KB, 128-byte swizzle) into a ring of 6 stages (4 at stride 2).
+//     The halo comes from a 4-D tensor map over [B, H, W, C] whose
+//     out-of-bounds zero fill is the SAME pad ring and the zeros past C;
+//     the weights from a 3-D map over the wrapper's layout
+//     [Cp / 64][9][O][64].  The maps are encoded on the host
+//     (cuTensorMapEncodeTiled, fetched with cudaGetDriverEntryPoint, so
+//     nothing links libcuda) and passed as __grid_constant__ parameters.
+//   * warps 1-7, for prologues 1 and 2: the activation.  Each landed halo
+//     stage is turned into the prologue's bf16 values in place (fp32 affine
+//     as a product then a sum, rounded to bf16; SiLU; rounded to bf16: the
+//     rounding order of conv_pallas.py:185-187,194), only at in-image
+//     positions below C (the pad-ring rule of conv_pallas.py:188-194: a
+//     padded zero must not become silu(shift)), then released to the
+//     consumers on its own mbarrier.  Seven warps, not three: with three
+//     the activation, not the products, set the pace.
+//   * warps 8-15, two consumer warpgroups: each takes half of a tile's
+//     output pixels (128 of a 16 x 16 tile at stride 1; 64 of an 8 x 16
+//     tile at stride 2) by 128 output channels, and issues
+//     wgmma.mma_async m64n128k16 with A from registers (ldmatrix.x4 from
+//     the swizzled halo at the tap's shifted window: the m16n8k16 A
+//     fragment, one warp's 16 rows one tile row of 16 pixels) and B from a
+//     shared-memory descriptor (128-byte swizzle, K-major).  Taps are split
+//     into two groups of two k-steps; two register buffers of A let one
+//     group's ldmatrix run while the group before it multiplies
+//     (wgmma.wait_group 1).  A weight stage, and a chunk's halo stage, go
+//     back to the producer only once wgmma has read what came from them.
+//     setmaxnreg moves registers from the producer/activation side (56) to
+//     the consumers (200).
+//   * stride 2 reads four parity planes of the halo (even/odd rows x
+//     even/odd columns), each from its own tensor map over the input seen
+//     at twice its strides: tap (dy, dx) reads plane (dy & 1, dx & 1) at
+//     offset (dy >> 1, dx >> 1), so its rows are unit-stride and the
+//     consumer code is the stride-1 code.  BN = 128 fetches each input byte
+//     once at O = 128.
 //   * the epilogue adds the bias and, under a template flag, the residual
-//     in fp32, rounds once to bf16 and stores with masks on the image edge
-//     and on O; the upsample writes each phase straight into its place
-//     (2y + di, 2x + dj) of [B, 2H, 2W, O], so no 2x tensor and no
-//     interleave pass exist;
-//   * offsets into activations are 64-bit ([7, 512, 512, 256] holds
-//     4.7e8 elements).
-// What it does not do yet, and what bounds it (PERF.md): every block
-// re-reads its weight tile, ~4 GB from L2 at the heaviest launch, and the
-// warps that multiply also start the copies and activate.
-// Takes C % 8 == 0 (16-byte vectors of 8 channels), any O >= 1, any H, W.
+//     (its rows prefetched into L2 during the tile's last chunk) in fp32
+//     and rounds once to bf16; where O % 8 == 0 a quad of lanes trades
+//     accumulators so each lane writes 8 channels with one 16-byte store
+//     (else 2- and 1-element stores), masked on the image edge and O.
+// What bounds it now (PERF.md): shared-memory bandwidth.  wgmma reads B
+// from shared memory once for every m64 (1 byte per 64 FLOP) and ldmatrix
+// reads A once for 128 columns (1 byte per 128 FLOP): at the tensor cores'
+// peak, 96 of the SM's 128 bytes a clock, before the TMA writes and the
+// activation's read and write.  O = 128 layers cannot take n256, which
+// would halve A's share.
+//
+// The mma.sync loop (conv3x3_kernel), kept for two paths:
+//   * dc_upsample_conv3x3: already level with cuDNN (PERF.md); its 16
+//     collapsed taps per phase and its interleaved output are not yet on
+//     the Hopper loop;
+//   * dc_conv3x3 where O <= 16 (the 128 -> 3 out-head, bound by bytes):
+//     a 128-column wgmma tile would be 8x wider than the output.
+// A block of 16 warps computes 256 output pixels (a 16 x 16 tile, one
+// output phase for the upsample) by BN = 128 channels, or 16 where O <= 16;
+// input channels are walked in chunks of 16 copied with cp.async into a
+// three-stage ring and activated once in shared memory by the thread that
+// copied them; fragments come by ldmatrix at a 48-byte row stride
+// (conflict-free) into mma.sync m16n8k16.
+//
+// Both take C % 8 == 0 (16-byte vectors of 8 channels), any O >= 1, any
+// H, W (stride 2: H, W >= 2); offsets into activations are 64-bit
+// ([7, 512, 512, 256] holds 4.7e8 elements).
 
+#include <cuda.h>  // CUtensorMap and its enums only: libcuda is not linked
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -71,32 +112,783 @@
 
 namespace {
 
-constexpr int kThreads = 512;     // 16 warps
-constexpr int kStages = 3;        // shared-memory stages of the chunk ring
-constexpr int kWarps = kThreads / 32;
-constexpr int kTW = 16;           // output columns of a block's tile
-constexpr int kBK = 16;           // input channels per chunk
-constexpr int kVec = kBK / 8;     // 16-byte vectors per chunk row
-constexpr int kLD = kBK + 8;      // bf16 row stride in shared memory
 constexpr int kMaxDevices = 64;
-
-// A block's output tile (TH rows of kTW pixels) and the input halo it
-// reads at stride S: 16 x 16 pixels and an 18 x 18 halo at stride 1; 8 x 16
-// pixels and a 17 x 33 halo at stride 2, so that three stages still fit in
-// shared memory
-template <int S>
-struct Tile {
-  static constexpr int TH = S == 1 ? 16 : 8;
-  static constexpr int BM = TH * kTW;               // output pixels
-  static constexpr int HALO_W = S * (kTW - 1) + 3;
-  static constexpr int HALO = (S * (TH - 1) + 3) * HALO_W;
-};
 
 enum Prologue { kNone = 0, kSilu = 1, kAffineSilu = 2 };
 
 __device__ __forceinline__ unsigned smem_addr(const void* p) {
   return static_cast<unsigned>(__cvta_generic_to_shared(p));
 }
+
+// four 8x8 bf16 matrices from shared memory; lane i gives the address of
+// row i % 8 of matrix i / 8
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], unsigned addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+__device__ __forceinline__ float round_bf16(float v) {
+  return __bfloat162float(__float2bfloat16(v));
+}
+
+// the affine of channels [c, c + 8) from image b's rows of scale and
+// shift, read only for kAffineSilu
+template <int PRO>
+__device__ __forceinline__ void affine_of(float (&sc)[8], float (&sh)[8],
+                                          const float* __restrict__ scale,
+                                          const float* __restrict__ shift,
+                                          int c) {
+  if (PRO == kAffineSilu) {
+    const float4* s4 = reinterpret_cast<const float4*>(scale + c);
+    const float4* h4 = reinterpret_cast<const float4*>(shift + c);
+    *reinterpret_cast<float4*>(sc) = __ldg(s4);
+    *reinterpret_cast<float4*>(sc + 4) = __ldg(s4 + 1);
+    *reinterpret_cast<float4*>(sh) = __ldg(h4);
+    *reinterpret_cast<float4*>(sh + 4) = __ldg(h4 + 1);
+  }
+}
+
+// 8 channels of one input pixel, in place -> the prologue's bf16 values,
+// with sc, sh their affine.  The affine is rounded as the plain version
+// computes it (a product, then a sum: no fused multiply-add).  SiLU uses the
+// fast exponential and division (a few ulp of fp32, below the bf16 rounding
+// that follows).
+template <int PRO>
+__device__ __forceinline__ void prologue(uint4& raw, const float (&sc)[8],
+                                         const float (&sh)[8]) {
+  __nv_bfloat16* v = reinterpret_cast<__nv_bfloat16*>(&raw);
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    float f = __bfloat162float(v[j]);
+    if (PRO == kAffineSilu) {
+      f = round_bf16(__fadd_rn(__fmul_rn(f, sc[j]), sh[j]));
+    }
+    v[j] = __float2bfloat16(__fdividef(f, 1.0f + __expf(-f)));
+  }
+}
+
+// ---------------------------------------------------------------------------
+// The Hopper loop: TMA, mbarriers, wgmma, warp specialisation.
+
+constexpr int kHThreads = 512;    // 2 producer/activation WGs, 2 consumer
+constexpr int kActThreads = 224;  // warps 1-7
+constexpr int kConsumerWarp0 = 8;
+constexpr int kConsumerWarps = 8;
+constexpr int kCK = 64;           // input channels of a chunk: 128 bytes
+constexpr int kBN = 128;          // output channels of a tile
+constexpr int kWBytes = kBN * kCK * 2;  // one tap's weight stage
+
+constexpr int round1024(int b) { return (b + 1023) / 1024 * 1024; }
+
+// An output tile (TH x TW pixels) and its halo at stride S: one
+// (TH + 2) x (TW + 2) box at stride 1; four (TH + 1) x (TW + 1) parity
+// planes at stride 2.  MT: m64 tiles of each consumer warpgroup; HS, WS:
+// halo and weight stages, as many as shared memory holds (a third halo
+// stage at stride 1 beat two more weight stages)
+template <int S>
+struct HTile {
+  static constexpr int TH = S == 1 ? 16 : 8;
+  static constexpr int TW = 16;
+  static constexpr int MT = TH * TW / 128;
+  static constexpr int PH = S == 1 ? TH + 2 : TH + 1;
+  static constexpr int PW = S == 1 ? TW + 2 : TW + 1;
+  static constexpr int PLANES = S == 1 ? 1 : 4;
+  static constexpr int BOX_BYTES = PH * PW * kCK * 2;  // one TMA box
+  static constexpr int PLANE_BYTES = round1024(BOX_BYTES);
+  static constexpr int HALO_BYTES = PLANES * PLANE_BYTES;
+  static constexpr int HS = S == 1 ? 3 : 2;   // halo stages
+  static constexpr int WS = S == 1 ? 6 : 4;   // weight stages
+  static constexpr int N_BARS = 3 * HS + 2 * WS;
+  // + 1024 to align the buffers (the 128-byte swizzle repeats every 1024)
+  static constexpr size_t SMEM =
+      1024 + HS * HALO_BYTES + WS * kWBytes + 8 * N_BARS;
+  static_assert(SMEM <= 232448, "shared memory");
+};
+
+// the tensor maps of a launch: the input (stride 1: x[0]; stride 2: the
+// parity plane (row & 1, column & 1) in x[2 * (row & 1) + (column & 1)])
+// and the weights
+struct Maps {
+  CUtensorMap x[4];
+  CUtensorMap w;
+};
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_addr(bar)),
+               "r"(count));
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_addr(bar))
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar,
+                                               uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_addr(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
+// spin until the phase of parity `parity` has completed
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred P1;\n"
+      "LAB_WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
+      "@P1 bra DONE;\n"
+      "bra LAB_WAIT;\n"
+      "DONE:\n"
+      "}\n" ::"r"(smem_addr(bar)),
+      "r"(parity)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0),
+      "r"(c1), "r"(c2)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0),
+      "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+__device__ __forceinline__ void prefetch_l2(const void* p) {
+  asm volatile("prefetch.global.L2 [%0];\n" ::"l"(p));
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// keeps the compiler from moving accesses of the accumulators across the
+// asynchronous products
+__device__ __forceinline__ void fence_acc(float (&d)[64]) {
+#pragma unroll
+  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// a[i][e]: this lane's channels 2q + e of n-tile i of four (q = lane & 3,
+// an accumulator's column pair); returns in v[c] channel c of n-tile q,
+// gathered from the quad's four lanes in two rounds of shuffles
+__device__ __forceinline__ void quad_transpose(const float (&a)[4][2],
+                                               float (&v)[8], int q) {
+  const bool b0 = q & 1, b1 = q & 2;
+  // with lane q ^ 1: keep the n-tiles i with i % 2 == q % 2; the pair then
+  // holds their channels 4 (q / 2) .. 4 (q / 2) + 3
+  float s1[2][4];
+#pragma unroll
+  for (int t = 0; t < 2; ++t) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const float keep = b0 ? a[2 * t + 1][e] : a[2 * t][e];
+      const float send = b0 ? a[2 * t][e] : a[2 * t + 1][e];
+      const float recv = __shfl_xor_sync(0xffffffffu, send, 1);
+      s1[t][e] = b0 ? recv : keep;
+      s1[t][2 + e] = b0 ? keep : recv;
+    }
+  }
+  // with lane q ^ 2: keep n-tile q
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    const float keep = b1 ? s1[1][c] : s1[0][c];
+    const float send = b1 ? s1[0][c] : s1[1][c];
+    const float recv = __shfl_xor_sync(0xffffffffu, send, 2);
+    v[c] = b1 ? recv : keep;
+    v[4 + c] = b1 ? keep : recv;
+  }
+}
+
+// descriptor of a K-major B tile in shared memory with the 128-byte
+// swizzle: rows of 64 bf16 (128 bytes), 8-row groups 1024 bytes apart
+__device__ __forceinline__ uint64_t desc_b128(unsigned addr) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
+         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
+}
+
+// d[64 x 128] += a[64 x 16] (registers: this warp's 16 rows, the m16n8k16
+// A fragment) . b[16 x 128] (shared memory, K-major)
+__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64],
+                                                 const uint32_t (&a)[4],
+                                                 uint64_t desc_b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
+      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+// where a block's tile lies: output tile (ty0, tx0) of image b, output
+// channels [n0, n0 + 128)
+struct TileAt {
+  int ty0, tx0, n0, b;
+};
+
+// tiles are numbered with the output-channel tile fastest, then the
+// column, the row and the image: the blocks in flight at any time share
+// their input halos and all of their weights in L2 (with the column
+// fastest, a halo was read from memory once for every output-channel
+// tile: PERF.md)
+template <int S>
+__device__ __forceinline__ TileAt tile_at(int tile, int tiles_w, int tiles_h,
+                                          int tiles_n) {
+  using T = HTile<S>;
+  TileAt t;
+  t.n0 = (tile % tiles_n) * kBN;
+  tile /= tiles_n;
+  t.tx0 = (tile % tiles_w) * T::TW;
+  tile /= tiles_w;
+  t.ty0 = (tile % tiles_h) * T::TH;
+  t.b = tile / tiles_h;
+  return t;
+}
+
+// PRO: prologue; RES: add a residual [B, Ho, Wo, O] in the epilogue; S: the
+// stride (2 only with kNone).  Output pixel (oy, ox) reads input pixel
+// (S * oy + dy - pad, S * ox + dx - pad) at tap (dy, dx).  Persistent: block
+// i takes tiles i, i + gridDim.x, ... of the n_tiles = tiles_w x tiles_h x
+// tiles_n x B tiles, and every role walks the same sequence of (tile,
+// chunk) steps, so the producer and the activation run ahead into the next
+// tile while the consumers finish this one.
+template <int PRO, bool RES, int S>
+__global__ void __launch_bounds__(kHThreads, 1)
+conv3x3_hopper(const __grid_constant__ Maps maps,
+               const float* __restrict__ scale,
+               const float* __restrict__ shift,
+               const float* __restrict__ bias,
+               const __nv_bfloat16* __restrict__ res,
+               __nv_bfloat16* __restrict__ out, int H, int W, int C, int O,
+               int Ho, int Wo, int pad, int tiles_w, int tiles_h,
+               int tiles_n, int n_tiles) {
+  static_assert(S == 1 || (S == 2 && PRO == kNone), "stride");
+  using T = HTile<S>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* halo = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~(uintptr_t)1023);
+  unsigned char* wts = halo + T::HS * T::HALO_BYTES;
+  uint64_t* hfull = reinterpret_cast<uint64_t*>(wts + T::WS * kWBytes);
+  uint64_t* hact = hfull + T::HS;    // halo activated (prologues 1, 2)
+  uint64_t* hempty = hact + T::HS;   // halo read by the consumers
+  uint64_t* wfull = hempty + T::HS;
+  uint64_t* wempty = wfull + T::WS;
+
+  const int n_chunks = (C + kCK - 1) / kCK;
+  // this block's steps: (tile, chunk) pairs, chunk fastest; step k uses
+  // halo stage k % HS
+  const int my_tiles = (n_tiles - (int)blockIdx.x + (int)gridDim.x - 1) /
+                       (int)gridDim.x;
+  const int n_steps = my_tiles * n_chunks;
+  auto step_tile = [&](int k) {
+    return tile_at<S>(blockIdx.x + (k / n_chunks) * gridDim.x, tiles_w,
+                      tiles_h, tiles_n);
+  };
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < T::HS; ++i) {
+      mbar_init(&hfull[i], 1);
+      mbar_init(&hact[i], kActThreads);
+      mbar_init(&hempty[i], kConsumerWarps);
+    }
+    for (int i = 0; i < T::WS; ++i) {
+      mbar_init(&wfull[i], 1);
+      mbar_init(&wempty[i], kConsumerWarps);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp < kConsumerWarp0) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 56;\n" ::: "memory");
+    if (warp == 0) {
+      if (lane != 0) return;
+      // the producer: the halo of step k in stage k % HS, the weights of
+      // (step, tap) in stage (9 * step + tap) % WS.  The halo of step
+      // k + HS - 1 is asked for after step k's third tap, when the stage
+      // it overwrites (step k - 1's) is about to be released
+      auto load_halo = [&](int k) {
+        const int s = k % T::HS;
+        const TileAt t = step_tile(k);
+        const int iy0 = S * t.ty0 - pad, ix0 = S * t.tx0 - pad;
+        const int c0 = (k % n_chunks) * kCK;
+        mbar_wait(&hempty[s], ((k / T::HS) & 1) ^ 1);
+        mbar_expect_tx(&hfull[s], T::PLANES * T::BOX_BYTES);
+        unsigned char* dst = halo + s * T::HALO_BYTES;
+        if (S == 1) {
+          tma_load_4d(dst, &maps.x[0], &hfull[s], c0, ix0, iy0, t.b);
+        } else {
+#pragma unroll
+          for (int p = 0; p < 4; ++p) {
+            // plane p holds input rows iy0 + (p >> 1) + 2u, columns
+            // ix0 + (p & 1) + 2v: row r of the input is row r >> 1 of
+            // parity plane r & 1 (floor division, so -1 -> -1: padding)
+            const int ry = iy0 + (p >> 1), rx = ix0 + (p & 1);
+            tma_load_4d(dst + p * T::PLANE_BYTES,
+                        &maps.x[2 * (ry & 1) + (rx & 1)], &hfull[s], c0,
+                        rx >> 1, ry >> 1, t.b);
+          }
+        }
+      };
+      int ws = 0;
+      uint32_t wph = 0;
+      for (int k = 0; k < T::HS - 1 && k < n_steps; ++k) load_halo(k);
+      for (int k = 0; k < n_steps; ++k) {
+        const int n0 = step_tile(k).n0;
+        const int j = k % n_chunks;
+        for (int tap = 0; tap < 9; ++tap) {
+          mbar_wait(&wempty[ws], wph ^ 1);
+          mbar_expect_tx(&wfull[ws], kWBytes);
+          tma_load_3d(wts + ws * kWBytes, &maps.w, &wfull[ws], 0, n0,
+                      9 * j + tap);
+          if (++ws == T::WS) {
+            ws = 0;
+            wph ^= 1;
+          }
+          if (tap == 2 && k + T::HS - 1 < n_steps) load_halo(k + T::HS - 1);
+        }
+      }
+      return;
+    }
+    if (PRO == kNone) return;
+    // the activation, in place, on every landed halo stage.  A thread
+    // keeps one group of 8 channels of the chunk, and its scale and shift
+    // in registers, and walks every 28th pixel row; in row `row` the group
+    // sits in 16-byte vector grp ^ (row & 7) (the 128-byte swizzle), so 8
+    // neighbouring threads cover one row, conflict-free
+    const int t = threadIdx.x - 32;
+    const int grp = t & 7;
+    constexpr int kRowStep = kActThreads / 8;
+    for (int k = 0; k < n_steps; ++k) {
+      const int s = k % T::HS;
+      const TileAt at = step_tile(k);
+      const int iy0 = at.ty0 - 1, ix0 = at.tx0 - 1;
+      const int c = (k % n_chunks) * kCK + 8 * grp;
+      float sc[8], sh[8];
+      if (c < C) {
+        const size_t bc = PRO == kAffineSilu ? (size_t)at.b * C : 0;
+        affine_of<PRO>(sc, sh, scale + bc, shift + bc, c);
+      }
+      mbar_wait(&hfull[s], (k / T::HS) & 1);
+      unsigned char* st = halo + s * T::HALO_BYTES;
+#pragma unroll 2
+      for (int row = t >> 3; row < T::PH * T::PW; row += kRowStep) {
+        const int hy = row / T::PW;
+        const int y = iy0 + hy;
+        const int xx = ix0 + row - hy * T::PW;
+        if (c < C && y >= 0 && y < H && xx >= 0 && xx < W) {
+          uint4* q = reinterpret_cast<uint4*>(st + row * 128 +
+                                              ((grp ^ (row & 7)) << 4));
+          uint4 val = *q;
+          prologue<PRO>(val, sc, sh);
+          *q = val;
+        }
+      }
+      // these generic-proxy writes precede the next TMA write of the stage
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      mbar_arrive(&hact[s]);
+    }
+    return;
+  }
+
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 200;\n" ::: "memory");
+  const int cw = warp - kConsumerWarp0;
+  const int cg = cw >> 2;  // consumer warpgroup
+  const int wq = cw & 3;   // warp of the warpgroup: 16 rows of each m64
+  // ldmatrix lane roles: A row (pixel of the tile row) lane % 16, k half
+  // lane / 16
+  const int a_px = lane & 15;
+  const int a_half = lane >> 4;
+  const unsigned wts_s = smem_addr(wts);
+  float acc[T::MT][64];
+  uint32_t afr[2][T::MT][2][4];  // [group parity][m-tile][k-step][4]
+  int ws = 0;
+  uint32_t wph = 0;
+  for (int k0 = 0; k0 < n_steps; k0 += n_chunks) {
+    const TileAt at = step_tile(k0);
+#pragma unroll
+    for (int mt = 0; mt < T::MT; ++mt) {
+#pragma unroll
+      for (int i = 0; i < 64; ++i) acc[mt][i] = 0.f;
+      fence_acc(acc[mt]);
+    }
+    int rel = -1;  // the weight stage to give back after the next wait
+    for (int k = k0; k < k0 + n_chunks; ++k) {
+      const int s = k % T::HS;
+      if (RES && k == k0 + n_chunks - 1) {
+        // the epilogue's residual rows into L2 while the last chunk runs:
+        // this lane's pixel row, 64 of its 256 bytes
+#pragma unroll
+        for (int mt = 0; mt < T::MT; ++mt) {
+#pragma unroll
+          for (int half = 0; half < 2; ++half) {
+            const int y = at.ty0 + (cg * T::MT + mt) * 4 + wq;
+            const int xx = at.tx0 + (lane >> 2) + 8 * half;
+            if (y < Ho && xx < Wo && at.n0 + 32 * (lane & 3) < O) {
+              prefetch_l2(res + (((size_t)at.b * Ho + y) * Wo + xx) * O +
+                          at.n0 + 32 * (lane & 3));
+            }
+          }
+        }
+      }
+      mbar_wait(PRO == kNone ? &hfull[s] : &hact[s], (k / T::HS) & 1);
+      const unsigned hb = smem_addr(halo + s * T::HALO_BYTES);
+#pragma unroll
+      for (int tap = 0; tap < 9; ++tap) {
+        const int dy = tap / 3, dx = tap % 3;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {  // k-steps 2h, 2h + 1 of the tap
+#pragma unroll
+          for (int mt = 0; mt < T::MT; ++mt) {
+            const int r = (cg * T::MT + mt) * 4 + wq;  // tile row
+            const int hr = S == 1
+                               ? (r + dy) * T::PW + a_px + dx
+                               : (r + (dy >> 1)) * T::PW + a_px + (dx >> 1);
+            const unsigned base =
+                hb +
+                (S == 1 ? 0 : ((dy & 1) * 2 + (dx & 1)) * T::PLANE_BYTES) +
+                hr * 128;
+#pragma unroll
+            for (int k2 = 0; k2 < 2; ++k2) {
+              const int c16 = 2 * (2 * h + k2) + a_half;  // logical 16 B
+              ldmatrix_x4(afr[h][mt][k2], base + ((c16 ^ (hr & 7)) << 4));
+            }
+          }
+          if (h == 0) mbar_wait(&wfull[ws], wph);
+          wgmma_fence();
+#pragma unroll
+          for (int mt = 0; mt < T::MT; ++mt) {
+#pragma unroll
+            for (int k2 = 0; k2 < 2; ++k2) {
+              wgmma_m64n128k16(acc[mt], afr[h][mt][k2],
+                               desc_b128(wts_s + ws * kWBytes +
+                                         (2 * h + k2) * 32));
+            }
+          }
+          wgmma_commit();
+          // the group before this one has completed, and with it the
+          // previous tap's weights and, at a chunk's first tap, the
+          // previous chunk's halo.  The halo goes back only now: once
+          // wgmma has read the registers that ldmatrix filled from it (an
+          // arrive right after the ldmatrix let the next TMA copy
+          // overwrite rows still being read)
+          wgmma_wait<1>();
+          if (h == 0) {
+            if (rel >= 0) {
+              __syncwarp();
+              if (lane == 0) {
+                mbar_arrive(&wempty[rel]);
+                if (tap == 0) mbar_arrive(&hempty[(k - 1) % T::HS]);
+              }
+            }
+            rel = ws;
+          } else if (++ws == T::WS) {
+            ws = 0;
+            wph ^= 1;
+          }
+        }
+      }
+    }
+    // the tile's last products, then its last weight and halo stages back
+    // before the epilogue, so the producer can fill them meanwhile
+    wgmma_wait<0>();
+#pragma unroll
+    for (int mt = 0; mt < T::MT; ++mt) fence_acc(acc[mt]);
+    __syncwarp();
+    if (lane == 0) {
+      mbar_arrive(&wempty[rel]);
+      mbar_arrive(&hempty[(k0 + n_chunks - 1) % T::HS]);
+    }
+
+    // epilogue: + bias (+ residual) in fp32, one rounding to bf16.  Thread
+    // (row g, column pair q) of n-tile jn holds acc[4 jn + 2 half + {0, 1}]:
+    // pixel g + 8 half of the warp's tile row, channels 8 jn + 2 q + {0, 1}.
+    // Where O % 8 == 0 the quad's four lanes first trade values
+    // (quad_transpose), so that each lane holds the 8 channels of one
+    // n-tile and writes them with one 16-byte store: a warp's store then
+    // fills whole 32-byte sectors, where a 4-byte store fills half of one
+    const int g = lane >> 2;
+    const int q = lane & 3;
+    if ((O & 7) == 0) {
+#pragma unroll
+      for (int mt = 0; mt < T::MT; ++mt) {
+        const int y = at.ty0 + (cg * T::MT + mt) * 4 + wq;
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int xx = at.tx0 + g + 8 * half;
+          const bool inside = y < Ho && xx < Wo;
+          const size_t o_off = (((size_t)at.b * Ho + y) * Wo + xx) * O;
+          // the row's residual vectors, all asked for before the first is
+          // needed (one at a time, each load's latency showed)
+          uint4 rv[kBN / 32];
+#pragma unroll
+          for (int m = 0; m < kBN / 32; ++m) {
+            const int n = at.n0 + 8 * (4 * m + q);
+            if (RES && inside && n < O) {
+              rv[m] = __ldg(reinterpret_cast<const uint4*>(res + o_off + n));
+            }
+          }
+#pragma unroll
+          for (int m = 0; m < kBN / 32; ++m) {
+            float a[4][2], v[8];
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+              a[i][0] = acc[mt][4 * (4 * m + i) + 2 * half];
+              a[i][1] = acc[mt][4 * (4 * m + i) + 2 * half + 1];
+            }
+            quad_transpose(a, v, q);
+            const int n = at.n0 + 8 * (4 * m + q);
+            if (!inside || n >= O) continue;
+            const float4 b0 = __ldg(reinterpret_cast<const float4*>(bias + n));
+            const float4 b1 =
+                __ldg(reinterpret_cast<const float4*>(bias + n + 4));
+            v[0] += b0.x, v[1] += b0.y, v[2] += b0.z, v[3] += b0.w;
+            v[4] += b1.x, v[5] += b1.y, v[6] += b1.z, v[7] += b1.w;
+            uint4 pk;
+            __nv_bfloat162* p2 = reinterpret_cast<__nv_bfloat162*>(&pk);
+            if (RES) {
+              pk = rv[m];
+#pragma unroll
+              for (int i = 0; i < 4; ++i) {
+                v[2 * i] += __low2float(p2[i]);
+                v[2 * i + 1] += __high2float(p2[i]);
+              }
+            }
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+              p2[i] = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
+            }
+            *reinterpret_cast<uint4*>(out + o_off + n) = pk;
+          }
+        }
+      }
+      continue;
+    }
+    const bool pairs = (O & 1) == 0;
+#pragma unroll
+    for (int mt = 0; mt < T::MT; ++mt) {
+      const int y = at.ty0 + (cg * T::MT + mt) * 4 + wq;
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int xx = at.tx0 + g + 8 * half;
+        if (y >= Ho || xx >= Wo) continue;
+        const size_t o_off = (((size_t)at.b * Ho + y) * Wo + xx) * O;
+#pragma unroll
+        for (int jn = 0; jn < kBN / 8; ++jn) {
+          const int n = at.n0 + jn * 8 + 2 * q;
+          if (n >= O) continue;
+          const bool two = n + 1 < O;
+          float v0 = acc[mt][4 * jn + 2 * half] + bias[n];
+          float v1 =
+              two ? acc[mt][4 * jn + 2 * half + 1] + bias[n + 1] : 0.f;
+          if (pairs) {  // n even, O even: n + 1 < O and 4-byte aligned
+            if (RES) {
+              const __nv_bfloat162 rv =
+                  *reinterpret_cast<const __nv_bfloat162*>(res + o_off + n);
+              v0 += __low2float(rv);
+              v1 += __high2float(rv);
+            }
+            *reinterpret_cast<__nv_bfloat162*>(out + o_off + n) =
+                __floats2bfloat162_rn(v0, v1);
+          } else {
+            if (RES) v0 += __bfloat162float(res[o_off + n]);
+            out[o_off + n] = __float2bfloat16(v0);
+            if (two) {
+              if (RES) v1 += __bfloat162float(res[o_off + n + 1]);
+              out[o_off + n + 1] = __float2bfloat16(v1);
+            }
+          }
+        }
+      }
+    }
+  }
+}
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+// the driver's cuTensorMapEncodeTiled, through the runtime (null if the
+// driver lacks it)
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult status;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &status);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                              cudaEnableDefault, &status);
+#endif
+    if (err != cudaSuccess || status != cudaDriverEntryPointSuccess) {
+      p = nullptr;
+    }
+    return reinterpret_cast<EncodeTiled>(p);
+  }();
+  return fn;
+}
+
+// a bf16 map of `rank` dims (innermost first; strides in bytes of dims 1..)
+// with the 128-byte swizzle and zero fill out of bounds
+bool encode_bf16(EncodeTiled enc, CUtensorMap* map, const void* base,
+                 int rank, const cuuint64_t* dims, const cuuint64_t* strides,
+                 const cuuint32_t* box) {
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank,
+             const_cast<void*>(base), dims, strides, box, unit,
+             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// sets a kernel's dynamic shared-memory limit once for each device (a
+// per-device attribute of the function)
+template <typename K>
+cudaError_t set_smem(K kernel, size_t bytes,
+                     std::atomic<bool> (&done)[kMaxDevices]) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (!done[dev].load(std::memory_order_acquire)) {
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+    if (err != cudaSuccess) return err;
+    done[dev].store(true, std::memory_order_release);
+  }
+  return cudaSuccess;
+}
+
+template <int PRO, bool RES, int S>
+int launch_hopper(const void* x, const void* scale, const void* shift,
+                  const void* w, const void* bias, const void* res, void* out,
+                  int B, int H, int W, int C, int O, int Ho, int Wo, int pad,
+                  cudaStream_t stream) {
+  using T = HTile<S>;
+  const EncodeTiled enc = encode_tiled();
+  if (!enc) return (int)cudaErrorNotSupported;
+  Maps maps = {};
+  const cuuint64_t e = 2;  // bytes of a bf16
+  const int n_chunks = (C + kCK - 1) / kCK;
+  {  // weights [n_chunks * 9][O][64]: box one tap's 128 x 64
+    const cuuint64_t dims[3] = {(cuuint64_t)kCK, (cuuint64_t)O,
+                                (cuuint64_t)n_chunks * 9};
+    const cuuint64_t strides[2] = {kCK * e, (cuuint64_t)O * kCK * e};
+    const cuuint32_t box[3] = {kCK, kBN, 1};
+    if (!encode_bf16(enc, &maps.w, w, 3, dims, strides, box)) {
+      return (int)cudaErrorInvalidValue;
+    }
+  }
+  const cuuint64_t img = (cuuint64_t)H * W * C * e;
+  for (int p = 0; p < (S == 1 ? 1 : 4); ++p) {
+    // stride 1: [B, H, W, C]; stride 2: parity plane (py, px), the pixels
+    // (py + 2i, px + 2j) of every image
+    const int py = p >> 1, px = p & 1;
+    const cuuint64_t dims[4] = {
+        (cuuint64_t)C, (cuuint64_t)(S == 1 ? W : (W - px + 1) / 2),
+        (cuuint64_t)(S == 1 ? H : (H - py + 1) / 2), (cuuint64_t)B};
+    const cuuint64_t strides[3] = {S * C * e, S * (cuuint64_t)W * C * e, img};
+    const cuuint32_t box[4] = {kCK, T::PW, T::PH, 1};
+    const __nv_bfloat16* base =
+        static_cast<const __nv_bfloat16*>(x) + ((size_t)py * W + px) * C;
+    if (!encode_bf16(enc, &maps.x[p], base, 4, dims, strides, box)) {
+      return (int)cudaErrorInvalidValue;
+    }
+  }
+  auto kernel = conv3x3_hopper<PRO, RES, S>;
+  static std::atomic<bool> smem_set[kMaxDevices];
+  cudaError_t err = set_smem(kernel, T::SMEM, smem_set);
+  if (err != cudaSuccess) return (int)err;
+  int dev = 0, sms = 0;
+  err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) {
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  }
+  if (err != cudaSuccess) return (int)err;
+  const int tiles_w = (Wo + T::TW - 1) / T::TW;
+  const int tiles_h = (Ho + T::TH - 1) / T::TH;
+  const int tiles_n = (O + kBN - 1) / kBN;
+  const long long n_tiles = (long long)tiles_w * tiles_h * tiles_n * B;
+  if (n_tiles > (1LL << 30)) return (int)cudaErrorInvalidValue;
+  // one block per SM (its shared memory allows no second)
+  const int grid = (int)(n_tiles < sms ? n_tiles : sms);
+  kernel<<<grid, kHThreads, T::SMEM, stream>>>(
+      maps, static_cast<const float*>(scale),
+      static_cast<const float*>(shift), static_cast<const float*>(bias),
+      static_cast<const __nv_bfloat16*>(res),
+      static_cast<__nv_bfloat16*>(out), H, W, C, O, Ho, Wo, pad, tiles_w,
+      tiles_h, tiles_n, (int)n_tiles);
+  return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// The mma.sync loop (the upsample, and dc_conv3x3 where O <= 16).
+
+constexpr int kThreads = 512;     // 16 warps
+constexpr int kStages = 3;        // shared-memory stages of the chunk ring
+constexpr int kWarps = kThreads / 32;
+constexpr int kTW = 16;           // output columns of a block's tile
+constexpr int kTH = 16;           // output rows of a block's tile
+constexpr int kBM = kTH * kTW;    // output pixels of a block
+constexpr int kHaloW = kTW + 2;
+constexpr int kHalo = (kTH + 2) * kHaloW;
+constexpr int kBK = 16;           // input channels per chunk
+constexpr int kVec = kBK / 8;     // 16-byte vectors per chunk row
+constexpr int kLD = kBK + 8;      // bf16 row stride in shared memory
 
 // 16-byte global -> shared copy that bypasses registers; zero-fills the
 // destination when `valid` is false
@@ -116,15 +908,6 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
-// four 8x8 bf16 matrices from shared memory; lane i gives the address of
-// row i % 8 of matrix i / 8
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-
 // d[16x8] += a[16x16] . b[16x8], bf16 operands, fp32 accumulators
 __device__ __forceinline__ void mma_16816(float (&d)[4],
                                           const uint32_t (&a)[4], uint32_t b0,
@@ -136,55 +919,21 @@ __device__ __forceinline__ void mma_16816(float (&d)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-__device__ __forceinline__ float round_bf16(float v) {
-  return __bfloat162float(__float2bfloat16(v));
-}
-
-// 8 channels [c, c + 8) of one input pixel, in place -> the prologue's
-// bf16 values; scale and shift are image b's rows, read only for
-// kAffineSilu.  The affine is rounded as the plain version computes it (a
-// product, then a sum: no fused multiply-add).  SiLU uses the fast
-// exponential and division (a few ulp of fp32, below the bf16 rounding
-// that follows).
-template <int PRO>
-__device__ __forceinline__ void prologue(uint4& raw,
-                                         const float* __restrict__ scale,
-                                         const float* __restrict__ shift,
-                                         int c) {
-  __nv_bfloat16* v = reinterpret_cast<__nv_bfloat16*>(&raw);
-  float sc[8], sh[8];
-  if (PRO == kAffineSilu) {
-    const float4* s4 = reinterpret_cast<const float4*>(scale + c);
-    const float4* h4 = reinterpret_cast<const float4*>(shift + c);
-    *reinterpret_cast<float4*>(sc) = __ldg(s4);
-    *reinterpret_cast<float4*>(sc + 4) = __ldg(s4 + 1);
-    *reinterpret_cast<float4*>(sh) = __ldg(h4);
-    *reinterpret_cast<float4*>(sh + 4) = __ldg(h4 + 1);
-  }
-#pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    float f = __bfloat162float(v[j]);
-    if (PRO == kAffineSilu) {
-      f = round_bf16(__fadd_rn(__fmul_rn(f, sc[j]), sh[j]));
-    }
-    v[j] = __float2bfloat16(__fdividef(f, 1.0f + __expf(-f)));
-  }
-}
-
-template <int TAPS, int BN, int S>
+template <int TAPS, int BN>
 struct Smem {
-  static constexpr int kStage = (Tile<S>::HALO + TAPS * BN) * kLD;  // bf16
+  static constexpr int kStage = (kHalo + TAPS * BN) * kLD;  // bf16
   static constexpr size_t kBytes =
       kStages * sizeof(__nv_bfloat16) * kStage;
 };
 
 // PRO: prologue; RES: add a residual [B, H, W, O] in the epilogue; UP: the
 // upsample's 4 phases of 4 collapsed taps, else 9 taps; BN: output channels
-// of a block; WARPS_M x WARPS_N = 16 warps over the BM x BN tile; S: the
-// stride (2 only without UP).  Output pixel (oy, ox) of the base grid
-// Hb x Wb (the output, or for UP the input resolution) reads input pixel
-// (S * oy + dy - pad, S * ox + dx - pad) at tap (dy, dx).
-template <int PRO, bool RES, bool UP, int BN, int WARPS_M, int S = 1>
+// of a block; WARPS_M x WARPS_N = 16 warps over the kBM x BN tile; KW: the
+// input channels of a chunk of the weight layout ([P][Cp / KW][TAPS][O][KW],
+// read 16 channels at a time).  Output pixel (oy, ox) of the base grid
+// H x W (the output, or for UP the input resolution) reads input pixel
+// (oy + dy - 1, ox + dx - 1) at tap (dy, dx).
+template <int PRO, bool RES, bool UP, int BN, int WARPS_M, int KW>
 __global__ void __launch_bounds__(kThreads, 1)
 conv3x3_kernel(const __nv_bfloat16* __restrict__ x,
                const float* __restrict__ scale,
@@ -193,19 +942,15 @@ conv3x3_kernel(const __nv_bfloat16* __restrict__ x,
                const float* __restrict__ bias,
                const __nv_bfloat16* __restrict__ res,
                __nv_bfloat16* __restrict__ out, int H, int W, int C, int O,
-               int Hb, int Wb, int pad, int tiles_w) {
-  static_assert(S == 1 || (S == 2 && !UP && PRO == kNone), "stride");
+               int tiles_w) {
+  static_assert(KW % kBK == 0, "weight chunk");
   constexpr int TAPS = UP ? 4 : 9;
-  constexpr int kTH = Tile<S>::TH;
-  constexpr int kBM = Tile<S>::BM;
-  constexpr int kHaloW = Tile<S>::HALO_W;
-  constexpr int kHalo = Tile<S>::HALO;
   constexpr int WARPS_N = kWarps / WARPS_M;
   constexpr int WM = kBM / WARPS_M;  // rows (pixels) of a warp
   constexpr int WN = BN / WARPS_N;   // columns (channels) of a warp
   constexpr int MT = WM / 16;
   constexpr int NT = WN / 8;
-  constexpr int kStage = Smem<TAPS, BN, S>::kStage;
+  constexpr int kStage = Smem<TAPS, BN>::kStage;
   static_assert(WM % 16 == 0 && WN % 16 == 0, "warp tile");
   extern __shared__ __align__(16) unsigned char smem[];
   // kStages stages of [halo kHalo][kLD] then [weights TAPS * BN][kLD]
@@ -213,8 +958,8 @@ conv3x3_kernel(const __nv_bfloat16* __restrict__ x,
 
   const int ty0 = (blockIdx.x / tiles_w) * kTH;
   const int tx0 = (blockIdx.x % tiles_w) * kTW;
-  const int iy0 = S * ty0 - pad;  // input pixel of the halo's corner
-  const int ix0 = S * tx0 - pad;
+  const int iy0 = ty0 - 1;  // input pixel of the halo's corner
+  const int ix0 = tx0 - 1;
   const int n0 = blockIdx.y * BN;
   const int phase = UP ? (blockIdx.z & 3) : 0;
   const int b = UP ? (blockIdx.z >> 2) : blockIdx.z;
@@ -226,9 +971,9 @@ conv3x3_kernel(const __nv_bfloat16* __restrict__ x,
 
   const __nv_bfloat16* xb = x + (size_t)b * H * W * C;
   const int n_chunks = (C + kBK - 1) / kBK;
-  // this phase's weights, [n_chunks][TAPS][O][kBK]: a chunk's tile is one
-  // contiguous run, zero past C
-  const __nv_bfloat16* wp = w + (size_t)phase * n_chunks * TAPS * O * kBK;
+  // this phase's weights, [Cp / KW][TAPS][O][KW], zero past C
+  const __nv_bfloat16* wp =
+      w + (size_t)phase * ((C + KW - 1) / KW) * TAPS * O * KW;
   const size_t bc = PRO == kAffineSilu ? (size_t)b * C : 0;
   const float* scb = scale + bc;  // null, and unread, below kAffineSilu
   const float* shb = shift + bc;
@@ -248,7 +993,8 @@ conv3x3_kernel(const __nv_bfloat16* __restrict__ x,
                  ok ? xb + ((size_t)y * W + xx) * C + c : xb, ok);
     }
     __nv_bfloat16* sw = stage + kHalo * kLD;
-    const __nv_bfloat16* wc = wp + (size_t)(c0 / kBK) * TAPS * O * kBK;
+    const __nv_bfloat16* wc =
+        wp + (size_t)(c0 / KW) * TAPS * O * KW + c0 % KW;
     for (int i = threadIdx.x; i < TAPS * BN * kVec; i += kThreads) {
       const int r = i / kVec;  // tap * BN + n
       const int v = i - r * kVec;
@@ -256,7 +1002,7 @@ conv3x3_kernel(const __nv_bfloat16* __restrict__ x,
       const int n = n0 + r - tap * BN;
       const bool ok = n < O;
       cp_async16(sw + r * kLD + v * 8,
-                 ok ? wc + ((size_t)tap * O + n) * kBK + v * 8 : wp, ok);
+                 ok ? wc + ((size_t)tap * O + n) * KW + v * 8 : wp, ok);
     }
     cp_async_commit();
   };
@@ -274,7 +1020,9 @@ conv3x3_kernel(const __nv_bfloat16* __restrict__ x,
       if (y >= 0 && y < H && xx >= 0 && xx < W && c < C) {
         uint4* q = reinterpret_cast<uint4*>(stage + p * kLD + v * 8);
         uint4 val = *q;
-        prologue<PRO>(val, scb, shb, c);
+        float sc[8], sh[8];
+        affine_of<PRO>(sc, sh, scb, shb, c);
+        prologue<PRO>(val, sc, sh);
         *q = val;
       }
     }
@@ -325,14 +1073,14 @@ conv3x3_kernel(const __nv_bfloat16* __restrict__ x,
       for (int mt = 0; mt < MT; ++mt) {
         // an m-tile is one tile row of 16 pixels
         const int py = (wm * WM + mt * 16) / kTW;
-        ldmatrix_x4(a[mt], sx + ((S * py + dy) * kHaloW + dx + S * a_row) *
-                                    kLD + a_k);
+        ldmatrix_x4(a[mt], smem_addr(sx + ((py + dy) * kHaloW + dx + a_row) *
+                                              kLD + a_k));
       }
 #pragma unroll
       for (int nt = 0; nt < NT; nt += 2) {
         uint32_t bf[4];  // b0, b1 of n-tiles nt and nt + 1
-        ldmatrix_x4(bf, sw + (tap * BN + wn * WN + nt * 8 + b_row) * kLD +
-                            b_k);
+        ldmatrix_x4(bf, smem_addr(sw + (tap * BN + wn * WN + nt * 8 + b_row) *
+                                           kLD + b_k));
 #pragma unroll
         for (int mt = 0; mt < MT; ++mt) {
           mma_16816(acc[mt][nt], a[mt], bf[0], bf[1]);
@@ -346,8 +1094,8 @@ conv3x3_kernel(const __nv_bfloat16* __restrict__ x,
   // epilogue: + bias (+ residual) in fp32, one rounding to bf16
   const int g = lane >> 2;  // accumulator row group
   const int t = lane & 3;   // accumulator column pair
-  const int Ho = UP ? 2 * Hb : Hb;
-  const int Wo = UP ? 2 * Wb : Wb;
+  const int Ho = UP ? 2 * H : H;
+  const int Wo = UP ? 2 * W : W;
   const bool pairs = (O & 1) == 0;
 #pragma unroll
   for (int mt = 0; mt < MT; ++mt) {
@@ -356,7 +1104,7 @@ conv3x3_kernel(const __nv_bfloat16* __restrict__ x,
       const int r = wm * WM + mt * 16 + g + 8 * half;
       const int y = ty0 + r / kTW;
       const int xx = tx0 + r % kTW;
-      if (y >= Hb || xx >= Wb) continue;
+      if (y >= H || xx >= W) continue;
       const int oy = UP ? 2 * y + di : y;
       const int ox = UP ? 2 * xx + dj : xx;
       const size_t o_off = (((size_t)b * Ho + oy) * Wo + ox) * O;
@@ -389,30 +1137,17 @@ conv3x3_kernel(const __nv_bfloat16* __restrict__ x,
   }
 }
 
-template <int PRO, bool RES, bool UP, int BN, int WARPS_M, int S = 1>
+template <int PRO, bool RES, bool UP, int BN, int WARPS_M, int KW>
 int launch(const void* x, const void* scale, const void* shift,
            const void* w, const void* bias, const void* res, void* out,
-           int B, int H, int W, int C, int O, int Hb, int Wb, int pad,
-           cudaStream_t stream) {
-  constexpr size_t smem = Smem<UP ? 4 : 9, BN, S>::kBytes;
-  constexpr int kTH = Tile<S>::TH;
-  auto kernel = conv3x3_kernel<PRO, RES, UP, BN, WARPS_M, S>;
-  // the shared-memory limit is a per-device attribute of the function: set
-  // it once for each device, not on every launch
+           int B, int H, int W, int C, int O, cudaStream_t stream) {
+  constexpr size_t smem = Smem<UP ? 4 : 9, BN>::kBytes;
+  auto kernel = conv3x3_kernel<PRO, RES, UP, BN, WARPS_M, KW>;
   static std::atomic<bool> smem_set[kMaxDevices];
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
+  cudaError_t err = set_smem(kernel, smem, smem_set);
   if (err != cudaSuccess) return (int)err;
-  if (dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
-  if (!smem_set[dev].load(std::memory_order_acquire)) {
-    err = cudaFuncSetAttribute(kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    smem_set[dev].store(true, std::memory_order_release);
-  }
-  const int tiles_w = (Wb + kTW - 1) / kTW;
-  const int tiles_h = (Hb + kTH - 1) / kTH;
+  const int tiles_w = (W + kTW - 1) / kTW;
+  const int tiles_h = (H + kTH - 1) / kTH;
   const dim3 grid(tiles_w * tiles_h, (O + BN - 1) / BN, UP ? 4 * B : B);
   if (grid.y > 65535 || grid.z > 65535) return (int)cudaErrorInvalidValue;
   kernel<<<grid, kThreads, smem, stream>>>(
@@ -420,21 +1155,22 @@ int launch(const void* x, const void* scale, const void* shift,
       static_cast<const float*>(scale), static_cast<const float*>(shift),
       static_cast<const __nv_bfloat16*>(w), static_cast<const float*>(bias),
       static_cast<const __nv_bfloat16*>(res),
-      static_cast<__nv_bfloat16*>(out), H, W, C, O, Hb, Wb, pad, tiles_w);
+      static_cast<__nv_bfloat16*>(out), H, W, C, O, tiles_w);
   return (int)cudaGetLastError();
 }
 
-// BN = 16 (16 warps down the pixels) where O <= 16, else BN = 128 (8 x 2)
-template <int PRO, bool RES, bool UP>
-int launch_bn(const void* x, const void* scale, const void* shift,
-              const void* w, const void* bias, const void* res, void* out,
-              int B, int H, int W, int C, int O, cudaStream_t stream) {
+// dc_conv3x3: the mma.sync loop with BN = 16 (16 warps down the pixels)
+// where O <= 16, else the Hopper loop
+template <int PRO, bool RES>
+int launch_conv(const void* x, const void* scale, const void* shift,
+                const void* w, const void* bias, const void* res, void* out,
+                int B, int H, int W, int C, int O, cudaStream_t stream) {
   if (O <= 16) {
-    return launch<PRO, RES, UP, 16, 16>(x, scale, shift, w, bias, res, out,
-                                        B, H, W, C, O, H, W, 1, stream);
+    return launch<PRO, RES, false, 16, 16, kCK>(x, scale, shift, w, bias, res,
+                                                out, B, H, W, C, O, stream);
   }
-  return launch<PRO, RES, UP, 128, 8>(x, scale, shift, w, bias, res, out, B,
-                                      H, W, C, O, H, W, 1, stream);
+  return launch_hopper<PRO, RES, 1>(x, scale, shift, w, bias, res, out, B, H,
+                                    W, C, O, H, W, 1, stream);
 }
 
 bool bad_shape(int B, int H, int W, int C, int O) {
@@ -444,12 +1180,13 @@ bool bad_shape(int B, int H, int W, int C, int O) {
 }  // namespace
 
 // out [B, H, W, O] = conv3x3 SAME (prologue(x)) + bias (+ res).
-// x [B, H, W, C] bf16; w [Cp / 16, 9, O, 16] bf16, C zero-padded to Cp
+// x [B, H, W, C] bf16; w [Cp / 64, 9, O, 64] bf16, C zero-padded to Cp
 // (tap = 3 * row + column); bias [O] fp32; scale, shift [B, C] fp32 (read
 // only for prologue 2); res [B, H, W, O] bf16 or null.  prologue 1: SiLU
 // (no residual: no caller adds one); 2: affine, then SiLU.  x and w
 // contiguous and 16-byte aligned, C % 8 == 0.  Launches on `stream` of the
-// current device and returns cudaGetLastError().
+// current device and returns cudaGetLastError() (cudaErrorNotSupported
+// where the driver has no cuTensorMapEncodeTiled).
 extern "C" int dc_conv3x3(const void* x, const void* scale, const void* shift,
                           const void* w, const void* bias, const void* res,
                           void* out, int B, int H, int W, int C, int O,
@@ -457,16 +1194,16 @@ extern "C" int dc_conv3x3(const void* x, const void* scale, const void* shift,
   if (bad_shape(B, H, W, C, O)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   if (prologue == kSilu && !res) {
-    return launch_bn<kSilu, false, false>(x, scale, shift, w, bias, res, out,
-                                          B, H, W, C, O, s);
+    return launch_conv<kSilu, false>(x, scale, shift, w, bias, res, out, B, H,
+                                     W, C, O, s);
   }
   if (prologue == kAffineSilu) {
     if (res) {
-      return launch_bn<kAffineSilu, true, false>(x, scale, shift, w, bias,
-                                                 res, out, B, H, W, C, O, s);
+      return launch_conv<kAffineSilu, true>(x, scale, shift, w, bias, res,
+                                            out, B, H, W, C, O, s);
     }
-    return launch_bn<kAffineSilu, false, false>(x, scale, shift, w, bias,
-                                                res, out, B, H, W, C, O, s);
+    return launch_conv<kAffineSilu, false>(x, scale, shift, w, bias, res, out,
+                                           B, H, W, C, O, s);
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -480,29 +1217,33 @@ extern "C" int dc_upsample_conv3x3(const void* x, const void* w,
                                    const void* bias, void* out, int B, int H,
                                    int W, int C, int O, void* stream) {
   if (bad_shape(B, H, W, C, O)) return (int)cudaErrorInvalidValue;
-  return launch_bn<kNone, false, true>(x, nullptr, nullptr, w, bias, nullptr,
-                                       out, B, H, W, C, O,
-                                       (cudaStream_t)stream);
+  cudaStream_t s = (cudaStream_t)stream;
+  if (O <= 16) {
+    return launch<kNone, false, true, 16, 16, kBK>(
+        x, nullptr, nullptr, w, bias, nullptr, out, B, H, W, C, O, s);
+  }
+  return launch<kNone, false, true, 128, 8, kBK>(
+      x, nullptr, nullptr, w, bias, nullptr, out, B, H, W, C, O, s);
 }
 
 // out [B, Ho, Wo, O] = conv3x3 stride 2 (x padded by `pad` rows and
 // columns at the top and left and by 1 at the bottom and right) + bias,
 // Ho = (H + pad - 2) / 2 + 1 and Wo likewise: pad 0 is the VAE encoder's
-// downsampler, pad 1 the UNet's (symmetric).  x [B, H, W, C] bf16; w, bias
-// as for dc_conv3x3; same requirements and return.  A block computes 8 x 16
-// output pixels by 64 output channels (shared memory holds three stages of
-// the 17 x 33 input halo and 9 x 64 weight rows).
+// downsampler, pad 1 the UNet's (symmetric).  x [B, H, W, C] bf16, H and
+// W >= 2; w, bias as for dc_conv3x3; same requirements and return.  The
+// Hopper loop: a block computes 8 x 16 output pixels by 128 output
+// channels from four parity planes of its 17 x 33 input halo.
 extern "C" int dc_downsample_conv3x3(const void* x, const void* w,
                                      const void* bias, void* out, int B,
                                      int H, int W, int C, int O, int pad,
                                      void* stream) {
-  if (bad_shape(B, H, W, C, O) || (pad != 0 && pad != 1) || H + pad < 2 ||
-      W + pad < 2) {
+  if (bad_shape(B, H, W, C, O) || (pad != 0 && pad != 1) || H < 2 ||
+      W < 2) {
     return (int)cudaErrorInvalidValue;
   }
   const int Ho = (H + pad - 2) / 2 + 1;
   const int Wo = (W + pad - 2) / 2 + 1;
-  return launch<kNone, false, false, 64, 8, 2>(
-      x, nullptr, nullptr, w, bias, nullptr, out, B, H, W, C, O, Ho, Wo, pad,
-      (cudaStream_t)stream);
+  return launch_hopper<kNone, false, 2>(x, nullptr, nullptr, w, bias,
+                                        nullptr, out, B, H, W, C, O, Ho, Wo,
+                                        pad, (cudaStream_t)stream);
 }

@@ -25,9 +25,10 @@ the plain version (`_kernels.PlainBackward`), as the JAX package's
 `custom_vjp`s take the VJP of their `*_ref` forms (`conv_pallas.py:270-307,
 328-342, 589-603, 783-791`).  Each wrapper turns the
 OIHW weight into the kernel's layout per call: the taps [O, 9, C] of the
-3x3 conv, or for the upsample the collapsed taps [4, O, 4, C] (phase
-di * 2 + dj, tap a * 2 + b, summed in fp32 and rounded to the weight's
-dtype once), cut into chunks of 16 input channels (`chunk_taps`).
+3x3 conv, cut into chunks of 64 input channels (one 128-byte row, what
+the Hopper loop's TMA copies take), or for the upsample the collapsed taps
+[4, O, 4, C] (phase di * 2 + dj, tap a * 2 + b, summed in fp32 and rounded
+to the weight's dtype once), cut into chunks of 16 (`chunk_taps`).
 
 Other counterpart (plain math only; the TPU's packed-lane layout is not
 ported): `conv_silu_chain` <- `ops/packed_conv.py::reference_chain` (:142).
@@ -122,7 +123,14 @@ def collapse_upsample_taps(weight: torch.Tensor) -> torch.Tensor:
             .to(weight.dtype).contiguous())
 
 
-def chunk_taps(taps: torch.Tensor, chunk: int = 16) -> torch.Tensor:
+# input channels of a chunk of the kernels' weight layouts: `dc_conv3x3` and
+# `dc_downsample_conv3x3` take [Cp / 64, 9, O, 64], `dc_upsample_conv3x3`
+# [4, Cp / 16, 4, O, 16]
+CONV_CHUNK = 64
+UPSAMPLE_CHUNK = 16
+
+
+def chunk_taps(taps: torch.Tensor, chunk: int) -> torch.Tensor:
     """[P, O, T, C] taps -> the kernel's [P, Cp / chunk, T, O, chunk], C
     zero-padded to Cp, a multiple of `chunk`: the weights of one chunk of
     input channels are one contiguous run in device memory."""
@@ -186,7 +194,7 @@ def _conv_cuda(name: str, x, weight, bias, scale=None, shift=None,
                       tuple(x.shape[:-1]) + (weight.shape[0],)))
     B, H, W, C, O = _check_cuda(name, x, weight, bias, extra)
     out = torch.empty(B, H, W, O, device=x.device, dtype=torch.bfloat16)
-    taps = chunk_taps(conv3x3_taps(weight)[None])
+    taps = chunk_taps(conv3x3_taps(weight)[None], CONV_CHUNK)
     bias32 = bias.float()
     lib = _kernels.lib()
     with torch.cuda.device(x.device):
@@ -262,7 +270,7 @@ def _upsample_conv3x3(x, weight, bias):
     B, H, W, C, O = _check_cuda("upsample_conv3x3", x, weight, bias)
     out = torch.empty(B, 2 * H, 2 * W, O, device=x.device,
                       dtype=torch.bfloat16)
-    taps = chunk_taps(collapse_upsample_taps(weight))
+    taps = chunk_taps(collapse_upsample_taps(weight), UPSAMPLE_CHUNK)
     bias32 = bias.float()
     lib = _kernels.lib()
     with torch.cuda.device(x.device):
@@ -293,11 +301,11 @@ def downsample_conv3x3(x: torch.Tensor, weight: torch.Tensor,
             return plain(x, weight, bias)
         pad = 0 if asymmetric_pad else 1
         B, H, W, C, O = _check_cuda("downsample_conv3x3", x, weight, bias)
-        if H + pad < 2 or W + pad < 2:
+        if H < 2 or W < 2:
             raise ValueError(f"downsample_conv3x3: input {H} x {W} too small")
         out = torch.empty(B, (H + pad - 2) // 2 + 1, (W + pad - 2) // 2 + 1,
                           O, device=x.device, dtype=torch.bfloat16)
-        taps = chunk_taps(conv3x3_taps(weight)[None])
+        taps = chunk_taps(conv3x3_taps(weight)[None], CONV_CHUNK)
         bias32 = bias.float()
         lib = _kernels.lib()
         with torch.cuda.device(x.device):

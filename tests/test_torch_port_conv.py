@@ -94,9 +94,12 @@ def test_upsample_conv3x3_matches_pallas_interpret(H, W, C, O):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **KERNEL_TOL)
 
 
-def test_collapsed_upsample_taps_match_jax():
+@pytest.mark.parametrize("chunk", [16, 64])
+def test_collapsed_upsample_taps_match_jax(chunk):
     """The kernel's [4, O, 4, C] taps are JAX's [2, 2, 2, 2, C, O]
-    `_collapse_upsample_kernel`, re-laid out; both sum in fp32 here."""
+    `_collapse_upsample_kernel`, re-laid out; both sum in fp32 here.  The
+    chunked layout is pinned at both chunk widths the kernels take (16 for
+    the upsample, 64 for the Hopper loop's TMA rows)."""
     k = _conv_inputs(3, C=8, O=5)["k"]
     want = np.asarray(jconv._collapse_upsample_kernel(jnp.asarray(k)))
     want = want.transpose(0, 1, 5, 2, 3, 4).reshape(4, 5, 4, 8)
@@ -105,13 +108,26 @@ def test_collapsed_upsample_taps_match_jax():
     taps = tconv.conv3x3_taps(_oihw(k))
     np.testing.assert_array_equal(
         taps.numpy(), k.transpose(3, 0, 1, 2).reshape(5, 9, 8))
-    # the kernel reads chunk j's weights as one run [taps][O][16], C
-    # zero-padded to a multiple of 16
-    chunked = tconv.chunk_taps(got).numpy()
-    assert chunked.shape == (4, 1, 4, 5, 16)
+    # the kernel reads chunk j's weights as one run [taps][O][chunk], C
+    # zero-padded to a multiple of the chunk
+    chunked = tconv.chunk_taps(got, chunk).numpy()
+    assert chunked.shape == (4, 1, 4, 5, chunk)
     np.testing.assert_array_equal(chunked[..., :8],
                                   got.numpy().transpose(0, 2, 1, 3)[:, None])
     assert not chunked[..., 8:].any()
+
+
+def test_chunk_taps_spans_chunks():
+    """C = 96 at the Hopper loop's chunk of 64: two chunks, the second
+    holding channels 64-95 and then zeros, each [taps][O][64] one run."""
+    taps = torch.arange(2 * 9 * 96, dtype=torch.float32).reshape(1, 2, 9, 96)
+    got = tconv.chunk_taps(taps, tconv.CONV_CHUNK)
+    assert got.shape == (1, 2, 9, 2, 64) and got.is_contiguous()
+    want = taps.permute(0, 2, 1, 3)  # [1, 9, O, 96]
+    torch.testing.assert_close(got[:, 0], want[..., :64], rtol=0, atol=0)
+    torch.testing.assert_close(got[:, 1, ..., :32], want[..., 64:], rtol=0,
+                               atol=0)
+    assert not got[:, 1, ..., 32:].any()
 
 
 def test_conv_wrappers_take_plain_versions_on_cpu_only():

@@ -4,8 +4,9 @@ The card's machine has PyTorch, numpy, scipy and einops but no jax, flax,
 optax, PIL, safetensors, transformers or triton, and the port must not
 lean on the JAX package.  A subprocess installs an import hook that
 refuses those modules, then imports every module of `diffcodec_tpu_torch`,
-`chip_smoke`, `scripts/profile_torch_decode.py` and
-`scripts/conv_kernel_breakdown.py` (without running them).
+`chip_smoke` and the port's scripts, `scripts/profile_torch_decode.py`,
+`scripts/conv_kernel_breakdown.py` and `scripts/conv_kernel_ab.py`
+(without running them).
 """
 
 import os
@@ -43,6 +44,7 @@ import chip_smoke
 sys.path.insert(0, "scripts")
 import profile_torch_decode
 import conv_kernel_breakdown
+import conv_kernel_ab
 loaded = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
 assert not loaded, loaded
 print("imported", len(names), "modules")

@@ -150,7 +150,10 @@ def _assert_conv_close(got, want):
     (1, 13, 21, 16, 24, True),    # H, W off the 8 x 16 tile; O off 16
     (2, 32, 48, 64, 128, True),
     (1, 9, 17, 128, 130, False),  # O one past a 128-channel tile
-    (1, 16, 16, 512, 512, True)])
+    (1, 16, 16, 512, 512, True),
+    (1, 40, 40, 96, 130, True),   # C off the 64-channel chunk; 3 x 3 tiles
+    (2, 24, 40, 8, 256, False),   # C = 8 on the Hopper loop; O = 2 tiles
+    (1, 48, 16, 256, 256, True)])  # an odd tile count (3)
 def test_gn_silu_conv3x3_kernel_matches_plain(cuda_device, B, H, W, C, O,
                                               residual):
     a = _conv_args(cuda_device, B, H, W, C, O, seed=B + H + C + O)
@@ -284,8 +287,11 @@ def test_attention_backward_kernels_reject_what_they_do_not_take(
 @pytest.mark.parametrize("B,H,W,C,O", [
     (2, 16, 32, 16, 16),        # one 8 x 16 output tile per image
     (1, 13, 21, 8, 3),          # odd H, W: off the tile; narrow O
-    (1, 34, 66, 32, 130),       # O one past two 64-channel tiles
-    (2, 64, 64, 128, 128)])
+    (1, 34, 66, 32, 130),       # O one past a 128-channel tile
+    (2, 64, 64, 128, 128),
+    (1, 45, 31, 96, 256),       # odd H, W; C off the chunk; 3 tiles
+    (2, 47, 33, 8, 130),        # odd H, W; C = 8; O one past a tile
+    (1, 2, 2, 16, 24)])         # the smallest input it takes
 def test_downsample_conv3x3_kernel_matches_plain(cuda_device, B, H, W, C, O,
                                                  asymmetric_pad):
     a = _conv_args(cuda_device, B, H, W, C, O, seed=H + W + C)
