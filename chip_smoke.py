@@ -27,9 +27,12 @@ Phases, each printed as one JSON line with the elapsed seconds `t`:
              against the CPU (fp32, plain versions) on the same weights,
              with the VAE unfused and fused
   kernel     (training shapes) the attention forward with its log-sum-exp
-             and the dQ and dK/dV backward kernels against autograd of the
-             plain version at every shape of a batch-8 training step (SDPA's
-             backward timed beside them); the stride-2 conv against its
+             and the backward kernel (dQ, dK and dV in one launch, with its
+             delta and dQ-cast passes) against autograd of the plain
+             version at every shape of a batch-8 training step (the
+             wrapper `attention_bwd`, the whole `attention_backward` and
+             SDPA's backward timed beside them);
+             the stride-2 conv against its
              plain version and cuDNN at the encoder's three shapes and both
              paddings; the GN+SiLU+conv at the encoder's shapes and the
              splat at the extractor's batch-8 shapes
@@ -72,8 +75,7 @@ from diffcodec_tpu_torch.config import (ControlNetConfig, DistillConfig,
                                         TrainConfig, UNetConfig, VAEConfig)
 from diffcodec_tpu_torch.ops import conv
 from diffcodec_tpu_torch.ops.attention import (attention, attention_backward,
-                                               attention_bwd_dkv,
-                                               attention_bwd_dq,
+                                               attention_bwd,
                                                attention_forward,
                                                attention_reference)
 from diffcodec_tpu_torch.ops.softsplat import splat_sum, splat_sum_reference
@@ -478,8 +480,7 @@ def timed(fn):
 def counted(fn):
     """(fn(), seconds, launches of each kernel in that call)."""
     counters = {"attention": attention,
-                "attention_bwd_dkv": attention_bwd_dkv,
-                "attention_bwd_dq": attention_bwd_dq,
+                "attention_bwd": attention_bwd,
                 "splat_sum": splat_sum,
                 "gn_silu_conv3x3": conv.gn_silu_conv3x3,
                 "silu_conv3x3": conv.silu_conv3x3,
@@ -499,8 +500,7 @@ def check_images(label, images, frames=FRAMES, res=RES):
 
 
 # a decode runs no backward and no encoder
-NO_TRAIN_KERNELS = {"attention_bwd_dkv": 0, "attention_bwd_dq": 0,
-                    "downsample_conv3x3": 0}
+NO_TRAIN_KERNELS = {"attention_bwd": 0, "downsample_conv3x3": 0}
 
 
 def check_launches(label, launches, expected):
@@ -673,12 +673,21 @@ def reference_check():
                                  f"the CPU: {out}")
 
 
+def attention_bwd_bound(BH, Lq, Lk, D):
+    """(ms, 'operations' | 'bytes') of the attention backward as a
+    function, (q, k, v, out, dout, lse) -> (dq, dk, dv): S, dP, dV, dK and
+    dQ (5 products) and rowsum(dout * out); q, k, v, out and dout read in
+    bf16 and lse in fp32, dq, dk and dv written in bf16, each once."""
+    return bound(10.0 * BH * Lq * Lk * D + 2.0 * BH * Lq * D,
+                 2 * BH * D * (3 * Lq + 2 * Lk) + 4 * BH * Lq
+                 + 2 * BH * D * (Lq + 2 * Lk),
+                 PEAK_BF16_FLOPS)
+
+
 def check_attention_train(gen) -> list:
     """The attention kernels at every shape of a batch-8 training step:
-    the forward with its log-sum-exp, and the dK/dV and dQ kernels against
-    autograd of the plain version.  The plain and the library times of the
-    backward rows are those of the whole backward (dQ, dK and dV: neither
-    has a call for one part)."""
+    the forward with its log-sum-exp, and the backward kernel against
+    autograd of the plain version (dQ, dK and dV)."""
     rows = []
     sdpa = F.scaled_dot_product_attention
     for Lq, Lk, D in ATTN_SHAPES:
@@ -732,34 +741,25 @@ def check_attention_train(gen) -> list:
         library_ms = time_ms(lambda: torch.autograd.grad(
             s_out, sq, dout[None], retain_graph=True), reps)
         del s_out, sq
-        delta = (dout.float() * out.float()).sum(-1)
-        io = 2 * 2 * BH * D * (Lq + Lk) + 4 * 2 * BH * Lq  # q k v dout lse Di
-        tol = dict(atol=GRAD_ULP, rtol=GRAD_ULP, rel_norm=ATTN_REL_NORM)
-        common = dict(shape=shape, tol=tol, plain_ms=plain_ms,
-                      library_ms=library_ms,
-                      plain="autograd of attention_reference (dQ, dK, dV)",
-                      library="SDPA's backward (dQ, dK, dV)")
-        # dK/dV: P recomputed, dV, dP, dK (4 products); dQ: P, dP, dQ (3)
-        b_ms, b_by = bound(8.0 * BH * Lq * Lk * D, io + 2 * 2 * BH * Lk * D,
-                           PEAK_BF16_FLOPS)
-        row = dict(kernel="attention_bwd_dkv",
-                   max_abs_err=max(errs["k"][0], errs["v"][0]),
-                   rel_norm_err=max(errs["k"][1], errs["v"][1]),
-                   ms=time_ms(lambda: attention_bwd_dkv(
-                       q, k, v, dout, lse, delta, scale), reps),
-                   bound_ms=b_ms, bound_by=b_by, **common)
+        b_ms, b_by = attention_bwd_bound(BH, Lq, Lk, D)
+        row = dict(kernel="attention_bwd", shape=shape,
+                   max_abs_err=max(e[0] for e in errs.values()),
+                   rel_norm_err=max(e[1] for e in errs.values()),
+                   errs={f"d{n}": dict(max_abs=e[0], rel_norm=e[1])
+                         for n, e in errs.items()},
+                   tol=dict(atol=GRAD_ULP, rtol=GRAD_ULP,
+                            rel_norm=ATTN_REL_NORM),
+                   ms=time_ms(lambda: attention_bwd(q, k, v, out, dout, lse,
+                                                    scale), 10),
+                   backward_ms=time_ms(lambda: attention_backward(
+                       q, k, v, out, lse, dout, scale), 10),
+                   plain_ms=plain_ms, library_ms=library_ms,
+                   plain="autograd of attention_reference (dQ, dK, dV)",
+                   library="SDPA's backward (dQ, dK, dV)",
+                   bound_ms=b_ms, bound_by=b_by)
         log("kernel", **row)
         rows.append(row)
-        b_ms, b_by = bound(6.0 * BH * Lq * Lk * D, io + 2 * BH * Lq * D,
-                           PEAK_BF16_FLOPS)
-        row = dict(kernel="attention_bwd_dq", max_abs_err=errs["q"][0],
-                   rel_norm_err=errs["q"][1],
-                   ms=time_ms(lambda: attention_bwd_dq(
-                       q, k, v, dout, lse, delta, scale), reps),
-                   bound_ms=b_ms, bound_by=b_by, **common)
-        log("kernel", **row)
-        rows.append(row)
-        del q, k, v, dout, out, lse, delta
+        del q, k, v, dout, out, lse
         torch.cuda.empty_cache()
     return rows
 
@@ -926,8 +926,7 @@ def train(gen) -> dict:
         raise AssertionError(f"train: non-finite loss {losses}")
     check_launches("train", launches, {
         **ENCODER_LAUNCHES, "splat_sum": None, "upsample_conv3x3": 0,
-        "silu_conv3x3": 0, "attention_bwd_dkv": with_grad,
-        "attention_bwd_dq": with_grad})
+        "silu_conv3x3": 0, "attention_bwd": with_grad})
     if with_grad <= 0:
         raise AssertionError("train: no attention call needed a gradient")
     if len(changed) < 0.95 * len(state.params):
@@ -984,8 +983,7 @@ def train_reference():
                tol=TRAIN_REF_TOL, launches=launches)
     log("train_reference", **out)
     check_launches("train_reference", launches, {
-        name: None for name in ("attention", "attention_bwd_dkv",
-                                "attention_bwd_dq", "splat_sum",
+        name: None for name in ("attention", "attention_bwd", "splat_sum",
                                 "gn_silu_conv3x3", "downsample_conv3x3")})
     if not (out["loss_rel_err"] <= TRAIN_REF_TOL["loss_rel"]
             and out["grad_norm_rel_err"] <= TRAIN_REF_TOL["grad_norm_rel"]
@@ -1055,14 +1053,12 @@ def main() -> int:
                 "diffcodec_tpu/ops/attention.py:94", "decode",
                 # the same function's other TPU kernel (stock Pallas flash)
                 also_replaces="diffcodec_tpu/models/layers.py:195"),
-        summary(rows, paths, "attention_bwd_dkv", cu + "attention.cu",
-                flash + ":941", "train",
-                note="plain_ms and library_ms time the whole backward "
-                     "(dQ, dK and dV)"),
-        summary(rows, paths, "attention_bwd_dq", cu + "attention.cu",
-                flash + ":1287", "train",
-                note="plain_ms and library_ms time the whole backward "
-                     "(dQ, dK and dV)"),
+        summary(rows, paths, "attention_bwd", cu + "attention.cu",
+                flash + ":941", "train", also_replaces=flash + ":1287",
+                note="one kernel for dQ, dK and dV; ms is the wrapper "
+                     "attention_bwd, whose one C call also runs the delta "
+                     "and dQ-zeroing pass and the dQ cast; backward_ms is "
+                     "attention_backward, the same plus dout.contiguous()"),
         summary(rows, paths, "splat_sum", cu + "splat.cu",
                 "diffcodec_tpu/ops/softsplat_pallas.py:112", "decode"),
         summary(rows, paths, "gn_silu_conv3x3", cu + "conv3x3.cu",

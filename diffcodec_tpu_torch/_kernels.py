@@ -1,7 +1,8 @@
 """Build and load the port's CUDA kernels.
 
 Every `.cu` file under `csrc/` is compiled by `nvcc` into one shared
-library with a plain C interface, at first use, and loaded with `ctypes`:
+library with a plain C interface, at first use, and loaded with `ctypes`
+(`csrc/hopper.cuh` holds the Hopper primitives they share):
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
         -Xcompiler -fPIC -o build/torch_kernels/<hash>/libdiffcodec_kernels.so \
@@ -9,9 +10,11 @@ library with a plain C interface, at first use, and loaded with `ctypes`:
 
 The sources include CUDA's headers only, never PyTorch's, so the build takes
 seconds.  The library links the CUDA runtime alone: the one driver call it
-makes, `cuTensorMapEncodeTiled` (the conv kernel's TMA descriptors), is
-fetched at run time through `cudaGetDriverEntryPoint`, so no `-lcuda`.  `<hash>` is a digest of the sources and the flags, so an edited
-source builds anew and an unchanged one loads the library already built.
+makes, `cuTensorMapEncodeTiled` (the TMA descriptors of the conv and the
+attention backward), is fetched at run time through
+`cudaGetDriverEntryPoint`, so no `-lcuda`.  `<hash>` is a digest of the
+sources, the headers and the flags, so an edited source or header builds
+anew and an unchanged one loads the library already built.
 A missing `nvcc`, a failed build or a failed load raises with the
 compiler's output; nothing falls back.
 
@@ -51,8 +54,7 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGNATURES = {
     "dc_attention_fwd": [_P] * 5 + [_I] * 4 + [_F, _P],
-    "dc_attention_bwd_dkv": [_P] * 8 + [_I] * 4 + [_F, _P],
-    "dc_attention_bwd_dq": [_P] * 7 + [_I] * 4 + [_F, _P],
+    "dc_attention_bwd": [_P] * 11 + [_I] * 4 + [_F, _P],
     "dc_splat_sum": [_P, _P, _P, _I, _I, _I, _I, _P],
     "dc_conv3x3": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "dc_upsample_conv3x3": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
@@ -75,8 +77,11 @@ class _Library:
         self.path = None
 
     def sources(self):
+        """Every `.cu` (compiled) and `.cuh` (included) file of csrc/: the
+        build directory's digest covers both, so an edited header builds
+        anew."""
         return sorted(os.path.join(CSRC_DIR, f) for f in os.listdir(CSRC_DIR)
-                      if f.endswith(".cu"))
+                      if f.endswith((".cu", ".cuh")))
 
     def _nvcc(self):
         candidates = [os.path.join(os.environ[v], "bin", "nvcc")
@@ -109,7 +114,8 @@ class _Library:
             # build under a private name and rename: concurrent builders
             # never load a half-written library
             tmp = f"{path}.{os.getpid()}.tmp"
-            cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, *sources]
+            cmd = [nvcc, *NVCC_FLAGS, "-o", tmp,
+                   *(s for s in sources if s.endswith(".cu"))]
             proc = subprocess.run(cmd, capture_output=True, text=True)
             if proc.returncode != 0:
                 raise KernelBuildError(

@@ -1,6 +1,6 @@
 // Exact softmax attention and its gradient, bf16 in / bf16 out: a forward
 // kernel (which also writes each row's log-sum-exp when the caller asks)
-// and the backward's dK/dV and dQ kernels.
+// and one backward kernel that computes dQ, dK and dV.
 //
 // The forward replaces the TPU kernels
 // diffcodec_tpu/ops/attention.py::fused_attention (kernel body
@@ -15,12 +15,14 @@
 //
 // What bounds them on an H100: the bf16 matrix products against the
 // 989 TFLOP/s dense bf16 tensor-core rate: 4 * BH * Lq * Lk * D FLOP for
-// the forward, 8 for dK/dV (P recomputed, dV, dP, dK) and 6 for dQ (P, dP,
-// dQ).  At the decode's heaviest shape (BH = 112, L = 4096, D = 40) the
-// forward is 301 GFLOP, 0.30 ms at peak, while q, k, v and o together are
-// 147 MB (0.044 ms at 3.35 TB/s): the operations bound it, and so the
-// backward at training's [64, 4096, 4096, 40].  At the 77-token
-// cross-attention the bytes do.
+// the forward and 10 for the backward (S, dP, dV, dK, dQ).  At the decode's
+// heaviest shape (BH = 112, L = 4096, D = 40) the forward is 301 GFLOP,
+// 0.30 ms at peak, while q, k, v and o together are 147 MB (0.044 ms at
+// 3.35 TB/s): the operations bound it, and so the backward at training's
+// [64, 4096, 4096, 40] (0.434 ms).  At the 77-token cross-attention the
+// bytes do.  The backward also takes one exponential per element of P:
+// 1.07e9 at that shape, >= 0.26 ms on the SFUs (16 a clock per SM), which
+// the products can hide only if P is computed once.
 //
 // Forward design (FlashAttention-2's structure, kept simple):
 //   * a block of 4 warps takes 64 queries of one (batch*head); each warp
@@ -42,20 +44,9 @@
 //     12-byte spill);
 //   * keys past Lk (the 77-token text context) get -inf logits, so ragged
 //     key counts need no padding in device memory.
-// Backward design (FlashAttention-2's, split in two kernels so that every
-// output is written by one block, without atomics, in a fixed order):
-//   * dK/dV: a block of 4 warps owns 64 keys (16 a warp) and streams the
-//     queries, dO, lse and Di = rowsum(dO * O) in chunks through two
-//     cp.async stages, computing in the transposed form (keys as rows) so
-//     that P^T and dS^T, re-packed in registers, are the A operands of
-//     dV += P^T dO and dK += dS^T Q;
-//   * dQ: a block owns 64 queries and streams K and V, as the forward;
-//   * both keep two fp32 accumulators' worth of D columns in registers; at
-//     D = 160 the chunk is 32 rows instead of 64 to fit (252 registers for
-//     dK/dV, no spill);
-//   * P is recomputed from the saved natural-log lse, so the backward reads
-//     no [L, L] matrix; padded keys get P = 0 in dQ and are never written
-//     in dK/dV; padded queries get lse = +inf, so P = 0.
+// Backward design (FlashAttention-3's structure: TMA, mbarriers, wgmma,
+// warp specialisation; P and dP computed once per tile): see
+// attention_bwd_kernel below.
 // Inputs are [BH, L, D] contiguous and 16-byte aligned.
 
 #include <cuda_bf16.h>
@@ -67,13 +58,14 @@
 #include <atomic>
 #include <type_traits>
 
+#include "hopper.cuh"  // mbarriers, TMA, bulk reductions, wgmma
+
 namespace {
 
 constexpr int kWarps = 4;
 constexpr int kThreads = 32 * kWarps;
 constexpr int kBlockQ = 16 * kWarps;  // query rows per block
 constexpr int kBlockK = 64;           // keys per chunk
-constexpr int kMaxDevices = 64;
 constexpr float kLn2 = 0.6931471805599453f;
 constexpr float kLog2e = 1.4426950408889634f;
 
@@ -328,401 +320,516 @@ attention_fwd_kernel(const __nv_bfloat16* __restrict__ q,
   }
 }
 
+// ---------------------------------------------------------------------------
+// The backward: one Hopper kernel for dQ, dK and dV.
+//
+// A block owns 128 keys of one (batch * head) and walks every query of it
+// in tiles of BQ (64; 32 at D = 160).  Warpgroup 0 loads: one thread keeps
+// TMA copies in flight (K and V of the block once; then Q and dO of each
+// tile into a ring of STAGES stages on mbarriers), while its warp's lanes
+// put the tile's lse (in base 2) and Di = rowsum(dO * O) beside them.
+// Warpgroups 1 and 2 compute, each for 64 of the keys, with the keys as
+// rows (the transposed form), so that P^T and dS^T are the A operands of
+// the dV and dK products straight from registers:
+//   S^T  = K Q^T                     wgmma, both operands from shared memory
+//   dP^T = V dO^T                    wgmma, both from shared memory
+//   P^T  = exp2(S^T * scale_log2 - lse_2)      fp32, once per element
+//   dV  += P^T dO                    wgmma, A = P^T in registers (bf16)
+//   dS^T = P^T * (dP^T - Di)                   fp32
+//   dK  += dS^T Q                    wgmma, A = dS^T in registers (bf16)
+// dS^T also goes to shared memory (bf16, the 128-byte swizzle), and once
+// both warpgroups have stored their halves one of them (alternating by
+// tile, so the two stay level) computes the tile's dQ over all 128 keys.
+// The hand-over is one-way, on named barriers: the other warpgroup only
+// arrives (and goes on to the next tile), and waits only before it
+// overwrites a dS^T buffer that the dQ product of two tiles back may still
+// read.  (One barrier a tile for both warpgroups timed the same; ptxas
+// 12.9 crashed on that form of this kernel.)
+//   dQ   = dS K                      wgmma, A = dS^T read transposed
+//   (at D = 160: dQ^T = K^T dS^T, m64 tiles over D, as BQ = 32 < 64)
+// scales it, writes it to shared memory in fp32 and adds it into the fp32
+// dQ accumulator [BH, Lq, D] with one bulk reduction
+// (cp.reduce.async.bulk .add.f32).  So dQ is summed over key blocks in an
+// order that varies from run to run (its last bits do); dK and dV are
+// written once, by the block that owns the keys, scaled at the end.
+//
+// Head widths: every tile row is stored as 64-column chunks of 128 bytes
+// (TMA boxes of 64 columns with the 128-byte swizzle; zero fill past D),
+// so D = 40 is one chunk with 24 zero columns and D = 160 three.  The
+// products over D (S^T, dP^T) take ceil(D / 16) k-steps (40 -> 48); the
+// products whose width is D (dV, dK, dQ) use N = D exactly (n40), reading
+// Q, dO and K as MN-major operands through the descriptor's transpose bit.
+// Registers: dK and dV take D fp32 a thread; at D = 160 that is 160, so
+// the query tile there is 32 (S^T, dP^T m64n32) and dQ is computed as
+// three m64n32 tiles of dQ^T.
+//
+// Tails: keys past Lk are zero rows (TMA's fill); their P^T is set to 0
+// (so dQ gets nothing from them, whatever lse is) and their dK, dV are
+// never written.  Queries past Lq are zero rows of Q and dO, and their
+// lse and Di are stored as 0, not +inf: P^T = exp2(0 - 0) = 1 there, which
+// is harmless only because dO = 0 and Di = 0 make their dV term and their
+// dS^T exactly 0; the bulk reduction is clipped to the rows below Lq.
+//
+// Around it, in the same launch (FlashAttention-2/3's pre- and
+// post-processing passes): attention_bwd_prep_kernel computes Di from dO
+// and O and zeroes the fp32 dQ accumulator, attention_bwd_cast_kernel
+// rounds the summed dQ to bf16.
 
-// the A operand (16 rows x 16 columns at column c0) of a row-major shared
-// tile, `base` pointing at row g, column 2t of the warp's 16 rows
-__device__ __forceinline__ void a_frag(uint32_t (&a)[4],
-                                       const __nv_bfloat16* base, int ld,
-                                       int c0) {
-  a[0] = ld32(base + c0);
-  a[1] = ld32(base + 8 * ld + c0);
-  a[2] = ld32(base + c0 + 8);
-  a[3] = ld32(base + 8 * ld + c0 + 8);
-}
+constexpr int kBwdThreads = 384;  // warpgroup 0 loads, 1 and 2 compute
+constexpr int kBwdKeys = 128;     // keys of a block: 64 a consumer warpgroup
+constexpr int kRowBytes = 128;    // a 64-column chunk of a bf16 row
 
-// the A operand of k-step kk (16 columns) from fp32 accumulator tiles of
-// 8 columns, rounded to bf16
-template <int N>
-__device__ __forceinline__ void pack_a(uint32_t (&a)[4],
-                                       const float (&x)[N][4], int kk) {
-  a[0] = pack_bf16(x[2 * kk][0], x[2 * kk][1]);
-  a[1] = pack_bf16(x[2 * kk][2], x[2 * kk][3]);
-  a[2] = pack_bf16(x[2 * kk + 1][0], x[2 * kk + 1][1]);
-  a[3] = pack_bf16(x[2 * kk + 1][2], x[2 * kk + 1][3]);
-}
-
-template <int N>
-__device__ __forceinline__ void zero(float (&x)[N][4]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) x[i][0] = x[i][1] = x[i][2] = x[i][3] = 0.f;
-}
-
-// rows of the backward's chunk: 64 for D <= 80, 32 at D = 160, where the
-// two fp32 accumulators of D columns already take 160 registers a thread
 template <int D8>
-struct BwdChunk {
-  static constexpr int kRows = D8 > 10 ? 32 : 64;
+struct BwdTile {
+  static constexpr int D = 8 * D8;
+  static constexpr int BQ = D > 80 ? 32 : 64;  // queries of a tile
+  static constexpr int NC = (D + 63) / 64;     // 64-column chunks of a row
+  static constexpr int KD = (D + 15) / 16;     // k-steps of 16 over D
+  static constexpr bool SWAP_DQ = BQ < 64;     // dQ^T = K^T dS^T
+  static constexpr int STAGES = NC == 1 ? 3 : 2;
+  static constexpr int KV_CHUNK = kBwdKeys * kRowBytes;
+  static constexpr int Q_CHUNK = BQ * kRowBytes;
+  static constexpr int KV_BYTES = NC * KV_CHUNK;  // K (or V) of the block
+  static constexpr int Q_BYTES = NC * Q_CHUNK;    // Q (or dO) of a tile
+  static constexpr int DS_BYTES = kBwdKeys * kRowBytes;  // dS^T, 128 x 64
+  static constexpr int DQ_BYTES = BQ * D * 4;     // a tile's dQ in fp32
+  // byte offsets from the 1024-aligned base: K, V; STAGES x (Q, dO); two
+  // dS^T buffers (by tile parity); two dQ buffers (one a consumer
+  // warpgroup); STAGES x (lse_2, Di); the mbarriers
+  static constexpr int OFF_K = 0;
+  static constexpr int OFF_V = KV_BYTES;
+  static constexpr int OFF_Q = 2 * KV_BYTES;
+  static constexpr int OFF_DS = OFF_Q + STAGES * 2 * Q_BYTES;
+  static constexpr int OFF_DQ = OFF_DS + 2 * DS_BYTES;
+  static constexpr int OFF_LD = OFF_DQ + 2 * DQ_BYTES;
+  static constexpr int OFF_BAR = OFF_LD + STAGES * 2 * BQ * 4;
+  static constexpr size_t SMEM = 1024 + OFF_BAR + 8 * (1 + 2 * STAGES);
+  static_assert(SMEM <= 232448, "shared memory");
+  static_assert(OFF_DS % 1024 == 0, "swizzled buffers are 1024-aligned");
 };
 
-// dK and dV of kBlockK keys of one (batch * head), each warp 16 keys.
-// Queries stream through two shared-memory stages in chunks of BQ; per
-// chunk, in the transposed form (keys are the rows):
-//   P^T  = exp2(K Q^T * scale_log2 - lse_2[q])   (P recomputed, fp32)
-//   dV  += P^T dO                                  (P^T rounded to bf16)
-//   dS^T = P^T * (V dO^T - Di[q])
-//   dK  += dS^T Q                                  (dS^T rounded to bf16)
-// and dK is scaled once at the end.  Queries past Lq get lse = +inf (so
-// P = 0) and Di = 0; keys past Lk are computed on zero rows and never
-// written.
+struct BwdMaps {
+  CUtensorMap q, k, v, dout;  // [BH, L, D], boxes of 64 columns
+};
+
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// the A fragments (k-steps of 16 columns) of an m64nN fp32 accumulator,
+// rounded to bf16
+template <int N>
+__device__ __forceinline__ void pack_a(uint32_t (&a)[N / 16][4],
+                                       const float (&x)[N / 2]) {
+#pragma unroll
+  for (int kk = 0; kk < N / 16; ++kk) {
+    a[kk][0] = pack_bf16(x[8 * kk], x[8 * kk + 1]);
+    a[kk][1] = pack_bf16(x[8 * kk + 2], x[8 * kk + 3]);
+    a[kk][2] = pack_bf16(x[8 * kk + 4], x[8 * kk + 5]);
+    a[kk][3] = pack_bf16(x[8 * kk + 6], x[8 * kk + 7]);
+  }
+}
+
+template <int N>
+__device__ __forceinline__ void zero(float (&x)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) x[i] = 0.f;
+}
+
 template <int D8>
-__global__ void __launch_bounds__(kThreads)
-attention_bwd_dkv_kernel(const __nv_bfloat16* __restrict__ q,
-                         const __nv_bfloat16* __restrict__ k,
-                         const __nv_bfloat16* __restrict__ v,
-                         const __nv_bfloat16* __restrict__ dout,
-                         const float* __restrict__ lse,
-                         const float* __restrict__ delta,
-                         __nv_bfloat16* __restrict__ dk,
-                         __nv_bfloat16* __restrict__ dv, int Lq, int Lk,
-                         float scale_log2, float scale) {
-  constexpr int D = 8 * D8;
-  constexpr int KD = (D + 15) / 16;
-  constexpr int DP = 16 * KD;
-  constexpr int LD = DP + 8;
-  constexpr int BQ = BwdChunk<D8>::kRows;
-  constexpr int NQ = BQ / 8;   // accumulator tiles of 8 queries
-  constexpr int KQ = BQ / 16;  // k-steps of 16 queries
-  constexpr int kStage = 2 * BQ * LD;
-  extern __shared__ __align__(128) unsigned char smem[];
-  // K and V of the block, then two stages of (Q chunk, dO chunk), then two
-  // stages of (lse_2, Di) of the chunk's queries
-  __nv_bfloat16* sk = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* sv = sk + kBlockK * LD;
-  __nv_bfloat16* sqd = sv + kBlockK * LD;
-  float* sld = reinterpret_cast<float*>(sqd + 2 * kStage);
+__global__ void __launch_bounds__(kBwdThreads, 1)
+attention_bwd_kernel(const __grid_constant__ BwdMaps maps,
+                     const float* __restrict__ lse,
+                     const float* __restrict__ delta,
+                     float* __restrict__ dq, __nv_bfloat16* __restrict__ dk,
+                     __nv_bfloat16* __restrict__ dv, int Lq, int Lk,
+                     float scale_log2, float scale) {
+  using T = BwdTile<D8>;
+  constexpr int D = T::D, BQ = T::BQ, NC = T::NC, KD = T::KD;
+  extern __shared__ unsigned char smem_raw[];
+  // aligned by an offset from smem_raw, so that the compiler keeps the
+  // accesses below in the shared space (LDS/STS, not generic LD/ST)
+  unsigned char* base =
+      smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  uint64_t* kv_full = reinterpret_cast<uint64_t*>(base + T::OFF_BAR);
+  uint64_t* full = kv_full + 1;       // stage s holds tile s + k STAGES
+  uint64_t* empty = full + T::STAGES; // stage s read by both warpgroups
+  float* lds = reinterpret_cast<float*>(base + T::OFF_LD);
 
   const int bh = blockIdx.y;
-  const int k0 = blockIdx.x * kBlockK;
+  const int k0 = blockIdx.x * kBwdKeys;
+  const int n_tiles = (Lq + BQ - 1) / BQ;
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
-  const int g = lane >> 2;
-  const int t = lane & 3;
-  const __nv_bfloat16* qb = q + (size_t)bh * Lq * D;
-  const __nv_bfloat16* dob = dout + (size_t)bh * Lq * D;
-  const float* lb = lse + (size_t)bh * Lq;
-  const float* db = delta + (size_t)bh * Lq;
 
-  load_rows_async(sk, k + (size_t)bh * Lk * D, k0, kBlockK, Lk, D, DP, LD);
-  load_rows_async(sv, v + (size_t)bh * Lk * D, k0, kBlockK, Lk, D, DP, LD);
-  auto load_chunk = [&](int j) {
-    __nv_bfloat16* st = sqd + (j & 1) * kStage;
-    load_rows_async(st, qb, j * BQ, BQ, Lq, D, DP, LD);
-    load_rows_async(st + BQ * LD, dob, j * BQ, BQ, Lq, D, DP, LD);
-    float* f = sld + (j & 1) * 2 * BQ;
-    for (int i = threadIdx.x; i < BQ; i += kThreads) {
-      const int r = j * BQ + i;
-      f[i] = r < Lq ? lb[r] * kLog2e : INFINITY;
-      f[BQ + i] = r < Lq ? db[r] : 0.f;
+  if (threadIdx.x == 0) {
+    mbar_init(kv_full, 1);
+    for (int s = 0; s < T::STAGES; ++s) {
+      mbar_init(&full[s], 32);   // the loading warp's lanes
+      mbar_init(&empty[s], 8);   // the consumer warps
     }
-  };
-  load_chunk(0);
-  cp_async_commit();
+    mbar_init_fence();
+  }
+  __syncthreads();
 
-  float dk_acc[D8][4], dv_acc[D8][4];
-  zero(dk_acc);
+  if (warp < 4) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
+    if (warp != 0) return;
+    // the loader
+    if (lane == 0) {
+      mbar_expect_tx(kv_full, 2 * T::KV_BYTES);
+#pragma unroll
+      for (int c = 0; c < NC; ++c) {
+        tma_load_3d(base + T::OFF_K + c * T::KV_CHUNK, &maps.k, kv_full,
+                    64 * c, k0, bh);
+        tma_load_3d(base + T::OFF_V + c * T::KV_CHUNK, &maps.v, kv_full,
+                    64 * c, k0, bh);
+      }
+    }
+    const float* lb = lse + (size_t)bh * Lq;
+    const float* db = delta + (size_t)bh * Lq;
+    for (int it = 0; it < n_tiles; ++it) {
+      const int s = it % T::STAGES;
+      const int q0 = it * BQ;
+      mbar_wait(&empty[s], ((it / T::STAGES) & 1) ^ 1);
+      float* f = lds + s * 2 * BQ;
+      for (int i = lane; i < BQ; i += 32) {
+        const bool in = q0 + i < Lq;  // 0 past Lq: see the tails above
+        f[i] = in ? lb[q0 + i] * kLog2e : 0.f;
+        f[BQ + i] = in ? db[q0 + i] : 0.f;
+      }
+      if (lane == 0) {
+        mbar_expect_tx(&full[s], 2 * T::Q_BYTES);
+        unsigned char* st = base + T::OFF_Q + s * 2 * T::Q_BYTES;
+#pragma unroll
+        for (int c = 0; c < NC; ++c) {
+          tma_load_3d(st + c * T::Q_CHUNK, &maps.q, &full[s], 64 * c, q0,
+                      bh);
+          tma_load_3d(st + T::Q_BYTES + c * T::Q_CHUNK, &maps.dout, &full[s],
+                      64 * c, q0, bh);
+        }
+      } else {
+        mbar_arrive(&full[s]);
+      }
+    }
+    return;
+  }
+
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
+  // consumer warpgroup (keys 64 wg ..).  Not broadcast with __shfl_sync
+  // to mark it warp-uniform: ptxas 12.9 crashed on every instantiation
+  const int wg = warp / 4 - 1;
+  const int tw = threadIdx.x % 128;      // thread of the warpgroup
+  const int w = tw / 32;                 // its warp: rows 16 w .. of an m64
+  const int g = lane >> 2;               // accumulator row group
+  const int qd = lane & 3;               // accumulator column pair
+  const int row = 64 * wg + 16 * w + g;  // this thread's key rows: row, + 8
+  const bool ok_lo = k0 + row < Lk, ok_hi = k0 + row + 8 < Lk;
+  const bool tail = k0 + kBwdKeys > Lk;  // the block has keys past Lk
+  // wgmma descriptors, built once; a product's k-step and a tile's stage
+  // move them by constant byte offsets (desc_advance).  K-major (sbo 1024)
+  // where the rows are the operand's M or N, MN-major (lbo = the stride
+  // of 64-column chunks) where the rows are its K
+  const unsigned sk = smem_addr(base + T::OFF_K);
+  const uint64_t d_k_wg =  // this warpgroup's 64 keys of K, K-major
+      desc_sw128(sk + 64 * wg * kRowBytes, 16, 1024);
+  const uint64_t d_v_wg =
+      desc_sw128(smem_addr(base + T::OFF_V) + 64 * wg * kRowBytes, 16, 1024);
+  const uint64_t d_k_mn = desc_sw128(sk, T::KV_CHUNK, 1024);  // K as dQ's B
+  const uint64_t d_q_k = desc_sw128(smem_addr(base + T::OFF_Q), 16, 1024);
+  const uint64_t d_q_mn =
+      desc_sw128(smem_addr(base + T::OFF_Q), T::Q_CHUNK, 1024);
+  const uint64_t d_ds = desc_sw128(smem_addr(base + T::OFF_DS), 16, 1024);
+  float* stage_dq = reinterpret_cast<float*>(base + T::OFF_DQ +
+                                             wg * T::DQ_BYTES);
+
+  float dv_acc[D / 2], dk_acc[D / 2];
   zero(dv_acc);
-  const __nv_bfloat16* kw = sk + (warp * 16 + g) * LD + 2 * t;
-  const __nv_bfloat16* vw = sv + (warp * 16 + g) * LD + 2 * t;
+  zero(dk_acc);
+  mbar_wait(kv_full, 0);
 
-  const int n_chunks = (Lq + BQ - 1) / BQ;
-  for (int j = 0; j < n_chunks; ++j) {
-    // stage (j + 1) & 1 was last read in iteration j - 1, before its
-    // closing barrier
-    if (j + 1 < n_chunks) load_chunk(j + 1);
-    cp_async_commit();
-    cp_async_wait<1>();  // chunk j (and K, V) landed
-    __syncthreads();
-    const __nv_bfloat16* sq = sqd + (j & 1) * kStage;
-    const __nv_bfloat16* sdo = sq + BQ * LD;
-    const float* sl = sld + (j & 1) * 2 * BQ;
-    const float* sdi = sl + BQ;
+  for (int it = 0; it < n_tiles; ++it) {
+    const int s = it % T::STAGES;
+    const unsigned q_off = s * 2 * T::Q_BYTES, do_off = q_off + T::Q_BYTES;
+    const float* sl = lds + s * 2 * BQ;  // lse_2 of the tile's queries
+    const float* sdi = sl + BQ;          // Di
+    mbar_wait(&full[s], (it / T::STAGES) & 1);
 
-    // P^T [16 keys x BQ queries]
-    float p[NQ][4];
-    zero(p);
+    // S^T and dP^T [64 keys x BQ queries], contracting over D (K-major);
+    // the first k-step ignores the accumulators (scale-d 0)
+    float st[BQ / 2], dpt[BQ / 2];
+    wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < KD; ++kk) {
-      uint32_t a[4];
-      a_frag(a, kw, LD, kk * 16);
-#pragma unroll
-      for (int nt = 0; nt < NQ; ++nt) {
-        const __nv_bfloat16* qr = sq + (nt * 8 + g) * LD + 2 * t + kk * 16;
-        mma_16816(p[nt], a, ld32(qr), ld32(qr + 8));
-      }
+      const unsigned off = (kk / 4) * T::KV_CHUNK + (kk % 4) * 32;
+      const unsigned qoff = (kk / 4) * T::Q_CHUNK + (kk % 4) * 32;
+      wgmma_ss<BQ, 0, 0>(st, desc_advance(d_k_wg, off),
+                         desc_advance(d_q_k, q_off + qoff), kk > 0);
     }
-#pragma unroll
-    for (int nt = 0; nt < NQ; ++nt) {
-#pragma unroll
-      for (int jj = 0; jj < 2; ++jj) {
-        const float l2 = sl[nt * 8 + 2 * t + jj];
-        p[nt][jj] = exp2f(p[nt][jj] * scale_log2 - l2);
-        p[nt][2 + jj] = exp2f(p[nt][2 + jj] * scale_log2 - l2);
-      }
-    }
-    // dV [16 x D] += P^T dO
-#pragma unroll
-    for (int kq = 0; kq < KQ; ++kq) {
-      uint32_t a[4];
-      pack_a(a, p, kq);
-      const __nv_bfloat16* dr = sdo + (kq * 16 + (lane & 15)) * LD;
-#pragma unroll
-      for (int n = 0; n < D8; ++n) {
-        uint32_t b0, b1;
-        ldmatrix_x2_trans(b0, b1, dr + n * 8);
-        mma_16816(dv_acc[n], a, b0, b1);
-      }
-    }
-    // dS^T = P^T * (V dO^T - Di)
-    float ds[NQ][4];
-    zero(ds);
+    wgmma_commit();
 #pragma unroll
     for (int kk = 0; kk < KD; ++kk) {
-      uint32_t a[4];
-      a_frag(a, vw, LD, kk * 16);
+      const unsigned off = (kk / 4) * T::KV_CHUNK + (kk % 4) * 32;
+      const unsigned qoff = (kk / 4) * T::Q_CHUNK + (kk % 4) * 32;
+      wgmma_ss<BQ, 0, 0>(dpt, desc_advance(d_v_wg, off),
+                         desc_advance(d_q_k, do_off + qoff), kk > 0);
+    }
+    wgmma_commit();
+    wgmma_wait<1>();
+    fence_regs(st);
+
+    // P^T, fp32; a thread's columns are queries 8 j + 2 qd (+ 1)
 #pragma unroll
-      for (int nt = 0; nt < NQ; ++nt) {
-        const __nv_bfloat16* dr = sdo + (nt * 8 + g) * LD + 2 * t + kk * 16;
-        mma_16816(ds[nt], a, ld32(dr), ld32(dr + 8));
+    for (int j = 0; j < BQ / 8; ++j) {
+      const float2 l2 = *reinterpret_cast<const float2*>(sl + 8 * j + 2 * qd);
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const float l = e ? l2.y : l2.x;
+        st[4 * j + e] = fast_exp2(fmaf(st[4 * j + e], scale_log2, -l));
+        st[4 * j + 2 + e] =
+            fast_exp2(fmaf(st[4 * j + 2 + e], scale_log2, -l));
       }
     }
+    if (tail) {  // keys past Lk
 #pragma unroll
-    for (int nt = 0; nt < NQ; ++nt) {
-#pragma unroll
-      for (int jj = 0; jj < 2; ++jj) {
-        const float di = sdi[nt * 8 + 2 * t + jj];
-        ds[nt][jj] = p[nt][jj] * (ds[nt][jj] - di);
-        ds[nt][2 + jj] = p[nt][2 + jj] * (ds[nt][2 + jj] - di);
+      for (int i = 0; i < BQ / 8; ++i) {
+        st[4 * i] = ok_lo ? st[4 * i] : 0.f;
+        st[4 * i + 1] = ok_lo ? st[4 * i + 1] : 0.f;
+        st[4 * i + 2] = ok_hi ? st[4 * i + 2] : 0.f;
+        st[4 * i + 3] = ok_hi ? st[4 * i + 3] : 0.f;
       }
     }
-    // dK [16 x D] += dS^T Q
+    uint32_t pa[BQ / 16][4];
+    pack_a<BQ>(pa, st);
+    // dV [64 keys x D] += P^T dO (dO MN-major: rows are queries)
+    wgmma_fence();
 #pragma unroll
-    for (int kq = 0; kq < KQ; ++kq) {
-      uint32_t a[4];
-      pack_a(a, ds, kq);
-      const __nv_bfloat16* qr = sq + (kq * 16 + (lane & 15)) * LD;
+    for (int kq = 0; kq < BQ / 16; ++kq) {
+      wgmma_rs<D, 1>(dv_acc, pa[kq],
+                     desc_advance(d_q_mn, do_off + kq * 2048), 1);
+    }
+    wgmma_commit();
+    wgmma_wait<1>();  // dP^T has landed; dV may still run
+    fence_regs(dpt);
+
+    // dS^T = P^T (dP^T - Di), fp32
 #pragma unroll
-      for (int n = 0; n < D8; ++n) {
-        uint32_t b0, b1;
-        ldmatrix_x2_trans(b0, b1, qr + n * 8);
-        mma_16816(dk_acc[n], a, b0, b1);
+    for (int j = 0; j < BQ / 8; ++j) {
+      const float2 d2 = *reinterpret_cast<const float2*>(sdi + 8 * j + 2 * qd);
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const float di = e ? d2.y : d2.x;
+        dpt[4 * j + e] = st[4 * j + e] * (dpt[4 * j + e] - di);
+        dpt[4 * j + 2 + e] = st[4 * j + 2 + e] * (dpt[4 * j + 2 + e] - di);
       }
     }
-    __syncthreads();  // every warp is done with this stage
+    uint32_t da[BQ / 16][4];
+    pack_a<BQ>(da, dpt);
+    // dK [64 keys x D] += dS^T Q (Q MN-major)
+    wgmma_fence();
+#pragma unroll
+    for (int kq = 0; kq < BQ / 16; ++kq) {
+      wgmma_rs<D, 1>(dk_acc, da[kq],
+                     desc_advance(d_q_mn, q_off + kq * 2048), 1);
+    }
+    wgmma_commit();
+
+    // this warpgroup's 64 rows of dS^T [128 keys x BQ queries] into the
+    // tile parity's buffer, bf16, 16-byte chunk j of row r at j ^ (r % 8)
+    // (the layout TMA's 128-byte swizzle gives; r % 8 == g for both rows).
+    // Warpgroup b = it % 2 computes the tile's dQ; the other one first
+    // waits until b's dQ product of tile it - 2 has read the buffer
+    const int b = it & 1;
+    unsigned char* ds = base + T::OFF_DS + b * T::DS_BYTES;
+    if (wg != b && it >= 2) {
+      named_barrier<256>(3 + b);
+    }
+#pragma unroll
+    for (int kq = 0; kq < BQ / 16; ++kq) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        unsigned char* p = ds + row * kRowBytes +
+                           (((2 * kq + h) ^ g) << 4) + 4 * qd;
+        *reinterpret_cast<uint32_t*>(p) = da[kq][2 * h];
+        *reinterpret_cast<uint32_t*>(p + 8 * kRowBytes) = da[kq][2 * h + 1];
+      }
+    }
+    fence_proxy_async();  // before wgmma reads them
+
+    wgmma_wait<0>();
+    fence_regs(dv_acc);
+    fence_regs(dk_acc);
+#pragma unroll
+    for (int kq = 0; kq < BQ / 16; ++kq) {
+      fence_regs(pa[kq]);
+      fence_regs(da[kq]);
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[s]);  // stage s read by this warp
+    if (wg != b) {  // this half of dS^T is stored; on to the next tile
+      named_barrier_arrive<256>(1 + b);
+      continue;
+    }
+    named_barrier<256>(1 + b);  // the other half is stored
+
+    // dQ of the tile over the block's 128 keys, by warpgroup b.  The bulk
+    // reduction that last read stage_dq (two tiles ago) must be done
+    // reading it before it is written again
+    const uint64_t d_ds_b = desc_advance(d_ds, b * T::DS_BYTES);
+    const int q0 = it * BQ;
+    if constexpr (!T::SWAP_DQ) {
+      // dQ [BQ queries x D] = dS K: A = dS^T read MN-major, B = K MN-major
+      float acc[D / 2];
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kBwdKeys / 16; ++kk) {
+        wgmma_ss<D, 1, 1>(acc, desc_advance(d_ds_b, kk * 2048),
+                          desc_advance(d_k_mn, kk * 2048), kk > 0);
+      }
+      wgmma_commit();
+      if (tw == 0) bulk_wait_read<0>();
+      wgmma_wait<0>();
+      fence_regs(acc);
+      if (it + 2 < n_tiles) named_barrier_arrive<256>(3 + b);
+      named_barrier<128>(5 + wg);
+      // rows (queries) 16 w + g (+ 8), columns 8 j + 2 qd (+ 1)
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+        float* p = stage_dq + (16 * w + g) * D + 8 * j + 2 * qd;
+        *reinterpret_cast<float2*>(p) =
+            make_float2(acc[4 * j] * scale, acc[4 * j + 1] * scale);
+        *reinterpret_cast<float2*>(p + 8 * D) =
+            make_float2(acc[4 * j + 2] * scale, acc[4 * j + 3] * scale);
+      }
+    } else {
+      // dQ^T [D x BQ] = K^T dS^T, one m64 tile per 64-column chunk of K:
+      // A = K read MN-major (rows are keys), B = dS^T MN-major
+      float acc[NC][BQ / 2];
+      wgmma_fence();
+#pragma unroll
+      for (int mt = 0; mt < NC; ++mt) {
+#pragma unroll
+        for (int kk = 0; kk < kBwdKeys / 16; ++kk) {
+          wgmma_ss<BQ, 1, 1>(
+              acc[mt], desc_advance(d_k_mn, mt * T::KV_CHUNK + kk * 2048),
+              desc_advance(d_ds_b, kk * 2048), kk > 0);
+        }
+      }
+      wgmma_commit();
+      if (tw == 0) bulk_wait_read<0>();
+      wgmma_wait<0>();
+#pragma unroll
+      for (int mt = 0; mt < NC; ++mt) fence_regs(acc[mt]);
+      if (it + 2 < n_tiles) named_barrier_arrive<256>(3 + b);
+      named_barrier<128>(5 + wg);
+      // rows (D) 64 mt + 16 w + g (+ 8), columns (queries) 8 j + 2 qd (+ 1)
+#pragma unroll
+      for (int mt = 0; mt < NC; ++mt) {
+        const int d = 64 * mt + 16 * w + g;
+#pragma unroll
+        for (int j = 0; j < BQ / 8; ++j) {
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            float* p = stage_dq + (8 * j + 2 * qd + e) * D + d;
+            if (d < D) p[0] = acc[mt][4 * j + e] * scale;
+            if (d + 8 < D) p[8] = acc[mt][4 * j + 2 + e] * scale;
+          }
+        }
+      }
+    }
+    fence_proxy_async();  // before the bulk reduction reads them
+    named_barrier<128>(5 + wg);
+    if (tw == 0) {
+      const int rows = Lq - q0 < BQ ? Lq - q0 : BQ;
+      bulk_reduce_add_f32(dq + ((size_t)bh * Lq + q0) * D, stage_dq,
+                          rows * D * 4);
+    }
   }
 
-  const int row_lo = k0 + warp * 16 + g;
-  const int row_hi = row_lo + 8;
-  __nv_bfloat16* dkb = dk + (size_t)bh * Lk * D;
-  __nv_bfloat16* dvb = dv + (size_t)bh * Lk * D;
+  // dK (scaled once) and dV of this thread's two key rows
+  __nv_bfloat16* dkb = dk + ((size_t)bh * Lk + k0 + row) * D;
+  __nv_bfloat16* dvb = dv + ((size_t)bh * Lk + k0 + row) * D;
 #pragma unroll
-  for (int n = 0; n < D8; ++n) {
-    const int c = n * 8 + 2 * t;
-    if (row_lo < Lk) {
-      const size_t o = (size_t)row_lo * D + c;
-      *reinterpret_cast<uint32_t*>(dkb + o) =
-          pack_bf16(dk_acc[n][0] * scale, dk_acc[n][1] * scale);
-      *reinterpret_cast<uint32_t*>(dvb + o) =
-          pack_bf16(dv_acc[n][0], dv_acc[n][1]);
+  for (int j = 0; j < D / 8; ++j) {
+    const int c = 8 * j + 2 * qd;
+    if (ok_lo) {
+      *reinterpret_cast<uint32_t*>(dkb + c) =
+          pack_bf16(dk_acc[4 * j] * scale, dk_acc[4 * j + 1] * scale);
+      *reinterpret_cast<uint32_t*>(dvb + c) =
+          pack_bf16(dv_acc[4 * j], dv_acc[4 * j + 1]);
     }
-    if (row_hi < Lk) {
-      const size_t o = (size_t)row_hi * D + c;
-      *reinterpret_cast<uint32_t*>(dkb + o) =
-          pack_bf16(dk_acc[n][2] * scale, dk_acc[n][3] * scale);
-      *reinterpret_cast<uint32_t*>(dvb + o) =
-          pack_bf16(dv_acc[n][2], dv_acc[n][3]);
+    if (ok_hi) {
+      *reinterpret_cast<uint32_t*>(dkb + 8 * D + c) =
+          pack_bf16(dk_acc[4 * j + 2] * scale, dk_acc[4 * j + 3] * scale);
+      *reinterpret_cast<uint32_t*>(dvb + 8 * D + c) =
+          pack_bf16(dv_acc[4 * j + 2], dv_acc[4 * j + 3]);
     }
   }
+  if (tw == 0) bulk_wait<0>();  // this thread's reductions have landed
 }
 
-// dQ of kBlockQ queries of one (batch * head), each warp 16 queries.  Keys
-// stream through two stages in chunks of BK; per chunk
-//   P   = exp2(Q K^T * scale_log2 - lse_2)   (keys past Lk: P = 0)
-//   dS  = P * (dO V^T - Di)
-//   dQ += dS K                                 (dS rounded to bf16)
-// and dQ is scaled once at the end.  A separate kernel from dK/dV, so each
-// output is written by one block, without atomics, in a fixed order.
+// Di = rowsum(dO * O) in fp32 for each of the `rows` = BH * Lq rows, by
+// eight threads a row: thread c of the eight takes the row's 16-byte
+// chunks c, c + 8, .. (of D8) and shuffles add the eight partial sums, so
+// that the loads coalesce and even a few thousand rows fill the card; and
+// the fp32 dQ accumulator zeroed, float4 by float4 over the whole grid
 template <int D8>
-__global__ void __launch_bounds__(kThreads)
-attention_bwd_dq_kernel(const __nv_bfloat16* __restrict__ q,
-                        const __nv_bfloat16* __restrict__ k,
-                        const __nv_bfloat16* __restrict__ v,
-                        const __nv_bfloat16* __restrict__ dout,
-                        const float* __restrict__ lse,
-                        const float* __restrict__ delta,
-                        __nv_bfloat16* __restrict__ dq, int Lq, int Lk,
-                        float scale_log2, float scale) {
-  constexpr int D = 8 * D8;
-  constexpr int KD = (D + 15) / 16;
-  constexpr int DP = 16 * KD;
-  constexpr int LD = DP + 8;
-  constexpr int BK = BwdChunk<D8>::kRows;
-  constexpr int NK = BK / 8;
-  constexpr int KK = BK / 16;
-  constexpr int kStage = 2 * BK * LD;
-  extern __shared__ __align__(128) unsigned char smem[];
-  // Q and dO of the block, then two stages of (K chunk, V chunk)
-  __nv_bfloat16* sq = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* sdo = sq + kBlockQ * LD;
-  __nv_bfloat16* skv = sdo + kBlockQ * LD;
-
-  const int bh = blockIdx.y;
-  const int q0 = blockIdx.x * kBlockQ;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int g = lane >> 2;
-  const int t = lane & 3;
-  const __nv_bfloat16* kb = k + (size_t)bh * Lk * D;
-  const __nv_bfloat16* vb = v + (size_t)bh * Lk * D;
-
-  load_rows_async(sq, q + (size_t)bh * Lq * D, q0, kBlockQ, Lq, D, DP, LD);
-  load_rows_async(sdo, dout + (size_t)bh * Lq * D, q0, kBlockQ, Lq, D, DP,
-                  LD);
-  auto load_chunk = [&](int j) {
-    __nv_bfloat16* st = skv + (j & 1) * kStage;
-    load_rows_async(st, kb, j * BK, BK, Lk, D, DP, LD);
-    load_rows_async(st + BK * LD, vb, j * BK, BK, Lk, D, DP, LD);
-  };
-  load_chunk(0);
-  cp_async_commit();
-
-  const int row_lo = q0 + warp * 16 + g;
-  const int row_hi = row_lo + 8;
-  const float* lb = lse + (size_t)bh * Lq;
-  const float* db = delta + (size_t)bh * Lq;
-  const float l2_lo = row_lo < Lq ? lb[row_lo] * kLog2e : INFINITY;
-  const float l2_hi = row_hi < Lq ? lb[row_hi] * kLog2e : INFINITY;
-  const float di_lo = row_lo < Lq ? db[row_lo] : 0.f;
-  const float di_hi = row_hi < Lq ? db[row_hi] : 0.f;
-
-  float acc[D8][4];
-  zero(acc);
-  const __nv_bfloat16* qw = sq + (warp * 16 + g) * LD + 2 * t;
-  const __nv_bfloat16* dw = sdo + (warp * 16 + g) * LD + 2 * t;
-
-  const int n_chunks = (Lk + BK - 1) / BK;
-  for (int j = 0; j < n_chunks; ++j) {
-    const int k0 = j * BK;
-    if (j + 1 < n_chunks) load_chunk(j + 1);
-    cp_async_commit();
-    cp_async_wait<1>();  // chunk j (and Q, dO) landed
-    __syncthreads();
-    const __nv_bfloat16* sk = skv + (j & 1) * kStage;
-    const __nv_bfloat16* sv = sk + BK * LD;
-
-    float p[NK][4];
-    zero(p);
+__global__ void __launch_bounds__(256)
+attention_bwd_prep_kernel(const uint4* __restrict__ o,
+                          const uint4* __restrict__ dout,
+                          float* __restrict__ delta,
+                          float4* __restrict__ dq_acc, int rows) {
+  const size_t t = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  const size_t r = t / 8;
+  float s = 0.f;
+  if (r < (size_t)rows) {
 #pragma unroll
-    for (int kk = 0; kk < KD; ++kk) {
-      uint32_t a[4];
-      a_frag(a, qw, LD, kk * 16);
+    for (int j = t % 8; j < D8; j += 8) {
+      const uint4 a = o[r * D8 + j];
+      const uint4 b = dout[r * D8 + j];
+      const __nv_bfloat162* ha = reinterpret_cast<const __nv_bfloat162*>(&a);
+      const __nv_bfloat162* hb = reinterpret_cast<const __nv_bfloat162*>(&b);
 #pragma unroll
-      for (int nt = 0; nt < NK; ++nt) {
-        const __nv_bfloat16* kr = sk + (nt * 8 + g) * LD + 2 * t + kk * 16;
-        mma_16816(p[nt], a, ld32(kr), ld32(kr + 8));
+      for (int e = 0; e < 4; ++e) {
+        const float2 x = __bfloat1622float2(ha[e]);
+        const float2 y = __bfloat1622float2(hb[e]);
+        s = fmaf(x.x, y.x, fmaf(x.y, y.y, s));
       }
     }
-#pragma unroll
-    for (int nt = 0; nt < NK; ++nt) {
-#pragma unroll
-      for (int jj = 0; jj < 2; ++jj) {
-        const bool ok = k0 + nt * 8 + 2 * t + jj < Lk;
-        p[nt][jj] = ok ? exp2f(p[nt][jj] * scale_log2 - l2_lo) : 0.f;
-        p[nt][2 + jj] = ok ? exp2f(p[nt][2 + jj] * scale_log2 - l2_hi) : 0.f;
-      }
-    }
-    float ds[NK][4];
-    zero(ds);
-#pragma unroll
-    for (int kk = 0; kk < KD; ++kk) {
-      uint32_t a[4];
-      a_frag(a, dw, LD, kk * 16);
-#pragma unroll
-      for (int nt = 0; nt < NK; ++nt) {
-        const __nv_bfloat16* vr = sv + (nt * 8 + g) * LD + 2 * t + kk * 16;
-        mma_16816(ds[nt], a, ld32(vr), ld32(vr + 8));
-      }
-    }
-#pragma unroll
-    for (int nt = 0; nt < NK; ++nt) {
-#pragma unroll
-      for (int jj = 0; jj < 2; ++jj) {
-        ds[nt][jj] = p[nt][jj] * (ds[nt][jj] - di_lo);
-        ds[nt][2 + jj] = p[nt][2 + jj] * (ds[nt][2 + jj] - di_hi);
-      }
-    }
-    // dQ [16 x D] += dS K
-#pragma unroll
-    for (int kc = 0; kc < KK; ++kc) {
-      uint32_t a[4];
-      pack_a(a, ds, kc);
-      const __nv_bfloat16* kr = sk + (kc * 16 + (lane & 15)) * LD;
-#pragma unroll
-      for (int n = 0; n < D8; ++n) {
-        uint32_t b0, b1;
-        ldmatrix_x2_trans(b0, b1, kr + n * 8);
-        mma_16816(acc[n], a, b0, b1);
-      }
-    }
-    __syncthreads();  // every warp is done with this stage
   }
-
-  __nv_bfloat16* dqb = dq + (size_t)bh * Lq * D;
-#pragma unroll
-  for (int n = 0; n < D8; ++n) {
-    const int c = n * 8 + 2 * t;
-    if (row_lo < Lq) {
-      *reinterpret_cast<uint32_t*>(dqb + (size_t)row_lo * D + c) =
-          pack_bf16(acc[n][0] * scale, acc[n][1] * scale);
-    }
-    if (row_hi < Lq) {
-      *reinterpret_cast<uint32_t*>(dqb + (size_t)row_hi * D + c) =
-          pack_bf16(acc[n][2] * scale, acc[n][3] * scale);
-    }
+  // every lane takes part (the rows past the end add zeros)
+  s += __shfl_xor_sync(0xffffffffu, s, 1);
+  s += __shfl_xor_sync(0xffffffffu, s, 2);
+  s += __shfl_xor_sync(0xffffffffu, s, 4);
+  if (r < (size_t)rows && t % 8 == 0) delta[r] = s;
+  const size_t n4 = (size_t)rows * 2 * D8;  // D / 4 float4 a row
+  for (size_t i = t; i < n4; i += (size_t)gridDim.x * blockDim.x) {
+    dq_acc[i] = make_float4(0.f, 0.f, 0.f, 0.f);
   }
 }
 
-// the shared-memory limit is a per-device attribute of the function: set
-// it once for each device, not on every launch
-template <typename Kernel>
-int allow_smem(Kernel kernel, size_t smem,
-               std::atomic<bool> (&done)[kMaxDevices]) {
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return (int)err;
-  if (dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
-  if (!done[dev].load(std::memory_order_acquire)) {
-    err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    done[dev].store(true, std::memory_order_release);
+// dq = bf16(dq_acc), four elements a thread a step
+__global__ void __launch_bounds__(256)
+attention_bwd_cast_kernel(const float4* __restrict__ dq_acc,
+                          uint2* __restrict__ dq, size_t n4) {
+  for (size_t i = blockIdx.x * (size_t)blockDim.x + threadIdx.x; i < n4;
+       i += (size_t)gridDim.x * blockDim.x) {
+    const float4 x = dq_acc[i];
+    dq[i] = make_uint2(pack_bf16(x.x, x.y), pack_bf16(x.z, x.w));
   }
-  return 0;
-}
-
-template <int D8>
-constexpr int row_stride() {
-  return 16 * ((8 * D8 + 15) / 16) + 8;
 }
 
 template <int D8>
 int launch_fwd(const void* q, const void* k, const void* v, void* o,
                void* lse, int bh, int lq, int lk, float scale,
                cudaStream_t stream) {
-  constexpr size_t smem =
-      sizeof(__nv_bfloat16) * (kBlockQ + 4 * kBlockK) * row_stride<D8>();
+  constexpr int LD = 16 * ((8 * D8 + 15) / 16) + 8;  // the tiles' row stride
+  constexpr size_t smem = sizeof(__nv_bfloat16) * (kBlockQ + 4 * kBlockK) * LD;
   static std::atomic<bool> done[kMaxDevices];
-  const int err = allow_smem(attention_fwd_kernel<D8>, smem, done);
-  if (err) return err;
+  const cudaError_t err = set_smem(attention_fwd_kernel<D8>, smem, done);
+  if (err != cudaSuccess) return (int)err;
   const dim3 grid((lq + kBlockQ - 1) / kBlockQ, bh);
   attention_fwd_kernel<D8><<<grid, kThreads, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q),
@@ -733,46 +840,50 @@ int launch_fwd(const void* q, const void* k, const void* v, void* o,
 }
 
 template <int D8>
-int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
-               const void* lse, const void* delta, void* dk, void* dv,
-               int bh, int lq, int lk, float scale, cudaStream_t stream) {
-  constexpr int BQ = BwdChunk<D8>::kRows;
-  constexpr size_t smem =
-      sizeof(__nv_bfloat16) * (2 * kBlockK + 4 * BQ) * row_stride<D8>() +
-      sizeof(float) * 4 * BQ;
+int launch_bwd(const void* q, const void* k, const void* v, const void* o,
+               const void* dout, const void* lse, void* delta, void* dq_acc,
+               void* dq, void* dk, void* dv, int bh, int lq, int lk,
+               float scale, cudaStream_t stream) {
+  using T = BwdTile<D8>;
+  const EncodeTiled enc = encode_tiled();
+  if (!enc) return (int)cudaErrorNotSupported;
+  BwdMaps maps = {};
+  // [BH, L, D] bf16, boxes of 64 columns (zero past D) by `rows` rows of
+  // one (batch * head) (zero past L)
+  auto encode = [&](CUtensorMap* map, const void* p, int L, int rows) {
+    const cuuint64_t dims[3] = {(cuuint64_t)T::D, (cuuint64_t)L,
+                                (cuuint64_t)bh};
+    const cuuint64_t strides[2] = {2 * (cuuint64_t)T::D,
+                                   2 * (cuuint64_t)L * T::D};
+    const cuuint32_t box[3] = {64, (cuuint32_t)rows, 1};
+    return encode_bf16(enc, map, p, 3, dims, strides, box);
+  };
+  if (lq < 1 || !encode(&maps.q, q, lq, T::BQ) ||
+      !encode(&maps.dout, dout, lq, T::BQ) ||
+      !encode(&maps.k, k, lk, kBwdKeys) || !encode(&maps.v, v, lk, kBwdKeys)) {
+    return (int)cudaErrorInvalidValue;
+  }
   static std::atomic<bool> done[kMaxDevices];
-  const int err = allow_smem(attention_bwd_dkv_kernel<D8>, smem, done);
-  if (err) return err;
-  const dim3 grid((lk + kBlockK - 1) / kBlockK, bh);
-  attention_bwd_dkv_kernel<D8><<<grid, kThreads, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(q),
-      static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v),
-      static_cast<const __nv_bfloat16*>(dout),
-      static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv), lq,
-      lk, scale * kLog2e, scale);
-  return (int)cudaGetLastError();
-}
-
-template <int D8>
-int launch_dq(const void* q, const void* k, const void* v, const void* dout,
-              const void* lse, const void* delta, void* dq, int bh, int lq,
-              int lk, float scale, cudaStream_t stream) {
-  constexpr int BK = BwdChunk<D8>::kRows;
-  constexpr size_t smem =
-      sizeof(__nv_bfloat16) * (2 * kBlockQ + 4 * BK) * row_stride<D8>();
-  static std::atomic<bool> done[kMaxDevices];
-  const int err = allow_smem(attention_bwd_dq_kernel<D8>, smem, done);
-  if (err) return err;
-  const dim3 grid((lq + kBlockQ - 1) / kBlockQ, bh);
-  attention_bwd_dq_kernel<D8><<<grid, kThreads, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(q),
-      static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v),
-      static_cast<const __nv_bfloat16*>(dout),
-      static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<__nv_bfloat16*>(dq), lq, lk, scale * kLog2e, scale);
+  const cudaError_t err = set_smem(attention_bwd_kernel<D8>, T::SMEM, done);
+  if (err != cudaSuccess) return (int)err;
+  const int rows = bh * lq;
+  attention_bwd_prep_kernel<D8><<<(rows + 31) / 32, 256, 0, stream>>>(
+      static_cast<const uint4*>(o), static_cast<const uint4*>(dout),
+      static_cast<float*>(delta), static_cast<float4*>(dq_acc), rows);
+  cudaError_t launched = cudaGetLastError();
+  if (launched != cudaSuccess) return (int)launched;
+  const dim3 grid((lk + kBwdKeys - 1) / kBwdKeys, bh);
+  attention_bwd_kernel<D8><<<grid, kBwdThreads, T::SMEM, stream>>>(
+      maps, static_cast<const float*>(lse), static_cast<const float*>(delta),
+      static_cast<float*>(dq_acc), static_cast<__nv_bfloat16*>(dk),
+      static_cast<__nv_bfloat16*>(dv), lq, lk, scale * kLog2e, scale);
+  launched = cudaGetLastError();
+  if (launched != cudaSuccess) return (int)launched;
+  const size_t n4 = (size_t)rows * 2 * D8;
+  const size_t blocks = (n4 + 255) / 256;
+  attention_bwd_cast_kernel<<<blocks < 65535 ? blocks : 65535, 256, 0,
+                              stream>>>(static_cast<const float4*>(dq_acc),
+                                        static_cast<uint2*>(dq), n4);
   return (int)cudaGetLastError();
 }
 
@@ -799,10 +910,11 @@ int dispatch_head_dim(int d, int bh, F&& f) {
 
 }  // namespace
 
-// All tensors contiguous, bf16 ones 16-byte aligned; q, o, dout, dq
-// [BH, Lq, D], k, v, dk, dv [BH, Lk, D] bf16; lse and delta [BH, Lq] fp32;
-// D in {16, 32, 40, 80, 160}.  Each launches on `stream` of the current
-// device and returns cudaGetLastError() (0 on success).
+// All tensors contiguous, bf16 ones 16-byte aligned; q, o, dout, dq [BH,
+// Lq, D], k, v, dk, dv [BH, Lk, D] bf16; lse and delta [BH, Lq] fp32;
+// dq_acc [BH, Lq, D] fp32; D in {16, 32, 40, 80, 160}.  Each launches on
+// `stream` of the current device and returns cudaGetLastError() (0 on
+// success).
 
 // o = softmax(q k^T * scale) v; with lse non-null also the natural-log
 // log-sum-exp of each row of scaled logits.
@@ -815,29 +927,19 @@ extern "C" int dc_attention_fwd(const void* q, const void* k, const void* v,
   });
 }
 
-// dk, dv of the forward above, given its lse and delta = rowsum(dout * o)
-extern "C" int dc_attention_bwd_dkv(const void* q, const void* k,
-                                    const void* v, const void* dout,
-                                    const void* lse, const void* delta,
-                                    void* dk, void* dv, int bh, int lq,
-                                    int lk, int d, float scale,
-                                    void* stream) {
+// the gradient (dq, dk, dv) of the forward above, given its o and lse, in
+// three kernels: delta = rowsum(dout * o) and dq_acc zeroed (both the
+// caller's scratch), the backward kernel (dQ summed over key blocks into
+// dq_acc by bulk reductions; dk and dv written), then dq = bf16(dq_acc)
+extern "C" int dc_attention_bwd(const void* q, const void* k, const void* v,
+                                const void* o, const void* dout,
+                                const void* lse, void* delta, void* dq_acc,
+                                void* dq, void* dk, void* dv, int bh, int lq,
+                                int lk, int d, float scale, void* stream) {
+  if ((long long)bh * lq > 0x7fffffff) return (int)cudaErrorInvalidValue;
   return dispatch_head_dim(d, bh, [&](auto d8) {
-    return launch_dkv<decltype(d8)::value>(q, k, v, dout, lse, delta, dk, dv,
-                                           bh, lq, lk, scale,
-                                           (cudaStream_t)stream);
-  });
-}
-
-// dq of the forward above, given its lse and delta = rowsum(dout * o)
-extern "C" int dc_attention_bwd_dq(const void* q, const void* k,
-                                   const void* v, const void* dout,
-                                   const void* lse, const void* delta,
-                                   void* dq, int bh, int lq, int lk, int d,
-                                   float scale, void* stream) {
-  return dispatch_head_dim(d, bh, [&](auto d8) {
-    return launch_dq<decltype(d8)::value>(q, k, v, dout, lse, delta, dq, bh,
-                                          lq, lk, scale,
-                                          (cudaStream_t)stream);
+    return launch_bwd<decltype(d8)::value>(q, k, v, o, dout, lse, delta,
+                                           dq_acc, dq, dk, dv, bh, lq, lk,
+                                           scale, (cudaStream_t)stream);
   });
 }

@@ -101,7 +101,6 @@
 // H, W (stride 2: H, W >= 2); offsets into activations are 64-bit
 // ([7, 512, 512, 256] holds 4.7e8 elements).
 
-#include <cuda.h>  // CUtensorMap and its enums only: libcuda is not linked
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -110,15 +109,11 @@
 
 #include <atomic>
 
+#include "hopper.cuh"  // mbarriers, TMA, wgmma, tensor maps
+
 namespace {
 
-constexpr int kMaxDevices = 64;
-
 enum Prologue { kNone = 0, kSilu = 1, kAffineSilu = 2 };
-
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
 
 // four 8x8 bf16 matrices from shared memory; lane i gives the address of
 // row i % 8 of matrix i / 8
@@ -215,86 +210,8 @@ struct Maps {
   CUtensorMap w;
 };
 
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
-                   smem_addr(bar)),
-               "r"(count));
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
-                   smem_addr(bar))
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar,
-                                               uint32_t bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-          smem_addr(bar)),
-      "r"(bytes)
-      : "memory");
-}
-
-// spin until the phase of parity `parity` has completed
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  asm volatile(
-      "{\n"
-      ".reg .pred P1;\n"
-      "LAB_WAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
-      "@P1 bra DONE;\n"
-      "bra LAB_WAIT;\n"
-      "DONE:\n"
-      "}\n" ::"r"(smem_addr(bar)),
-      "r"(parity)
-      : "memory");
-}
-
-__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
-                                            uint64_t* bar, int c0, int c1,
-                                            int c2) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_addr(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0),
-      "r"(c1), "r"(c2)
-      : "memory");
-}
-
-__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
-                                            uint64_t* bar, int c0, int c1,
-                                            int c2, int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_addr(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0),
-      "r"(c1), "r"(c2), "r"(c3)
-      : "memory");
-}
-
 __device__ __forceinline__ void prefetch_l2(const void* p) {
   asm volatile("prefetch.global.L2 [%0];\n" ::"l"(p));
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-
-// keeps the compiler from moving accesses of the accumulators across the
-// asynchronous products
-__device__ __forceinline__ void fence_acc(float (&d)[64]) {
-#pragma unroll
-  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
 // a[i][e]: this lane's channels 2q + e of n-tile i of four (q = lane & 3,
@@ -326,46 +243,6 @@ __device__ __forceinline__ void quad_transpose(const float (&a)[4][2],
     v[c] = b1 ? recv : keep;
     v[4 + c] = b1 ? keep : recv;
   }
-}
-
-// descriptor of a K-major B tile in shared memory with the 128-byte
-// swizzle: rows of 64 bf16 (128 bytes), 8-row groups 1024 bytes apart
-__device__ __forceinline__ uint64_t desc_b128(unsigned addr) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
-         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
-}
-
-// d[64 x 128] += a[64 x 16] (registers: this warp's 16 rows, the m16n8k16
-// A fragment) . b[16 x 128] (shared memory, K-major)
-__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64],
-                                                 const uint32_t (&a)[4],
-                                                 uint64_t desc_b) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
-      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
-      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
-      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "{%64, %65, %66, %67}, %68, p, 1, 1, 0;\n"
-      "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
-        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
-        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
-        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
-        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
 }
 
 // where a block's tile lies: output tile (ty0, tx0) of image b, output
@@ -445,7 +322,7 @@ conv3x3_hopper(const __grid_constant__ Maps maps,
       mbar_init(&wfull[i], 1);
       mbar_init(&wempty[i], kConsumerWarps);
     }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    mbar_init_fence();
   }
   __syncthreads();
 
@@ -462,7 +339,7 @@ conv3x3_hopper(const __grid_constant__ Maps maps,
         const TileAt t = step_tile(k);
         const int iy0 = S * t.ty0 - pad, ix0 = S * t.tx0 - pad;
         const int c0 = (k % n_chunks) * kCK;
-        mbar_wait(&hempty[s], ((k / T::HS) & 1) ^ 1);
+        mbar_wait_asm(&hempty[s], ((k / T::HS) & 1) ^ 1);
         mbar_expect_tx(&hfull[s], T::PLANES * T::BOX_BYTES);
         unsigned char* dst = halo + s * T::HALO_BYTES;
         if (S == 1) {
@@ -487,7 +364,7 @@ conv3x3_hopper(const __grid_constant__ Maps maps,
         const int n0 = step_tile(k).n0;
         const int j = k % n_chunks;
         for (int tap = 0; tap < 9; ++tap) {
-          mbar_wait(&wempty[ws], wph ^ 1);
+          mbar_wait_asm(&wempty[ws], wph ^ 1);
           mbar_expect_tx(&wfull[ws], kWBytes);
           tma_load_3d(wts + ws * kWBytes, &maps.w, &wfull[ws], 0, n0,
                       9 * j + tap);
@@ -519,7 +396,7 @@ conv3x3_hopper(const __grid_constant__ Maps maps,
         const size_t bc = PRO == kAffineSilu ? (size_t)at.b * C : 0;
         affine_of<PRO>(sc, sh, scale + bc, shift + bc, c);
       }
-      mbar_wait(&hfull[s], (k / T::HS) & 1);
+      mbar_wait_asm(&hfull[s], (k / T::HS) & 1);
       unsigned char* st = halo + s * T::HALO_BYTES;
 #pragma unroll 2
       for (int row = t >> 3; row < T::PH * T::PW; row += kRowStep) {
@@ -535,7 +412,7 @@ conv3x3_hopper(const __grid_constant__ Maps maps,
         }
       }
       // these generic-proxy writes precede the next TMA write of the stage
-      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      fence_proxy_async();
       mbar_arrive(&hact[s]);
     }
     return;
@@ -560,7 +437,7 @@ conv3x3_hopper(const __grid_constant__ Maps maps,
     for (int mt = 0; mt < T::MT; ++mt) {
 #pragma unroll
       for (int i = 0; i < 64; ++i) acc[mt][i] = 0.f;
-      fence_acc(acc[mt]);
+      fence_regs(acc[mt]);
     }
     int rel = -1;  // the weight stage to give back after the next wait
     for (int k = k0; k < k0 + n_chunks; ++k) {
@@ -581,7 +458,7 @@ conv3x3_hopper(const __grid_constant__ Maps maps,
           }
         }
       }
-      mbar_wait(PRO == kNone ? &hfull[s] : &hact[s], (k / T::HS) & 1);
+      mbar_wait_asm(PRO == kNone ? &hfull[s] : &hact[s], (k / T::HS) & 1);
       const unsigned hb = smem_addr(halo + s * T::HALO_BYTES);
 #pragma unroll
       for (int tap = 0; tap < 9; ++tap) {
@@ -604,15 +481,17 @@ conv3x3_hopper(const __grid_constant__ Maps maps,
               ldmatrix_x4(afr[h][mt][k2], base + ((c16 ^ (hr & 7)) << 4));
             }
           }
-          if (h == 0) mbar_wait(&wfull[ws], wph);
+          if (h == 0) mbar_wait_asm(&wfull[ws], wph);
           wgmma_fence();
 #pragma unroll
           for (int mt = 0; mt < T::MT; ++mt) {
 #pragma unroll
             for (int k2 = 0; k2 < 2; ++k2) {
-              wgmma_m64n128k16(acc[mt], afr[h][mt][k2],
-                               desc_b128(wts_s + ws * kWBytes +
-                                         (2 * h + k2) * 32));
+              wgmma_rs<kBN, 0>(acc[mt], afr[h][mt][k2],
+                               desc_sw128(wts_s + ws * kWBytes +
+                                              (2 * h + k2) * 32,
+                                          16, 1024),
+                               1);
             }
           }
           wgmma_commit();
@@ -643,7 +522,7 @@ conv3x3_hopper(const __grid_constant__ Maps maps,
     // before the epilogue, so the producer can fill them meanwhile
     wgmma_wait<0>();
 #pragma unroll
-    for (int mt = 0; mt < T::MT; ++mt) fence_acc(acc[mt]);
+    for (int mt = 0; mt < T::MT; ++mt) fence_regs(acc[mt]);
     __syncwarp();
     if (lane == 0) {
       mbar_arrive(&wempty[rel]);
@@ -752,65 +631,6 @@ conv3x3_hopper(const __grid_constant__ Maps maps,
       }
     }
   }
-}
-
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
-                                 cuuint32_t, void*, const cuuint64_t*,
-                                 const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave,
-                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-// the driver's cuTensorMapEncodeTiled, through the runtime (null if the
-// driver lacks it)
-EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult status;
-#if CUDART_VERSION >= 12050
-    cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &status);
-#else
-    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
-                                              cudaEnableDefault, &status);
-#endif
-    if (err != cudaSuccess || status != cudaDriverEntryPointSuccess) {
-      p = nullptr;
-    }
-    return reinterpret_cast<EncodeTiled>(p);
-  }();
-  return fn;
-}
-
-// a bf16 map of `rank` dims (innermost first; strides in bytes of dims 1..)
-// with the 128-byte swizzle and zero fill out of bounds
-bool encode_bf16(EncodeTiled enc, CUtensorMap* map, const void* base,
-                 int rank, const cuuint64_t* dims, const cuuint64_t* strides,
-                 const cuuint32_t* box) {
-  const cuuint32_t unit[4] = {1, 1, 1, 1};
-  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank,
-             const_cast<void*>(base), dims, strides, box, unit,
-             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
-// sets a kernel's dynamic shared-memory limit once for each device (a
-// per-device attribute of the function)
-template <typename K>
-cudaError_t set_smem(K kernel, size_t bytes,
-                     std::atomic<bool> (&done)[kMaxDevices]) {
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
-  if (!done[dev].load(std::memory_order_acquire)) {
-    err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-    if (err != cudaSuccess) return err;
-    done[dev].store(true, std::memory_order_release);
-  }
-  return cudaSuccess;
 }
 
 template <int PRO, bool RES, int S>

@@ -7,10 +7,12 @@ that computed the model's attention, and the stock Pallas flash backward
 that training reaches through the latter
 (`jax/experimental/pallas/ops/tpu/flash_attention.py`:
 `_flash_attention_bwd_dkv` and `_flash_attention_bwd_dq`).  Here
-`csrc/attention.cu` holds three kernels: the forward, which serves every
+`csrc/attention.cu` holds two kernels: the forward, which serves every
 self- and cross-attention call of the UNet and the ControlNet and, when a
-gradient is wanted, also writes each row's log-sum-exp; and the backward's
-dK/dV and dQ kernels, which recompute the probabilities from it.
+gradient is wanted, also writes each row's log-sum-exp; and the backward,
+one kernel for dQ, dK and dV, which recomputes the probabilities from it
+once per tile (launched between a pass that computes rowsum(dout * out)
+and a pass that rounds dQ to bf16).
 
 Layout at this boundary: q [BH, Lq, D], k and v [BH, Lk, D] (heads folded
 into the batch), the form the kernels read.
@@ -40,15 +42,15 @@ def attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def _check(name: str, Lk: int, **tensors):
     """Raise unless every tensor lies on q's CUDA device, contiguous and
-    16-byte aligned, with its dtype and shape: bf16 [BH, Lq, D] (q, dout)
-    or [BH, Lk, D] (k, v), fp32 [BH, Lq] (lse, delta).  Returns BH, Lq,
+    16-byte aligned, with its dtype and shape: bf16 [BH, Lq, D] (q, out,
+    dout) or [BH, Lk, D] (k, v), fp32 [BH, Lq] (lse).  Returns BH, Lq,
     D."""
     q = tensors["q"]
     if q.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {q.device}")
     BH, Lq, D = q.shape
     for label, t in tensors.items():
-        if label in ("lse", "delta"):
+        if label == "lse":
             dtype, shape = torch.float32, (BH, Lq)
         else:
             dtype = torch.bfloat16
@@ -92,56 +94,40 @@ def attention_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out, lse
 
 
-def attention_bwd_dkv(q, k, v, dout, lse, delta, scale: float):
-    """(dk, dv) of the forward, given its lse and delta = rowsum(dout * out)
-    in fp32: one launch of the dK/dV kernel, or raises.
-    `attention_bwd_dkv.launches` counts the launches."""
-    BH, Lq, D = _check("attention_bwd_dkv", k.shape[1], q=q, k=k, v=v,
-                       dout=dout, lse=lse, delta=delta)
+def attention_bwd(q, k, v, out, dout, lse, scale: float):
+    """(dq, dk, dv) of `out = attention_forward(q, k, v, scale)`, given its
+    lse: one launch of the backward kernel on q's CUDA device, or raises.
+    The same C call first computes delta = rowsum(dout * out) in fp32 and
+    zeroes an fp32 dQ buffer, into which the kernel adds each block's dQ by
+    bulk reductions (so dq's last bits vary from run to run; dk and dv do
+    not), and then rounds that buffer to bf16.  `attention_bwd.launches`
+    counts the launches."""
+    BH, Lq, D = _check("attention_bwd", k.shape[1], q=q, k=k, v=v, out=out,
+                       dout=dout, lse=lse)
+    delta = torch.empty(BH, Lq, device=q.device, dtype=torch.float32)
+    dq_acc = torch.empty(BH, Lq, D, device=q.device, dtype=torch.float32)
+    dq = torch.empty_like(q)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     lib = _kernels.lib()
     with torch.cuda.device(q.device):
-        code = lib.dc_attention_bwd_dkv(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
-            lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        code = lib.dc_attention_bwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+            dq_acc.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
             BH, Lq, k.shape[1], D, float(scale),
             _kernels.stream_ptr(q.device))
-    _kernels.check(code, "dc_attention_bwd_dkv")
-    attention_bwd_dkv.launches += 1
-    return dk, dv
+    _kernels.check(code, "dc_attention_bwd")
+    attention_bwd.launches += 1
+    return dq, dk, dv
 
 
-attention_bwd_dkv.launches = 0
-
-
-def attention_bwd_dq(q, k, v, dout, lse, delta, scale: float):
-    """dq of the forward, given its lse and delta: one launch of the dQ
-    kernel, or raises.  `attention_bwd_dq.launches` counts the launches."""
-    BH, Lq, D = _check("attention_bwd_dq", k.shape[1], q=q, k=k, v=v,
-                       dout=dout, lse=lse, delta=delta)
-    dq = torch.empty_like(q)
-    lib = _kernels.lib()
-    with torch.cuda.device(q.device):
-        code = lib.dc_attention_bwd_dq(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
-            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), BH, Lq,
-            k.shape[1], D, float(scale), _kernels.stream_ptr(q.device))
-    _kernels.check(code, "dc_attention_bwd_dq")
-    attention_bwd_dq.launches += 1
-    return dq
-
-
-attention_bwd_dq.launches = 0
+attention_bwd.launches = 0
 
 
 def attention_backward(q, k, v, out, lse, dout, scale: float):
-    """(dq, dk, dv) on the card: delta = rowsum(dout * out) in fp32 (a
-    torch reduction, as JAX computes it outside its Pallas kernels), then
-    the dK/dV and the dQ kernels."""
-    dout = dout.contiguous()
-    delta = (dout.float() * out.float()).sum(-1)
-    dk, dv = attention_bwd_dkv(q, k, v, dout, lse, delta, scale)
-    return attention_bwd_dq(q, k, v, dout, lse, delta, scale), dk, dv
+    """(dq, dk, dv) on the card, from what the forward saved and the
+    incoming gradient (made contiguous): `attention_bwd`."""
+    return attention_bwd(q, k, v, out, dout.contiguous(), lse, scale)
 
 
 class _Attention(torch.autograd.Function):
@@ -179,8 +165,8 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     On a CPU tensor this is `attention_reference`, and so is its gradient.
     On a CUDA tensor the forward kernel runs on q's device (bf16,
     contiguous, D in `KERNEL_HEAD_DIMS`) or raises, saving the row
-    log-sum-exp where a gradient is wanted; the backward runs the dK/dV and
-    dQ kernels.  `attention.launches` counts the forward launches.
+    log-sum-exp where a gradient is wanted; the backward runs the backward
+    kernel.  `attention.launches` counts the forward launches.
     """
     with_grad = torch.is_grad_enabled() and (
         q.requires_grad or k.requires_grad or v.requires_grad)

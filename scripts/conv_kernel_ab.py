@@ -65,20 +65,22 @@ def build_old(src, out_dir):
     return so
 
 
-def sass_report(src, out_dir):
+def sass_report(src, out_dir, prefix="conv3x3_"):
     """{kernel: {registers, stack, spill_stores, spill_loads, hgmma}} of
-    the kernels in `src`, from ptxas -v and cuobjdump -sass of its cubin."""
+    the kernels in `src`, from ptxas -v and cuobjdump -sass of its cubin;
+    the names of those whose name starts with `prefix` are shortened."""
     nvcc = _kernels.LIBRARY._nvcc()
     flags = [f for f in _kernels.NVCC_FLAGS
              if f not in ("-shared", "-Xcompiler", "-fPIC")]
-    cubin = os.path.join(out_dir, "conv3x3.cubin")
+    cubin = os.path.join(out_dir,
+                         os.path.basename(src).replace(".cu", ".cubin"))
     proc = subprocess.run([nvcc, *flags, "-cubin", "-Xptxas", "-v", "-o",
                            cubin, src], capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc -cubin failed:\n{proc.stderr}")
 
     def short(mangled):  # conv3x3_hopper<Li2ELb1ELi1E>, template args raw
-        m = re.search(r"(conv3x3_\w+?)I(\w*?)EEv", mangled)
+        m = re.search(rf"({prefix}\w*?)I(\w*?)EEv", mangled)
         return f"{m.group(1)}<{m.group(2)}E>" if m else mangled
 
     report, name = {}, None

@@ -6,8 +6,9 @@ choice of its Hopper loop is worth.
 
 Builds `diffcodec_tpu_torch/csrc/conv3x3.cu` as it is and once for each
 entry of BUILDS below (the source is edited in memory; the build fails
-loudly if the source no longer reads as expected), one nvcc per build, all
-started together:
+loudly if the source no longer reads as expected, and a CPU test applies
+every edit to the current source), one nvcc per build, all started
+together:
   * parts switched off, alone and in pairs: the TMA copies (the producer
     arrives on the stage's barrier without copying), the activation warps'
     work, and the consumers' wgmma products (their ldmatrix goes with
@@ -57,8 +58,8 @@ PARTS = {
         ("      for (int row = t >> 3; row < T::PH * T::PW; row += kRowStep) {",
          "      for (int row = t >> 3; row < 0; row += kRowStep) {")],
     "products": [
-        ("            wgmma_m64n128k16(acc[mt], afr[h][mt][k2],",
-         "            if (false) wgmma_m64n128k16(acc[mt], afr[h][mt][k2],")],
+        ("              wgmma_rs<kBN, 0>(acc[mt], afr[h][mt][k2],",
+         "              if (false) wgmma_rs<kBN, 0>(acc[mt], afr[h][mt][k2],")],
 }
 # design choice undone -> [(text of conv3x3.cu, what replaces it)]
 CHOICES = {
@@ -104,18 +105,35 @@ SHAPES = [(7, 512, 512, 256, 128, 1, False),
           (8, 256, 256, 256, 256, 2, False)]
 
 
-def build(name, edits, src, out_dir):
-    """Start nvcc on the source with `edits`: (process, library path)."""
+def edited(src, edits, what):
+    """`src` with each (old, new) of `edits` applied in turn; raises
+    unless each old text occurs exactly once in what it is applied to."""
     for old, new in edits:
         if src.count(old) != 1:
-            raise RuntimeError(f"{name}: conv3x3.cu no longer has {old!r}")
+            raise RuntimeError(f"{what}: the source has {src.count(old)} "
+                               f"copies of {old!r}, not 1")
         src = src.replace(old, new)
+    return src
+
+
+def start_edited_build(src, out_dir, name):
+    """Start one nvcc of the edited source `src`, written to
+    `out_dir`/`name`.cu (the headers found in csrc/), into a shared library:
+    (process, library path)."""
     cu = os.path.join(out_dir, f"{name}.cu")
     with open(cu, "w") as f:
         f.write(src)
     lib = os.path.join(out_dir, f"{name}.so")
     return subprocess.Popen([_kernels.LIBRARY._nvcc(), *_kernels.NVCC_FLAGS,
-                             "-o", lib, cu]), lib
+                             "-I", _kernels.CSRC_DIR, "-o", lib,
+                             cu], stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True), lib
+
+
+def build(name, edits, src, out_dir):
+    """Start nvcc on the source with `edits`: (process, library path)."""
+    return start_edited_build(edited(src, edits, f"conv3x3.cu, {name}"),
+                              out_dir, name)
 
 
 def inputs(gen, B, H, W, C, O, stride, residual):
@@ -164,8 +182,9 @@ def main() -> int:
                  for name, (edits, _) in BUILDS.items()}
         libs = {}
         for name, (proc, path) in procs.items():
-            if proc.wait() != 0:
-                raise RuntimeError(f"nvcc failed for {name}")
+            _, err = proc.communicate()
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed for {name}:\n{err}")
             lib = ctypes.CDLL(path)
             for fn in ("dc_conv3x3", "dc_downsample_conv3x3"):
                 getattr(lib, fn).argtypes = _kernels._SIGNATURES[fn]

@@ -5,8 +5,8 @@ optax, PIL, safetensors, transformers or triton, and the port must not
 lean on the JAX package.  A subprocess installs an import hook that
 refuses those modules, then imports every module of `diffcodec_tpu_torch`,
 `chip_smoke` and the port's scripts, `scripts/profile_torch_decode.py`,
-`scripts/conv_kernel_breakdown.py` and `scripts/conv_kernel_ab.py`
-(without running them).
+`scripts/conv_kernel_breakdown.py`, `scripts/conv_kernel_ab.py` and
+`scripts/attention_bwd_ab.py` (without running them).
 """
 
 import os
@@ -45,6 +45,7 @@ sys.path.insert(0, "scripts")
 import profile_torch_decode
 import conv_kernel_breakdown
 import conv_kernel_ab
+import attention_bwd_ab
 loaded = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
 assert not loaded, loaded
 print("imported", len(names), "modules")
@@ -65,7 +66,7 @@ def test_port_and_chip_smoke_import_without_jax():
 def test_kernel_sources_include_no_torch_headers():
     sources = sorted(PKG.glob("csrc/*.cu*"))
     assert {p.name for p in sources} >= {"attention.cu", "splat.cu",
-                                         "conv3x3.cu"}
+                                         "conv3x3.cu", "hopper.cuh"}
     for p in sources:
         includes = re.findall(r'#\s*include\s*[<"]([^>"]+)[>"]',
                               p.read_text())

@@ -9,11 +9,14 @@ no JAX, so on the card's machine it runs without the repo's conftest:
     python -m pytest --noconftest -m cuda tests/test_torch_port_kernels.py
 
 The unmarked tests check `_kernels.py` (nvcc missing or failing raises with
-the compiler's output) on any machine.
+the compiler's output) and that every in-memory edit of a kernel source
+that `scripts/conv_kernel_breakdown.py` and `scripts/attention_bwd_ab.py`
+build still finds its text, on any machine.
 """
 
 import os
 import stat
+import sys
 
 import numpy as np
 import pytest
@@ -23,12 +26,16 @@ from diffcodec_tpu_torch import _kernels
 from diffcodec_tpu_torch.ops import conv
 from diffcodec_tpu_torch.ops.attention import (attention,
                                                attention_backward,
-                                               attention_bwd_dkv,
-                                               attention_bwd_dq,
+                                               attention_bwd,
                                                attention_forward,
                                                attention_reference)
 from diffcodec_tpu_torch.ops.softsplat import (softsplat, splat_sum,
                                                splat_sum_reference)
+
+_REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path[:0] = [_REPO, os.path.join(_REPO, "scripts")]
+import attention_bwd_ab  # noqa: E402
+import conv_kernel_breakdown  # noqa: E402
 
 
 @pytest.fixture
@@ -245,9 +252,10 @@ def _attention_inputs(device, BH, Lq, Lk, D, seed):
     (3, 100, 77, 160), (2, 33, 5, 32), (2, 64, 300, 16), (3, 17, 130, 40),
     (64, 4096, 4096, 40)])
 def test_attention_backward_kernels_match_plain(cuda_device, BH, Lq, Lk, D):
-    """dQ, dK, dV of the kernels against autograd of the plain version; Lk
-    = 77 and 5 leave a masked tail in the last key chunk, Lq = 100, 33 and
-    17 one in the last query chunk."""
+    """dQ, dK, dV of the backward kernel (one launch) against autograd of
+    the plain version; Lk = 77, 5, 130 and 300 leave a masked tail in the
+    last block of 128 keys, Lq = 100, 33 and 17 one in the last query
+    tile."""
     q, k, v, dout = _attention_inputs(cuda_device, BH, Lq, Lk, D,
                                       seed=BH * Lq + D)
     scale = D ** -0.5
@@ -256,10 +264,9 @@ def test_attention_backward_kernels_match_plain(cuda_device, BH, Lq, Lk, D):
     torch.testing.assert_close(lse, torch.logsumexp(logits, -1), atol=1e-4,
                                rtol=1e-5)
     del logits
-    before = (attention_bwd_dq.launches, attention_bwd_dkv.launches)
+    before = attention_bwd.launches
     got = attention_backward(q, k, v, out, lse, dout, scale)
-    assert (attention_bwd_dq.launches, attention_bwd_dkv.launches) == (
-        before[0] + 1, before[1] + 1)
+    assert attention_bwd.launches == before + 1
     leaves = [t.detach().requires_grad_() for t in (q, k, v)]
     want = torch.autograd.grad(attention_reference(*leaves, scale), leaves,
                                dout)
@@ -269,17 +276,49 @@ def test_attention_backward_kernels_match_plain(cuda_device, BH, Lq, Lk, D):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("BH,Lq,Lk,D", [
+    (64, 4096, 4096, 40), (3, 100, 77, 160), (4, 256, 300, 80)])
+def test_attention_backward_kernel_repeats(cuda_device, BH, Lq, Lk, D):
+    """Two launches on the same inputs: dK and dV are written once, by the
+    block that owns the keys, so they are bitwise equal; dQ is summed over
+    key blocks by bulk reductions in an order that varies, so it may differ
+    in its last fp32 bits and then by one bf16 rounding: at most one bf16
+    ulp (2^-7 relative) of the largest |dQ|."""
+    q, k, v, dout = _attention_inputs(cuda_device, BH, Lq, Lk, D, seed=Lq)
+    scale = D ** -0.5
+    out, lse = attention_forward(q, k, v, scale, with_lse=True)
+    before = attention_bwd.launches
+    dq1, dk1, dv1 = attention_bwd(q, k, v, out, dout, lse, scale)
+    dq2, dk2, dv2 = attention_bwd(q, k, v, out, dout, lse, scale)
+    assert attention_bwd.launches == before + 2
+    assert torch.equal(dk1, dk2) and torch.equal(dv1, dv2)
+    ulp = 2.0 ** -7 * dq1.float().abs().max().item()
+    assert (dq1.float() - dq2.float()).abs().max().item() <= ulp
+
+
+@pytest.mark.cuda
 def test_attention_backward_kernels_reject_what_they_do_not_take(
         cuda_device):
     q, k, v, dout = _attention_inputs(cuda_device, 2, 16, 16, 40, seed=0)
+    out = torch.zeros_like(q)
     lse = torch.zeros(2, 16, device=cuda_device)
+    before = attention_bwd.launches
     with pytest.raises(TypeError):  # bf16 lse
-        attention_bwd_dq(q, k, v, dout, lse.bfloat16(), lse, 0.1)
-    with pytest.raises(ValueError):  # delta of the wrong length
-        attention_bwd_dkv(q, k, v, dout, lse, lse[:, :8].contiguous(), 0.1)
+        attention_bwd(q, k, v, out, dout, lse.bfloat16(), 0.1)
+    with pytest.raises(ValueError):  # lse of the wrong length
+        attention_bwd(q, k, v, out, dout, lse[:, :8].contiguous(), 0.1)
+    with pytest.raises(TypeError):  # fp32 out
+        attention_bwd(q, k, v, out.float(), dout, lse, 0.1)
     with pytest.raises(ValueError):  # dout not contiguous
-        attention_bwd_dkv(q, k, v, dout.transpose(0, 1).contiguous()
-                          .transpose(0, 1), lse, lse, 0.1)
+        attention_bwd(q, k, v, out, dout.transpose(0, 1).contiguous()
+                      .transpose(0, 1), lse, 0.1)
+    for d in (12, 64):  # widths the kernel is not built for
+        x = torch.zeros(2, 16, d, device=cuda_device, dtype=torch.bfloat16)
+        with pytest.raises(ValueError):
+            attention_bwd(x, x, x, x, x, lse, 0.1)
+    with pytest.raises(ValueError):  # CPU tensors: the kernel runs on cards
+        attention_bwd(*(t.cpu() for t in (q, k, v, out, dout, lse)), 0.1)
+    assert attention_bwd.launches == before
 
 
 @pytest.mark.cuda
@@ -396,7 +435,7 @@ def test_build_failure_carries_compiler_output(monkeypatch, tmp_path):
                    for p in (tmp_path / "build").rglob("*"))
 
 
-def test_build_directory_follows_the_sources(tmp_path):
+def test_build_directory_follows_the_sources(tmp_path, monkeypatch):
     lib = _kernels._Library()
     a, b = tmp_path / "a.cu", tmp_path / "b.cu"
     a.write_text("// one\n")
@@ -406,3 +445,69 @@ def test_build_directory_follows_the_sources(tmp_path):
     b.write_text("// two, edited\n")
     assert lib._digest([str(a), str(b)]) != d1
     assert os.path.basename(_kernels.CSRC_DIR) == "csrc"
+    # a header the sources include is hashed too: editing it builds anew
+    h = tmp_path / "shared.cuh"
+    h.write_text("// shared\n")
+    (tmp_path / "notes.txt").write_text("not a source\n")
+    monkeypatch.setattr(_kernels, "CSRC_DIR", str(tmp_path))
+    assert lib.sources() == [str(a), str(b), str(h)]
+    d2 = lib._digest(lib.sources())
+    h.write_text("// shared, edited\n")
+    assert lib._digest(lib.sources()) != d2
+
+
+def test_build_compiles_the_sources_and_not_the_headers(monkeypatch,
+                                                        tmp_path):
+    """nvcc gets every .cu of csrc/ and no .cuh (those are included)."""
+    bin_dir = tmp_path / "cuda" / "bin"
+    bin_dir.mkdir(parents=True)
+    args = tmp_path / "args.txt"
+    nvcc = bin_dir / "nvcc"
+    nvcc.write_text(f'#!/bin/sh\necho "$@" > {args}\nexit 3\n')
+    nvcc.chmod(nvcc.stat().st_mode | stat.S_IXUSR)
+    monkeypatch.setattr(_kernels, "BUILD_ROOT", str(tmp_path / "build"))
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path / "cuda"))
+    with pytest.raises(_kernels.KernelBuildError):
+        _kernels._Library().get()
+    passed = args.read_text().split()
+    names = {os.path.basename(a) for a in passed}
+    assert {"attention.cu", "conv3x3.cu", "splat.cu"} <= names
+    assert not any(a.endswith(".cuh") for a in passed)
+    assert "hopper.cuh" in {os.path.basename(s)
+                            for s in _kernels._Library().sources()}
+
+
+def _csrc(name):
+    with open(os.path.join(_kernels.CSRC_DIR, name)) as f:
+        return f.read()
+
+
+@pytest.mark.parametrize("name", sorted(conv_kernel_breakdown.BUILDS))
+def test_conv_breakdown_edits_match_the_source(name):
+    """Each build of the conv breakdown edits text that occurs exactly once
+    in the current conv3x3.cu, and changes it (but the unedited one)."""
+    src = _csrc("conv3x3.cu")
+    edits = conv_kernel_breakdown.BUILDS[name][0]
+    got = conv_kernel_breakdown.edited(src, edits, name)
+    assert (got == src) == (not edits)
+
+
+@pytest.mark.parametrize("name", sorted(attention_bwd_ab.ABLATIONS))
+def test_attention_ablation_edits_match_the_source(name):
+    """Each ablated build of the attention backward, with its one head
+    width, edits text that occurs exactly once in the current
+    attention.cu."""
+    src = _csrc("attention.cu")
+    edits = (attention_bwd_ab.ABLATIONS[name]
+             + attention_bwd_ab.one_width(40))
+    got = conv_kernel_breakdown.edited(src, edits, name)
+    assert got != src and "if constexpr (8 * decltype(d8)::value != 40)" in got
+
+
+def test_source_edits_refuse_text_that_is_not_there_once():
+    edit = conv_kernel_breakdown.edited
+    assert edit("a b c", [("b", "x"), ("x c", "y")], "t") == "a y"
+    with pytest.raises(RuntimeError, match="0 copies"):
+        edit("a b c", [("d", "x")], "t")
+    with pytest.raises(RuntimeError, match="2 copies"):
+        edit("a b b", [("b", "x")], "t")
