@@ -1052,7 +1052,13 @@ def main() -> int:
         summary(rows, paths, "attention", cu + "attention.cu",
                 "diffcodec_tpu/ops/attention.py:94", "decode",
                 # the same function's other TPU kernel (stock Pallas flash)
-                also_replaces="diffcodec_tpu/models/layers.py:195"),
+                also_replaces="diffcodec_tpu/models/layers.py:195",
+                note="attention_fwd_kernel: persistent Hopper kernel "
+                     "(TMA loads of Q and a K/V ring on mbarriers, three "
+                     "wgmma consumer warpgroups at D <= 64 and two above, "
+                     "ping-pong, S of tile j before P V of tile j - 1, "
+                     "ex2.approx); serves every self- and cross-attention "
+                     "call, with lse where a gradient is wanted"),
         summary(rows, paths, "attention_bwd", cu + "attention.cu",
                 flash + ":941", "train", also_replaces=flash + ":1287",
                 note="one kernel for dQ, dK and dV; ms is the wrapper "

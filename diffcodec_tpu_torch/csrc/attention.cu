@@ -20,33 +20,20 @@
 // 0.30 ms at peak, while q, k, v and o together are 147 MB (0.044 ms at
 // 3.35 TB/s): the operations bound it, and so the backward at training's
 // [64, 4096, 4096, 40] (0.434 ms).  At the 77-token cross-attention the
-// bytes do.  The backward also takes one exponential per element of P:
-// 1.07e9 at that shape, >= 0.26 ms on the SFUs (16 a clock per SM), which
-// the products can hide only if P is computed once.
+// bytes do.  Both also take one exponential per element of P: 1.88e9 in
+// the forward at the decode's shape, >= 0.5 ms on the SFUs (16 a clock
+// per SM), more than the products' bound at D = 40: they can only hide
+// under each other.
 //
-// Forward design (FlashAttention-2's structure, kept simple):
-//   * a block of 4 warps takes 64 queries of one (batch*head); each warp
-//     owns 16 query rows, whose Q fragments stay in registers;
-//   * keys stream through shared memory in chunks of 64 with an fp32
-//     online softmax in base 2 (scale folded in), so L = 4096 never writes
-//     a logits row to device memory; K and V chunks are copied with
-//     cp.async into two stages, so the copy of chunk j + 1 overlaps the
-//     products of chunk j;
-//   * both products are mma.sync m16n8k16 (bf16 operands, fp32
-//     accumulators); the logits, the probabilities (re-packed in registers
-//     as the A operand of P.V) and the output accumulator live in
-//     registers; V stays row-major and ldmatrix.trans forms its B operand;
-//   * D is a template parameter, instantiated for 16, 32, 40, 80 and 160
-//     only (any D % 8 == 0 up to 160 would compile): the accumulator is
-//     D/8 fragments of 16 x 8, so D = 40 needs no padding in P.V and only
-//     40 -> 48 in q.k (zeros in shared memory), not the TPU's 128 lanes;
-//     at D = 160 each thread holds 80 fp32 accumulators (228 registers, a
-//     12-byte spill);
-//   * keys past Lk (the 77-token text context) get -inf logits, so ragged
-//     key counts need no padding in device memory.
-// Backward design (FlashAttention-3's structure: TMA, mbarriers, wgmma,
-// warp specialisation; P and dP computed once per tile): see
-// attention_bwd_kernel below.
+// Both kernels are FlashAttention-3's structure on the same tile layout:
+// TMA copies on mbarriers from a loading warpgroup, two consumer
+// warpgroups on wgmma (warp specialisation), every tile row stored as
+// 64-column chunks of 128 bytes with the 128-byte swizzle (TMA boxes of 64
+// columns, zero fill past D and L), so D = 40 is one chunk with 24 zero
+// columns and D = 160 three; products over D take ceil(D / 16) k-steps (40
+// -> 48), products whose width is D use N = D exactly (n40), reading the
+// row-major operand as MN-major through the descriptor's transpose bit.
+// See attention_fwd_kernel and attention_bwd_kernel below.
 // Inputs are [BH, L, D] contiguous and 16-byte aligned.
 
 #include <cuda_bf16.h>
@@ -62,260 +49,473 @@
 
 namespace {
 
-constexpr int kWarps = 4;
-constexpr int kThreads = 32 * kWarps;
-constexpr int kBlockQ = 16 * kWarps;  // query rows per block
-constexpr int kBlockK = 64;           // keys per chunk
 constexpr float kLn2 = 0.6931471805599453f;
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr int kRowBytes = 128;  // a 64-column chunk of a bf16 row
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
-// 16-byte global -> shared copy that bypasses registers; zero-fills the
-// destination when `valid` is false
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool valid) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  const int bytes = valid ? 16 : 0;
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
-               "l"(src), "r"(bytes));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
+// the A fragments (k-steps of 16 columns) of an m64nN fp32 accumulator,
+// rounded to bf16
+template <int N>
+__device__ __forceinline__ void pack_a(uint32_t (&a)[N / 16][4],
+                                       const float (&x)[N / 2]) {
+#pragma unroll
+  for (int kk = 0; kk < N / 16; ++kk) {
+    a[kk][0] = pack_bf16(x[8 * kk], x[8 * kk + 1]);
+    a[kk][1] = pack_bf16(x[8 * kk + 2], x[8 * kk + 3]);
+    a[kk][2] = pack_bf16(x[8 * kk + 4], x[8 * kk + 5]);
+    a[kk][3] = pack_bf16(x[8 * kk + 6], x[8 * kk + 7]);
+  }
 }
 
 template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+__device__ __forceinline__ void zero(float (&x)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) x[i] = 0.f;
 }
 
-// the B operand (16 keys x 8 columns) of P.V from a row-major V tile: two
-// 8x8 matrices loaded transposed
-__device__ __forceinline__ void ldmatrix_x2_trans(uint32_t& b0, uint32_t& b1,
-                                                  const __nv_bfloat16* p) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, [%2];\n"
-      : "=r"(b0), "=r"(b1)
-      : "r"(a));
-}
+// ---------------------------------------------------------------------------
+// The forward: one Hopper kernel (FlashAttention-3's forward).
+//
+// Persistent: one block per SM (at most) walks items of BQ queries of one
+// (batch * head), the query blocks of a head next to each other (so that
+// the blocks in flight share its K and V in L2); each item walks all its
+// keys in tiles of BK.  Warpgroup 0 loads, by TMA, and gives its registers
+// to the consumers (setmaxnreg): one thread the Q of each item into QBUF
+// buffers (on q_full and q_empty), another K and V of each key tile into a
+// ring of STAGES stages (on full and empty) that runs on across items, so
+// the next item's Q and first tiles land while this one is computed.
+// CONS consumer warpgroups compute, each for 64 of the item's queries,
+// with the queries as rows:
+//   S   = Q K^T                wgmma, both operands from shared memory,
+//                              K-major; m64 x BK (N = BK), ceil(D/16) steps
+//   P   = exp2(S * scale_log2 - m)   online softmax, base 2, fp32: m the
+//                              running row max, l the running row sum;
+//                              ex2.approx; row max and sum over the quad
+//                              that holds a row (shuffles)
+//   O   = O * exp2(m_old - m) + P V  wgmma, A = P in registers (bf16),
+//                              B = V MN-major (rows are keys), N = D
+// The main loop overlaps two ways, each switchable (kFwdPingPong,
+// kFwdIntraOverlap) so that a build can go without it:
+//   * inside a warpgroup, tile j's S is issued before tile j-1's P V, and
+//     the softmax of tile j runs while P V of tile j-1 is on the tensor
+//     cores (wgmma.wait_group 1); O is rescaled only after that product has
+//     been waited for;
+//   * between the warpgroups (ping-pong), each issues its two products of
+//     a tile at its own named barrier and then lets the next one in the
+//     ring issue, so that the others' softmax runs under its products.
+// The first tile of an item is peeled off the loop: ptxas serialised every
+// wgmma of the kernel (C7514/C7520) while one P V was issued and waited
+// for under `if (it > 0)`.
+//
+// What bounds it (H100, [112, 4096, 4096, 40]): the exponentials and the
+// bf16 conversions of P share the SFU pipe (16 a clock per SM: >= 0.5 ms
+// for the exponentials alone), the K and V stream into shared memory
+// (0.43 ms alone with three consumers), then the products; see PERF.md.
+// Hence three consumer warpgroups (192 queries an item) where D <= 64 (O is
+// D / 2 fp32 a thread, so 160 registers suffice), which cuts the K and V
+// streamed per query by a third, and K and V boxes of exactly D columns.
+//
+// Keys past Lk: only the tile that holds Lk masks them (-inf logits; TMA
+// filled them with zeros).  Queries past Lq are zero rows of Q whose
+// results are never written; where Lq leaves a consumer no query at all
+// (Lq <= 64: the 8 x 8 latents), it leaves at once.
+//
+// Epilogue: each row scaled by 1/l and rounded to bf16 once, written from
+// registers (a quad writes 16 contiguous bytes of a row a step; Q's buffer
+// belongs to the next item by then); lse = (m + log2 l) * ln 2 per row
+// where asked.  No atomics: a launch repeats bitwise.
+//
+// Shared memory (bytes; 1 KB of alignment slack and the mbarriers besides):
+//   D <= 40: BQ 192, BK 128, 2 x Q 24576 + 4 stages x (K, V) 2 x 16384
+//            = 180224
+//   D = 80:  BQ 128, BK 128, Q 32768 + 3 stages x 2 x 32768 = 229376
+//   D = 160: BQ 128, BK 64,  Q 49152 + 3 stages x 2 x 24576 = 196608
+// (at D = 160 two stages of 128-key K and V, 96 KB each, and Q would not
+// fit in 227 KB, and O's 80 fp32 a thread leave no room for a 128-wide S;
+// at D = 80 and 160 a second Q buffer would cost a stage, which measured
+// slower).  Registers: one block of 128 (1 + CONS) threads per SM; the
+// loader keeps 24, a consumer thread up to REGS: S (BK / 2), P (BK / 4 as
+// bf16 pairs), O (D / 2).
 
-// d[16x8] += a[16x16] . b[16x8], bf16 operands, fp32 accumulators
-__device__ __forceinline__ void mma_16816(float (&d)[4],
-                                          const uint32_t (&a)[4], uint32_t b0,
-                                          uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// rows [row0, row0 + rows) of a [L, d] bf16 matrix -> shared tile with row
-// stride ld, zero past L and in columns [d, dp)
-__device__ __forceinline__ void load_rows(__nv_bfloat16* dst,
-                                          const __nv_bfloat16* src, int row0,
-                                          int rows, int L, int d, int dp,
-                                          int ld) {
-  const int vec = dp / 8;
-  for (int i = threadIdx.x; i < rows * vec; i += kThreads) {
-    const int r = i / vec;
-    const int c = (i - r * vec) * 8;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < L && c < d) {
-      val = *reinterpret_cast<const uint4*>(src + (size_t)(row0 + r) * d + c);
-    }
-    *reinterpret_cast<uint4*>(dst + r * ld + c) = val;
-  }
-}
-
-// rows [row0, row0 + rows) of a [L, d] bf16 matrix -> shared tile with
-// row stride ld, asynchronously; zero past L and in columns [d, dp)
-__device__ __forceinline__ void load_rows_async(__nv_bfloat16* dst,
-                                                const __nv_bfloat16* src,
-                                                int row0, int rows, int L,
-                                                int d, int dp, int ld) {
-  const int vec = dp / 8;
-  for (int i = threadIdx.x; i < rows * vec; i += kThreads) {
-    const int r = i / vec;
-    const int c = (i - r * vec) * 8;
-    const bool valid = row0 + r < L && c < d;
-    cp_async16(dst + r * ld + c, valid ? src + (size_t)(row0 + r) * d + c
-                                       : src, valid);
-  }
-}
+// consumer warpgroups of a block where D <= 64 (two where D > 64)
+constexpr int kFwdNarrowConsumers = 3;
+constexpr bool kFwdPingPong = true;      // the warpgroups take turns
+constexpr bool kFwdIntraOverlap = true;  // S of tile j before P V of j - 1
 
 template <int D8>
-__global__ void __launch_bounds__(kThreads)
-attention_fwd_kernel(const __nv_bfloat16* __restrict__ q,
-                     const __nv_bfloat16* __restrict__ k,
-                     const __nv_bfloat16* __restrict__ v,
-                     __nv_bfloat16* __restrict__ o,
-                     float* __restrict__ lse, int Lq, int Lk,
-                     float scale_log2) {
-  constexpr int D = 8 * D8;
-  constexpr int KD = (D + 15) / 16;  // k-steps of 16 over the padded D
-  constexpr int DP = 16 * KD;
-  constexpr int LD = DP + 8;         // bf16 row stride of the Q and K tiles
-  extern __shared__ __align__(128) unsigned char smem[];
-  // Q tile, then two stages of (K chunk, V chunk), all row-major
-  __nv_bfloat16* sq = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* skv = sq + kBlockQ * LD;
-  constexpr int kStage = 2 * kBlockK * LD;
+struct FwdTile {
+  static constexpr int D = 8 * D8;
+  // consumer warpgroups (64 queries each), threads (warpgroup 0 loads),
+  // and the registers a consumer thread may use (setmaxnreg; the loader
+  // keeps 24 of the SM's 65536)
+  static constexpr int CONS = D <= 64 ? kFwdNarrowConsumers : 2;
+  static constexpr int BQ = 64 * CONS;  // queries of an item
+  static constexpr int THREADS = 128 * (1 + CONS);
+  static constexpr int REGS = CONS == 3 ? 160 : 240;
+  static constexpr int NC = (D + 63) / 64;  // 64-column chunks of a row
+  static constexpr int KD = (D + 15) / 16;  // k-steps of 16 over D
+  static constexpr int BK = D > 80 ? 64 : 128;  // keys of a tile
+  static constexpr int STAGES = NC == 1 ? 4 : 3;
+  // Q buffers: with two, an item's Q lands while the item before computes
+  static constexpr int QBUF = NC == 1 ? 2 : 1;
+  static constexpr int Q_CHUNK = BQ * kRowBytes;
+  static constexpr int KV_CHUNK = BK * kRowBytes;
+  static constexpr int Q_BYTES = NC * Q_CHUNK;
+  static constexpr int KV_BYTES = NC * KV_CHUNK;  // K (or V) of a tile
+  // columns of the last chunk: K and V come in boxes of exactly D columns
+  // (64-column boxes and one of TAIL), so TMA writes no zero columns (a
+  // box's cost follows its bytes in shared memory: with 64-column boxes
+  // the 24 zero columns of D = 40 cost as much as the 40 of data)
+  static constexpr int TAIL = D - 64 * (NC - 1);
+  static constexpr int KV_TX = BK * D * 2;  // bytes of K (or V) a tile
+  // byte offsets from the 1024-aligned base: Q; STAGES x (K, V); the
+  // mbarriers
+  static constexpr int OFF_Q = 0;
+  static constexpr int OFF_KV = QBUF * Q_BYTES;
+  static constexpr int OFF_BAR = OFF_KV + STAGES * 2 * KV_BYTES;
+  static constexpr size_t SMEM = 1024 + OFF_BAR + 8 * (2 * QBUF + 2 * STAGES);
+  static_assert(SMEM <= 232448, "shared memory");
+};
 
-  const int bh = blockIdx.y;
-  const int q0 = blockIdx.x * kBlockQ;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int g = lane >> 2;  // fragment row group
-  const int t = lane & 3;   // thread in group
-  const __nv_bfloat16* qb = q + (size_t)bh * Lq * D;
-  const __nv_bfloat16* kb = k + (size_t)bh * Lk * D;
-  const __nv_bfloat16* vb = v + (size_t)bh * Lk * D;
-
-  load_rows(sq, qb, q0, kBlockQ, Lq, D, DP, LD);
-  __syncthreads();
-  uint32_t qa[KD][4];
-  {
-    const __nv_bfloat16* base = sq + (warp * 16 + g) * LD + 2 * t;
+// S[64 x BK] = Q K^T over ceil(D / 16) k-steps, both operands K-major by
+// descriptor (Q: this warpgroup's 64 rows; K: the tile's stage): issued
+// and committed, not waited for
+template <typename T>
+__device__ __forceinline__ void issue_s(float (&s)[T::BK / 2], uint64_t d_q,
+                                        uint64_t d_k) {
 #pragma unroll
-    for (int kk = 0; kk < KD; ++kk) {
-      qa[kk][0] = ld32(base + kk * 16);
-      qa[kk][1] = ld32(base + 8 * LD + kk * 16);
-      qa[kk][2] = ld32(base + kk * 16 + 8);
-      qa[kk][3] = ld32(base + 8 * LD + kk * 16 + 8);
-    }
+  for (int kk = 0; kk < T::KD; ++kk) {
+    wgmma_ss<T::BK, 0, 0>(
+        s, desc_advance(d_q, (kk / 4) * T::Q_CHUNK + (kk % 4) * 32),
+        desc_advance(d_k, (kk / 4) * T::KV_CHUNK + (kk % 4) * 32), kk > 0);
   }
+  wgmma_commit();
+}
 
-  float acc[D8][4];
+// The online softmax of a tile of S (the m64 x BK accumulator: this
+// thread's rows 0 (lo) and 1 (hi), columns 8 j + 2 qd (+ 1)) in place:
+// s becomes P = exp2(s * scale_log2 - m), m the running row max (scaled,
+// base 2; scale_log2 > 0, so the max of the unscaled logits is taken), l
+// the running sums of this thread's columns, and c the factors exp2(m_old
+// - m) that rescale O and l (0 for the first tile, whose m_old is -inf).
+// Keys from `valid` on are masked (-inf) in the tile that holds Lk only.
+// Every tile holds a key below Lk, so the new maxima are finite
+template <int BK>
+__device__ __forceinline__ void softmax_tile(float (&s)[BK / 2],
+                                             float (&m)[2], float (&l)[2],
+                                             float (&c)[2], float scale_log2,
+                                             int valid, int qd) {
+  if (valid < BK) {
 #pragma unroll
-  for (int n = 0; n < D8; ++n) {
-    acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
-  }
-  float m_lo = -INFINITY, m_hi = -INFINITY;  // rows g and g + 8
-  float l_lo = 0.f, l_hi = 0.f;              // this thread's partial sums
-
-  // keys stream in chunks of kBlockK through two stages: the copy of
-  // chunk j + 1 overlaps the products of chunk j
-  const int n_chunks = (Lk + kBlockK - 1) / kBlockK;
-  load_rows_async(skv, kb, 0, kBlockK, Lk, D, DP, LD);
-  load_rows_async(skv + kBlockK * LD, vb, 0, kBlockK, Lk, D, DP, LD);
-  cp_async_commit();
-  for (int j = 0; j < n_chunks; ++j) {
-    const int k0 = j * kBlockK;
-    if (j + 1 < n_chunks) {
-      __nv_bfloat16* nxt = skv + ((j + 1) & 1) * kStage;
-      load_rows_async(nxt, kb, k0 + kBlockK, kBlockK, Lk, D, DP, LD);
-      load_rows_async(nxt + kBlockK * LD, vb, k0 + kBlockK, kBlockK, Lk, D,
-                      DP, LD);
-    }
-    cp_async_commit();
-    cp_async_wait<1>();  // chunk j has landed
-    __syncthreads();
-    const __nv_bfloat16* sk = skv + (j & 1) * kStage;
-    const __nv_bfloat16* sv = sk + kBlockK * LD;
-
-    // S[16 x 64] of this warp's rows: 8 tiles of 8 keys
-    float s[8][4];
+    for (int j = 0; j < BK / 8; ++j) {
 #pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-      s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
-      const __nv_bfloat16* kr = sk + (nt * 8 + g) * LD + 2 * t;
-#pragma unroll
-      for (int kk = 0; kk < KD; ++kk) {
-        mma_16816(s[nt], qa[kk], ld32(kr + kk * 16), ld32(kr + kk * 16 + 8));
+      for (int e = 0; e < 2; ++e) {
+        const bool ok = 8 * j + 2 * qd + e < valid;
+        s[4 * j + e] = ok ? s[4 * j + e] : -INFINITY;
+        s[4 * j + 2 + e] = ok ? s[4 * j + 2 + e] : -INFINITY;
       }
     }
-
-    // online softmax, base 2, keys past Lk masked
-    float mx_lo = -INFINITY, mx_hi = -INFINITY;
+  }
+  float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
+  for (int j = 0; j < BK / 8; ++j) {
 #pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const bool ok = k0 + nt * 8 + 2 * t + j < Lk;
-        s[nt][j] = ok ? s[nt][j] * scale_log2 : -INFINITY;
-        s[nt][2 + j] = ok ? s[nt][2 + j] * scale_log2 : -INFINITY;
-        mx_lo = fmaxf(mx_lo, s[nt][j]);
-        mx_hi = fmaxf(mx_hi, s[nt][2 + j]);
-      }
+    for (int h = 0; h < 2; ++h) {
+      mx[h] = fmaxf(mx[h], fmaxf(s[4 * j + 2 * h], s[4 * j + 2 * h + 1]));
     }
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
 #pragma unroll
     for (int off = 1; off < 4; off <<= 1) {
-      mx_lo = fmaxf(mx_lo, __shfl_xor_sync(0xffffffffu, mx_lo, off));
-      mx_hi = fmaxf(mx_hi, __shfl_xor_sync(0xffffffffu, mx_hi, off));
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], off));
     }
-    const float mn_lo = fmaxf(m_lo, mx_lo), mn_hi = fmaxf(m_hi, mx_hi);
-    const float c_lo = exp2f(m_lo - mn_lo), c_hi = exp2f(m_hi - mn_hi);
-    m_lo = mn_lo;
-    m_hi = mn_hi;
-    l_lo *= c_lo;
-    l_hi *= c_hi;
+    const float mn = fmaxf(m[h], mx[h] * scale_log2);
+    c[h] = fast_exp2(m[h] - mn);
+    m[h] = mn;
+  }
+  float sum[2] = {0.f, 0.f};
 #pragma unroll
-    for (int n = 0; n < D8; ++n) {
-      acc[n][0] *= c_lo;
-      acc[n][1] *= c_lo;
-      acc[n][2] *= c_hi;
-      acc[n][3] *= c_hi;
-    }
-    uint32_t pa[4][4];  // P as the A operand of 4 k-steps of 16 keys
+  for (int j = 0; j < BK / 8; ++j) {
 #pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-      const float p0 = exp2f(s[nt][0] - mn_lo), p1 = exp2f(s[nt][1] - mn_lo);
-      const float p2 = exp2f(s[nt][2] - mn_hi), p3 = exp2f(s[nt][3] - mn_hi);
-      l_lo += p0 + p1;
-      l_hi += p2 + p3;
-      pa[nt / 2][(nt & 1) * 2 + 0] = pack_bf16(p0, p1);
-      pa[nt / 2][(nt & 1) * 2 + 1] = pack_bf16(p2, p3);
-    }
-
-    // O[16 x D] += P[16 x 64] . V[64 x D]
+    for (int h = 0; h < 2; ++h) {
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      const __nv_bfloat16* vr = sv + (kk * 16 + (lane & 15)) * LD;
-#pragma unroll
-      for (int n = 0; n < D8; ++n) {
-        uint32_t b0, b1;
-        ldmatrix_x2_trans(b0, b1, vr + n * 8);
-        mma_16816(acc[n], pa[kk], b0, b1);
+      for (int e = 0; e < 2; ++e) {
+        float& x = s[4 * j + 2 * h + e];
+        x = fast_exp2(fmaf(x, scale_log2, -m[h]));
+        sum[h] += x;
       }
     }
-    __syncthreads();  // every warp is done with this stage
+  }
+  l[0] = fmaf(l[0], c[0], sum[0]);
+  l[1] = fmaf(l[1], c[1], sum[1]);
+}
+
+// O[64 x D] += P[64 x BK] V[BK x D], A = P in registers (bf16), B = V by
+// `d_v`, MN-major (rows are keys): issued and committed, not waited for
+template <int D, int BK>
+__device__ __forceinline__ void issue_pv(float (&o)[D / 2],
+                                         const uint32_t (&pa)[BK / 16][4],
+                                         uint64_t d_v) {
+#pragma unroll
+  for (int kv = 0; kv < BK / 16; ++kv) {
+    wgmma_rs<D, 1>(o, pa[kv], desc_advance(d_v, kv * 2048), 1);
+  }
+  wgmma_commit();
+}
+
+struct FwdMaps {
+  CUtensorMap q;                      // [BH, L, D], boxes of 64 columns
+  CUtensorMap k, v, k_tail, v_tail;   // boxes of 64 and of TAIL columns
+};
+
+template <int D8>
+__global__ void __launch_bounds__(FwdTile<D8>::THREADS, 1)
+attention_fwd_kernel(const __grid_constant__ FwdMaps maps,
+                     __nv_bfloat16* __restrict__ out,
+                     float* __restrict__ lse, int Lq, int Lk,
+                     int n_items, float scale_log2) {
+  using T = FwdTile<D8>;
+  constexpr int D = T::D, NC = T::NC, BK = T::BK;
+  extern __shared__ unsigned char smem_raw[];
+  // aligned by an offset from smem_raw, so that the compiler keeps the
+  // accesses below in the shared space (LDS/STS, not generic LD/ST)
+  unsigned char* base =
+      smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(base + T::OFF_BAR);
+  uint64_t* q_empty = q_full + T::QBUF;  // Q read by every S of its item
+  uint64_t* full = q_empty + T::QBUF;    // stage s holds tile s + k STAGES
+  uint64_t* empty = full + T::STAGES;  // stage s read by the consumers
+
+  const int q_blocks = (Lq + T::BQ - 1) / T::BQ;
+  const int n_tiles = (Lk + BK - 1) / BK;
+  // warpgroups with queries (the ones past Lq leave at once)
+  const int consumers = (Lq + 63) / 64 < T::CONS ? (Lq + 63) / 64 : T::CONS;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+
+  if (threadIdx.x == 0) {
+    for (int b = 0; b < T::QBUF; ++b) {
+      mbar_init(&q_full[b], 1);
+      mbar_init(&q_empty[b], 4 * consumers);  // the consumer warps
+    }
+    for (int s = 0; s < T::STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 4 * consumers);
+    }
+    mbar_init_fence();
+  }
+  if constexpr (T::KD * 16 > D) {
+    // S reads K's columns D .. 16 KD - 1, which no copy writes: zero them
+    // once (every column of the chunk past TAIL; the copies write the
+    // others), so that they meet Q's zero columns as zeros, not as
+    // whatever the memory held
+    for (int i = threadIdx.x; i < T::STAGES * BK * 8; i += T::THREADS) {
+      const int r = i / 8, c16 = i % 8;  // row of the stages' K tail chunks
+      if (c16 * 8 >= T::TAIL) {
+        const int st = r / BK, row = r % BK;
+        *reinterpret_cast<uint4*>(
+            base + T::OFF_KV + st * 2 * T::KV_BYTES + (NC - 1) * T::KV_CHUNK +
+            row * kRowBytes + ((c16 ^ (row % 8)) << 4)) =
+            make_uint4(0u, 0u, 0u, 0u);
+      }
+    }
+    fence_proxy_async();  // before wgmma reads them
+  }
+  __syncthreads();
+
+  if (warp < 4) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
+    if (lane != 0 || warp > 1) return;
+    if (warp == 1) {
+      // Q of each item of this block, once every S of the item before has
+      // read the buffer
+      for (int item = blockIdx.x, i = 0; item < n_items;
+           item += gridDim.x, ++i) {
+        const int b = i % T::QBUF;
+        mbar_wait(&q_empty[b], ((i / T::QBUF) & 1) ^ 1);
+        mbar_expect_tx(&q_full[b], T::Q_BYTES);
+#pragma unroll
+        for (int c = 0; c < NC; ++c) {
+          tma_load_3d(base + T::OFF_Q + b * T::Q_BYTES + c * T::Q_CHUNK,
+                      &maps.q, &q_full[b],
+                      64 * c, (item % q_blocks) * T::BQ,
+                      item / q_blocks);
+        }
+      }
+      return;
+    }
+    // K and V of each key tile of each item into the ring, whose stages
+    // and phases run on across items (so the next item's first tiles land
+    // while this one is computed)
+    int kv = 0;  // tiles loaded so far
+    for (int item = blockIdx.x; item < n_items; item += gridDim.x) {
+      const int bh = item / q_blocks;
+      for (int it = 0; it < n_tiles; ++it, ++kv) {
+        const int s = kv % T::STAGES;
+        mbar_wait(&empty[s], ((kv / T::STAGES) & 1) ^ 1);
+        mbar_expect_tx(&full[s], 2 * T::KV_TX);
+        unsigned char* st = base + T::OFF_KV + s * 2 * T::KV_BYTES;
+#pragma unroll
+        for (int c = 0; c < NC; ++c) {
+          const CUtensorMap* mk = c + 1 < NC ? &maps.k : &maps.k_tail;
+          const CUtensorMap* mv = c + 1 < NC ? &maps.v : &maps.v_tail;
+          tma_load_3d(st + c * T::KV_CHUNK, mk, &full[s], 64 * c, it * BK,
+                      bh);
+          tma_load_3d(st + T::KV_BYTES + c * T::KV_CHUNK, mv, &full[s],
+                      64 * c, it * BK, bh);
+        }
+      }
+    }
+    return;
   }
 
-#pragma unroll
-  for (int off = 1; off < 4; off <<= 1) {
-    l_lo += __shfl_xor_sync(0xffffffffu, l_lo, off);
-    l_hi += __shfl_xor_sync(0xffffffffu, l_hi, off);
-  }
-  const float inv_lo = 1.f / l_lo, inv_hi = 1.f / l_hi;
-  const int row_lo = q0 + warp * 16 + g;
-  const int row_hi = row_lo + 8;
-  if (lse != nullptr && t == 0) {
-    // natural-log log-sum-exp of the scaled logits, for the backward
-    float* lb = lse + (size_t)bh * Lq;
-    if (row_lo < Lq) lb[row_lo] = (m_lo + log2f(l_lo)) * kLn2;
-    if (row_hi < Lq) lb[row_hi] = (m_hi + log2f(l_hi)) * kLn2;
-  }
-  __nv_bfloat16* ob = o + (size_t)bh * Lq * D;
-#pragma unroll
-  for (int n = 0; n < D8; ++n) {
-    const int c = n * 8 + 2 * t;
-    if (row_lo < Lq) {
-      *reinterpret_cast<uint32_t*>(ob + (size_t)row_lo * D + c) =
-          pack_bf16(acc[n][0] * inv_lo, acc[n][1] * inv_lo);
+  // consumer warpgroup (queries q0 + 64 wg .. of each item).  Not
+  // broadcast with __shfl_sync to mark it warp-uniform: ptxas 12.9 crashed
+  // on that in the backward
+  const int wg = warp / 4 - 1;
+  if (wg >= consumers) return;
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(T::REGS)
+               : "memory");
+  const int tw = threadIdx.x % 128;  // thread of the warpgroup
+  const int w = tw / 32;             // its warp: rows 16 w .. of an m64
+  const int g = lane >> 2;           // accumulator row group
+  const int qd = lane & 3;           // accumulator column pair
+  // the ping-pong: warpgroup wg issues its products at named barrier
+  // 1 + wg, then lets the next one in the ring issue
+  const bool pingpong = kFwdPingPong && consumers > 1;
+  const int next_turn = 1 + (wg + 1) % consumers;
+  const bool last_wg = wg == consumers - 1;
+  // wgmma descriptors, built once; a k-step and a stage move them by
+  // constant byte offsets (desc_advance).  K-major (sbo 1024) where the
+  // rows are the operand's M or N, MN-major (lbo = the stride of 64-column
+  // chunks) where the rows are its K
+  const uint64_t d_q =  // this warpgroup's 64 queries of Q
+      desc_sw128(smem_addr(base + T::OFF_Q) + 64 * wg * kRowBytes, 16, 1024);
+  const uint64_t d_k = desc_sw128(smem_addr(base + T::OFF_KV), 16, 1024);
+  const uint64_t d_v = desc_sw128(smem_addr(base + T::OFF_KV + T::KV_BYTES),
+                                  T::KV_CHUNK, 1024);
+  // a buffer read by this warp (stage `it` of the ring, or Q)
+  auto release = [&](uint64_t* bar) {
+    __syncwarp();
+    if (lane == 0) mbar_arrive(bar);
+  };
+  auto stage_off = [&](int it) {
+    return (unsigned)((it % T::STAGES) * 2 * T::KV_BYTES);
+  };
+
+  float o[D / 2];      // rows 16 w + g (+ 8), columns 8 j + 2 qd (+ 1)
+  float s[BK / 2];     // S, then P, of the tile
+  uint32_t pa[BK / 16][4];  // P as the A operand, bf16
+  int kv = 0;               // tiles consumed so far
+  // warpgroup 0 issues first: the last warpgroup primes its barrier once,
+  // and so skips the arrival of its own last turn
+  if (pingpong && last_wg) named_barrier_arrive<256>(1);
+  for (int item = blockIdx.x, i = 0; item < n_items;
+       item += gridDim.x, ++i) {
+    const int q0 = (item % q_blocks) * T::BQ, bh = item / q_blocks;
+    const bool last_item = item + (int)gridDim.x >= n_items;
+    zero(o);
+    float m[2] = {-INFINITY, -INFINITY};  // running row max, scaled base 2
+    float l[2] = {0.f, 0.f};  // running row sums of this thread's columns
+    float c[2];               // the tile's rescale factors of O and l
+
+    // Tile 0 is peeled off the loop, so that in the loop every product is
+    // issued and waited for unconditionally: ptxas serialises every wgmma
+    // of the kernel where a wait it cannot match to its product (one under
+    // a branch) leaves an accumulator possibly in flight
+    const int qb = i % T::QBUF;  // Q's buffer
+    mbar_wait(&q_full[qb], (i / T::QBUF) & 1);
+    const uint64_t d_qi = desc_advance(d_q, qb * T::Q_BYTES);
+    mbar_wait(&full[kv % T::STAGES], (kv / T::STAGES) & 1);
+    if (pingpong) named_barrier<256>(1 + wg);  // this warpgroup's turn
+    wgmma_fence();
+    issue_s<T>(s, d_qi, desc_advance(d_k, stage_off(kv)));
+    if (pingpong && (!last_wg || !last_item || n_tiles > 1)) {
+      named_barrier_arrive<256>(next_turn);  // the next warpgroup's turn
     }
-    if (row_hi < Lq) {
-      *reinterpret_cast<uint32_t*>(ob + (size_t)row_hi * D + c) =
-          pack_bf16(acc[n][2] * inv_hi, acc[n][3] * inv_hi);
+    wgmma_wait<0>();
+    fence_regs(s);
+    softmax_tile<BK>(s, m, l, c, scale_log2, Lk, qd);
+    pack_a<BK>(pa, s);
+    for (int it = 1; it < n_tiles; ++it) {
+      mbar_wait(&full[(kv + it) % T::STAGES], ((kv + it) / T::STAGES) & 1);
+      if (pingpong) named_barrier<256>(1 + wg);
+      wgmma_fence();
+      issue_s<T>(s, d_qi, desc_advance(d_k, stage_off(kv + it)));
+      // O += P V of the tile before
+      issue_pv<D, BK>(o, pa, desc_advance(d_v, stage_off(kv + it - 1)));
+      if (pingpong && (!last_wg || !last_item || it + 1 < n_tiles)) {
+        named_barrier_arrive<256>(next_turn);
+      }
+      if constexpr (kFwdIntraOverlap) {
+        wgmma_wait<1>();  // S has landed; P V may still run
+      } else {
+        wgmma_wait<0>();
+      }
+      fence_regs(s);
+      softmax_tile<BK>(s, m, l, c, scale_log2, Lk - it * BK, qd);
+      wgmma_wait<0>();  // P V of the tile before has landed
+      fence_regs(o);
+#pragma unroll
+      for (int f = 0; f < BK / 16; ++f) fence_regs(pa[f]);
+      release(&empty[(kv + it - 1) % T::STAGES]);
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+        o[4 * j] *= c[0];
+        o[4 * j + 1] *= c[0];
+        o[4 * j + 2] *= c[1];
+        o[4 * j + 3] *= c[1];
+      }
+      pack_a<BK>(pa, s);
+    }
+    release(&q_empty[qb]);  // every S of the item has read Q
+    wgmma_fence();
+    issue_pv<D, BK>(o, pa, desc_advance(d_v, stage_off(kv + n_tiles - 1)));
+    wgmma_wait<0>();
+    fence_regs(o);
+#pragma unroll
+    for (int f = 0; f < BK / 16; ++f) fence_regs(pa[f]);
+    kv += n_tiles;
+    release(&empty[(kv - 1) % T::STAGES]);
+
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1) {
+      l[0] += __shfl_xor_sync(0xffffffffu, l[0], off);
+      l[1] += __shfl_xor_sync(0xffffffffu, l[1], off);
+    }
+    const int row = q0 + 64 * wg + 16 * w + g;  // this thread's rows: + 8
+    if (lse != nullptr && qd == 0) {
+      // natural-log log-sum-exp of the scaled logits, for the backward
+      float* lb = lse + (size_t)bh * Lq;
+      if (row < Lq) lb[row] = (m[0] + log2f(l[0])) * kLn2;
+      if (row + 8 < Lq) lb[row + 8] = (m[1] + log2f(l[1])) * kLn2;
+    }
+    // O from registers (Q's buffer is the next item's by now): a quad
+    // writes 16 contiguous bytes of a row a step
+    const float inv_lo = 1.f / l[0], inv_hi = 1.f / l[1];
+    __nv_bfloat16* ob = out + ((size_t)bh * Lq + row) * D + 2 * qd;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      if (row < Lq) {
+        *reinterpret_cast<uint32_t*>(ob + 8 * j) =
+            pack_bf16(o[4 * j] * inv_lo, o[4 * j + 1] * inv_lo);
+      }
+      if (row + 8 < Lq) {
+        *reinterpret_cast<uint32_t*>(ob + 8 * D + 8 * j) =
+            pack_bf16(o[4 * j + 2] * inv_hi, o[4 * j + 3] * inv_hi);
+      }
     }
   }
 }
@@ -377,7 +577,6 @@ attention_fwd_kernel(const __nv_bfloat16* __restrict__ q,
 
 constexpr int kBwdThreads = 384;  // warpgroup 0 loads, 1 and 2 compute
 constexpr int kBwdKeys = 128;     // keys of a block: 64 a consumer warpgroup
-constexpr int kRowBytes = 128;    // a 64-column chunk of a bf16 row
 
 template <int D8>
 struct BwdTile {
@@ -411,32 +610,6 @@ struct BwdTile {
 struct BwdMaps {
   CUtensorMap q, k, v, dout;  // [BH, L, D], boxes of 64 columns
 };
-
-__device__ __forceinline__ float fast_exp2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// the A fragments (k-steps of 16 columns) of an m64nN fp32 accumulator,
-// rounded to bf16
-template <int N>
-__device__ __forceinline__ void pack_a(uint32_t (&a)[N / 16][4],
-                                       const float (&x)[N / 2]) {
-#pragma unroll
-  for (int kk = 0; kk < N / 16; ++kk) {
-    a[kk][0] = pack_bf16(x[8 * kk], x[8 * kk + 1]);
-    a[kk][1] = pack_bf16(x[8 * kk + 2], x[8 * kk + 3]);
-    a[kk][2] = pack_bf16(x[8 * kk + 4], x[8 * kk + 5]);
-    a[kk][3] = pack_bf16(x[8 * kk + 6], x[8 * kk + 7]);
-  }
-}
-
-template <int N>
-__device__ __forceinline__ void zero(float (&x)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) x[i] = 0.f;
-}
 
 template <int D8>
 __global__ void __launch_bounds__(kBwdThreads, 1)
@@ -821,21 +994,64 @@ attention_bwd_cast_kernel(const float4* __restrict__ dq_acc,
   }
 }
 
+// a map of a [BH, L, D] bf16 tensor: boxes of `cols` columns (zero past D)
+// by `rows` rows of one (batch * head) (zero past L)
+bool encode_bld(EncodeTiled enc, CUtensorMap* map, const void* p, int D,
+                int L, int bh, int rows, int cols = 64) {
+  const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)L, (cuuint64_t)bh};
+  const cuuint64_t strides[2] = {2 * (cuuint64_t)D, 2 * (cuuint64_t)L * D};
+  const cuuint32_t box[3] = {(cuuint32_t)cols, (cuuint32_t)rows, 1};
+  return encode_bf16(enc, map, p, 3, dims, strides, box);
+}
+
+// the current device's SM count, looked up once for each device
+cudaError_t sm_count(int* sms) {
+  static std::atomic<int> count[kMaxDevices];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  int n = count[dev].load(std::memory_order_acquire);
+  if (n == 0) {
+    err = cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return err;
+    count[dev].store(n, std::memory_order_release);
+  }
+  *sms = n;
+  return cudaSuccess;
+}
+
 template <int D8>
 int launch_fwd(const void* q, const void* k, const void* v, void* o,
                void* lse, int bh, int lq, int lk, float scale,
                cudaStream_t stream) {
-  constexpr int LD = 16 * ((8 * D8 + 15) / 16) + 8;  // the tiles' row stride
-  constexpr size_t smem = sizeof(__nv_bfloat16) * (kBlockQ + 4 * kBlockK) * LD;
+  using T = FwdTile<D8>;
+  // the row max is taken of the unscaled logits
+  if (lq < 1 || !(scale > 0.f)) return (int)cudaErrorInvalidValue;
+  const EncodeTiled enc = encode_tiled();
+  if (!enc) return (int)cudaErrorNotSupported;
+  FwdMaps maps = {};
+  if (!encode_bld(enc, &maps.q, q, T::D, lq, bh, T::BQ) ||
+      !encode_bld(enc, &maps.k, k, T::D, lk, bh, T::BK) ||
+      !encode_bld(enc, &maps.v, v, T::D, lk, bh, T::BK) ||
+      !encode_bld(enc, &maps.k_tail, k, T::D, lk, bh, T::BK, T::TAIL) ||
+      !encode_bld(enc, &maps.v_tail, v, T::D, lk, bh, T::BK, T::TAIL)) {
+    return (int)cudaErrorInvalidValue;
+  }
   static std::atomic<bool> done[kMaxDevices];
-  const cudaError_t err = set_smem(attention_fwd_kernel<D8>, smem, done);
+  cudaError_t err = set_smem(attention_fwd_kernel<D8>, T::SMEM, done);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((lq + kBlockQ - 1) / kBlockQ, bh);
-  attention_fwd_kernel<D8><<<grid, kThreads, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(q),
-      static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
-      static_cast<float*>(lse), lq, lk, scale * kLog2e);
+  // persistent: one block per SM (at most) walks the items (query block,
+  // batch * head), query blocks of a head next to each other
+  const long long items = (long long)((lq + T::BQ - 1) / T::BQ) * bh;
+  if (items > 0x7fffffff) return (int)cudaErrorInvalidValue;
+  int sms = 0;
+  err = sm_count(&sms);
+  if (err != cudaSuccess) return (int)err;
+  const int grid = items < sms ? (int)items : sms;
+  attention_fwd_kernel<D8><<<grid, T::THREADS, T::SMEM, stream>>>(
+      maps, static_cast<__nv_bfloat16*>(o), static_cast<float*>(lse), lq, lk,
+      (int)items, scale * kLog2e);
   return (int)cudaGetLastError();
 }
 
@@ -848,15 +1064,8 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* o,
   const EncodeTiled enc = encode_tiled();
   if (!enc) return (int)cudaErrorNotSupported;
   BwdMaps maps = {};
-  // [BH, L, D] bf16, boxes of 64 columns (zero past D) by `rows` rows of
-  // one (batch * head) (zero past L)
   auto encode = [&](CUtensorMap* map, const void* p, int L, int rows) {
-    const cuuint64_t dims[3] = {(cuuint64_t)T::D, (cuuint64_t)L,
-                                (cuuint64_t)bh};
-    const cuuint64_t strides[2] = {2 * (cuuint64_t)T::D,
-                                   2 * (cuuint64_t)L * T::D};
-    const cuuint32_t box[3] = {64, (cuuint32_t)rows, 1};
-    return encode_bf16(enc, map, p, 3, dims, strides, box);
+    return encode_bld(enc, map, p, T::D, L, bh, rows);
   };
   if (lq < 1 || !encode(&maps.q, q, lq, T::BQ) ||
       !encode(&maps.dout, dout, lq, T::BQ) ||

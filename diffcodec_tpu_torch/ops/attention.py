@@ -76,9 +76,9 @@ def _check(name: str, Lk: int, **tensors):
 def attention_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       scale: float, with_lse: bool = False):
     """(out, lse): one launch of the forward kernel (bf16, contiguous, D in
-    `KERNEL_HEAD_DIMS`) on q's CUDA device, or raises; lse is the fp32
-    [BH, Lq] natural-log log-sum-exp of the scaled logits where asked for,
-    else None.  `attention.launches` counts the launches."""
+    `KERNEL_HEAD_DIMS`, scale > 0) on q's CUDA device, or raises; lse is
+    the fp32 [BH, Lq] natural-log log-sum-exp of the scaled logits where
+    asked for, else None.  `attention.launches` counts the launches."""
     BH, Lq, D = _check("attention", k.shape[1], q=q, k=k, v=v)
     out = torch.empty_like(q)
     lse = (torch.empty(BH, Lq, device=q.device, dtype=torch.float32)

@@ -10,8 +10,8 @@ no JAX, so on the card's machine it runs without the repo's conftest:
 
 The unmarked tests check `_kernels.py` (nvcc missing or failing raises with
 the compiler's output) and that every in-memory edit of a kernel source
-that `scripts/conv_kernel_breakdown.py` and `scripts/attention_bwd_ab.py`
-build still finds its text, on any machine.
+that `scripts/conv_kernel_breakdown.py`, `scripts/attention_bwd_ab.py` and
+`scripts/attention_fwd_ab.py` build still finds its text, on any machine.
 """
 
 import os
@@ -35,6 +35,7 @@ from diffcodec_tpu_torch.ops.softsplat import (softsplat, splat_sum,
 _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path[:0] = [_REPO, os.path.join(_REPO, "scripts")]
 import attention_bwd_ab  # noqa: E402
+import attention_fwd_ab  # noqa: E402
 import conv_kernel_breakdown  # noqa: E402
 
 
@@ -63,18 +64,74 @@ def test_attention_kernel_matches_plain(cuda_device, BH, Lq, Lk, D):
     q, k, v = (torch.randn(BH, L, D, device=cuda_device, generator=g)
                .bfloat16() for L in (Lq, Lk, Lk))
     before = attention.launches
-    got = attention(q, k, v, D ** -0.5).float()
+    got = attention(q, k, v, D ** -0.5)
     assert attention.launches == before + 1
-    want = attention_reference(q, k, v, D ** -0.5).float()
-    # bf16 output: one ulp of x is at most 2^-7 |x|.  The two round P to
-    # bf16 at different points and each rounds its output, so an element
-    # may differ by an ulp of itself plus one of the largest output; the
-    # limit follows each shape's output scale, which shrinks as Lk grows.
-    # The norm check catches a small fault that moves every element.
+    _assert_attention_close(got, attention_reference(q, k, v, D ** -0.5))
+
+
+def _assert_attention_close(got, want):
+    """bf16 output: one ulp of x is at most 2^-7 |x|.  The kernel and the
+    plain version round P to bf16 at different points and each rounds its
+    output, so an element may differ by an ulp of itself plus one of the
+    largest output; the limit follows each shape's output scale, which
+    shrinks as Lk grows.  The norm check catches a small fault that moves
+    every element."""
+    got, want = got.float(), want.float()
     ulp = 2.0 ** -7
     torch.testing.assert_close(got, want, rtol=ulp,
                                atol=ulp * want.abs().max().item())
     assert (got - want).norm() <= 1e-2 * want.norm()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [16, 32, 40, 80, 160])
+@pytest.mark.parametrize("Lk", [1, 77, 127, 128, 129, 300])
+@pytest.mark.parametrize("Lq", [1, 63, 64, 65, 129])
+def test_attention_forward_edges_match_plain(cuda_device, Lq, Lk, D):
+    """The forward at the edges of its tiles, at every width: Lq around a
+    consumer warpgroup's 64 queries and an item's 128 (D > 64) or 192
+    (Lq <= 64 leaves one consumer warpgroup, Lq <= 128 two), Lk around the
+    key tile (128 keys; 64 at D = 160), the 77-token context and a single
+    key.  Its lse against
+    torch.logsumexp of the fp32 scaled logits: fp32 sums of exponentials in
+    another order, and ex2.approx, within 1e-3."""
+    q, k, v, _ = _attention_inputs(cuda_device, 3, Lq, Lk, D,
+                                   seed=Lq * 1000 + Lk + D)
+    scale = D ** -0.5
+    before = attention.launches
+    out, lse = attention_forward(q, k, v, scale, with_lse=True)
+    assert attention.launches == before + 1
+    assert out.shape == q.shape and lse.shape == (3, Lq)
+    _assert_attention_close(out, attention_reference(q, k, v, scale))
+    logits = torch.einsum("bqd,bkd->bqk", q.float(), k.float()) * scale
+    torch.testing.assert_close(lse, torch.logsumexp(logits, -1), atol=1e-3,
+                               rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("BH,Lq,Lk,D", [
+    (8, 4096, 4096, 40), (3, 129, 300, 160), (4, 65, 77, 80),
+    (16, 64, 64, 160)])
+def test_attention_forward_repeats_bitwise(cuda_device, BH, Lq, Lk, D):
+    """The forward adds in a fixed order (no atomics): two launches give
+    the same bits, and asking for lse does not change the output."""
+    q, k, v, _ = _attention_inputs(cuda_device, BH, Lq, Lk, D, seed=D)
+    out1, lse1 = attention_forward(q, k, v, D ** -0.5, with_lse=True)
+    out2, lse2 = attention_forward(q, k, v, D ** -0.5, with_lse=True)
+    out3, none = attention_forward(q, k, v, D ** -0.5)
+    assert none is None
+    assert torch.equal(out1, out2) and torch.equal(lse1, lse2)
+    assert torch.equal(out1, out3)
+
+
+@pytest.mark.cuda
+def test_attention_forward_rejects_a_scale_not_above_zero(cuda_device):
+    """The kernel takes each row's maximum of the unscaled logits, which
+    is the maximum of the scaled ones only where scale > 0."""
+    q = torch.zeros(2, 16, 40, device=cuda_device, dtype=torch.bfloat16)
+    for scale in (0.0, -0.1, float("nan")):
+        with pytest.raises(RuntimeError, match="dc_attention_fwd"):
+            attention_forward(q, q, q, scale)
 
 
 @pytest.mark.cuda
@@ -502,6 +559,20 @@ def test_attention_ablation_edits_match_the_source(name):
              + attention_bwd_ab.one_width(40))
     got = conv_kernel_breakdown.edited(src, edits, name)
     assert got != src and "if constexpr (8 * decltype(d8)::value != 40)" in got
+
+
+@pytest.mark.parametrize("name", sorted({**attention_fwd_ab.ABLATIONS,
+                                          **attention_fwd_ab.CHOICES}))
+def test_attention_fwd_ablation_edits_match_the_source(name):
+    """Each ablated build of the attention forward, and each with a design
+    choice undone, with its one head width (forward and backward), edits
+    text that occurs exactly once in the current attention.cu."""
+    src = _csrc("attention.cu")
+    edits = {**attention_fwd_ab.ABLATIONS, **attention_fwd_ab.CHOICES}[name]
+    got = conv_kernel_breakdown.edited(
+        src, edits + attention_fwd_ab.one_width(40), name)
+    assert got != src
+    assert got.count("if constexpr (8 * decltype(d8)::value != 40)") == 2
 
 
 def test_source_edits_refuse_text_that_is_not_there_once():
