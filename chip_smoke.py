@@ -1070,7 +1070,12 @@ def main() -> int:
         summary(rows, paths, "gn_silu_conv3x3", cu + "conv3x3.cu",
                 "diffcodec_tpu/ops/conv_pallas.py:211", "decode_fusedconv"),
         summary(rows, paths, "upsample_conv3x3", cu + "conv3x3.cu",
-                "diffcodec_tpu/ops/conv_pallas.py:531", "decode_fusedconv"),
+                "diffcodec_tpu/ops/conv_pallas.py:531", "decode_fusedconv",
+                note="conv3x3_hopper in its upsample mode: a tile is one "
+                     "output phase of 16 x 16 input positions by 128 "
+                     "output channels, read from the stride-1 halo by 4 "
+                     "collapsed taps a chunk; the mma.sync loop only "
+                     "where O <= 16, which no decode reaches"),
         summary(rows, paths, "downsample_conv3x3", cu + "conv3x3.cu",
                 "diffcodec_tpu/ops/conv_pallas.py:703", "train"),
         summary(rows, paths, "silu_conv3x3", cu + "conv3x3.cu",

@@ -24,13 +24,17 @@
 //   * dc_downsample_conv3x3: a quarter of the products per input byte.
 //     The encoder's [8, 512, 512, 128 -> 128] is bound by its 0.67 GB
 //     (0.200 ms), its 256 and 128 px launches by the operations (0.156 ms).
-//   * dc_upsample_conv3x3: 16 collapsed taps at the input resolution, bound
-//     by the operations.
+//   * dc_upsample_conv3x3: 2 * 16 * B * H * W * C * O FLOP (16 collapsed
+//     taps at the input resolution, 4/9 of the upsampled conv's), bound by
+//     the operations: 0.97 ms at [7, 256, 256, 256 -> 256] and at
+//     [7, 128, 128, 512 -> 512].
 //
-// Two main loops.
+// Two main loops.  Every entry runs on the Hopper loop where O > 16;
+// dc_conv3x3 and dc_upsample_conv3x3 take the mma.sync loop where O <= 16.
 //
-// The Hopper loop (conv3x3_hopper): dc_conv3x3 where O > 16, and
-// dc_downsample_conv3x3 at every O.  Persistent: one block of 512 threads
+// The Hopper loop (conv3x3_hopper): dc_conv3x3 and dc_upsample_conv3x3
+// where O > 16, and dc_downsample_conv3x3 at every O.  Three modes: stride
+// 1, stride 2 and the upsample.  Persistent: one block of 512 threads
 // per SM walks tiles i, i + #SMs, ...; its roles walk the same sequence of
 // (tile, chunk of 64 input channels) steps, so the copies and the
 // activation run ahead into the next tile while the consumers finish one.
@@ -42,9 +46,10 @@
 //     The halo comes from a 4-D tensor map over [B, H, W, C] whose
 //     out-of-bounds zero fill is the SAME pad ring and the zeros past C;
 //     the weights from a 3-D map over the wrapper's layout
-//     [Cp / 64][9][O][64].  The maps are encoded on the host
-//     (cuTensorMapEncodeTiled, fetched with cudaGetDriverEntryPoint, so
-//     nothing links libcuda) and passed as __grid_constant__ parameters.
+//     [Cp / 64][9][O][64] (the upsample's [4][Cp / 64][4][O][64]).  The
+//     maps are encoded on the host (cuTensorMapEncodeTiled, fetched with
+//     cudaGetDriverEntryPoint, so nothing links libcuda) and passed as
+//     __grid_constant__ parameters.
 //   * warps 1-7, for prologues 1 and 2: the activation.  Each landed halo
 //     stage is turned into the prologue's bf16 values in place (fp32 affine
 //     as a product then a sum, rounded to bf16; SiLU; rounded to bf16: the
@@ -72,6 +77,16 @@
 //     offset (dy >> 1, dx >> 1), so its rows are unit-stride and the
 //     consumer code is the stride-1 code.  BN = 128 fetches each input byte
 //     once at O = 128.
+//   * the upsample computes the nearest-2x upsampled conv at the input
+//     resolution: output phase (di, dj) of input position (y, x) is a 2 x 2
+//     conv with collapsed taps (a, b) of input pixel (y - 1 + di + a,
+//     x - 1 + dj + b).  A tile is one phase of a 16 x 16 tile of input
+//     positions, so its halo is the stride-1 halo and its taps read the
+//     stride-1 windows shifted by (di, dj); a step takes 4 taps, not 9.
+//     The phase sits next to the output-channel tile in the tile walk, so
+//     the four phases of a halo run side by side on the SMs and read it
+//     from L2.  The epilogue writes tile pixel (r, c) to output pixel
+//     (2 (ty0 + r) + di, 2 (tx0 + c) + dj), still 8 channels a store.
 //   * the epilogue adds the bias and, under a template flag, the residual
 //     (its rows prefetched into L2 during the tile's last chunk) in fp32
 //     and rounds once to bf16; where O % 8 == 0 a quad of lanes trades
@@ -82,20 +97,19 @@
 // reads A once for 128 columns (1 byte per 128 FLOP): at the tensor cores'
 // peak, 96 of the SM's 128 bytes a clock, before the TMA writes and the
 // activation's read and write.  O = 128 layers cannot take n256, which
-// would halve A's share.
+// would halve A's share.  The upsample reaches 70-76% of its bound on an
+// H100 at 700 W: with its products off it takes half the time, with its
+// copies or its stores off 5-7% less (PERF.md).
 //
-// The mma.sync loop (conv3x3_kernel), kept for two paths:
-//   * dc_upsample_conv3x3: already level with cuDNN (PERF.md); its 16
-//     collapsed taps per phase and its interleaved output are not yet on
-//     the Hopper loop;
-//   * dc_conv3x3 where O <= 16 (the 128 -> 3 out-head, bound by bytes):
-//     a 128-column wgmma tile would be 8x wider than the output.
+// The mma.sync loop (conv3x3_kernel), kept for dc_conv3x3 and
+// dc_upsample_conv3x3 where O <= 16 (the 128 -> 3 out-head, bound by
+// bytes): a 128-column wgmma tile would be 8x wider than the output.
 // A block of 16 warps computes 256 output pixels (a 16 x 16 tile, one
-// output phase for the upsample) by BN = 128 channels, or 16 where O <= 16;
-// input channels are walked in chunks of 16 copied with cp.async into a
-// three-stage ring and activated once in shared memory by the thread that
-// copied them; fragments come by ldmatrix at a 48-byte row stride
-// (conflict-free) into mma.sync m16n8k16.
+// output phase for the upsample) by BN = 16 channels; input channels are
+// walked in chunks of 16 (read from the weight layout's chunks of 64),
+// copied with cp.async into a three-stage ring and activated once in
+// shared memory by the thread that copied them; fragments come by
+// ldmatrix at a 48-byte row stride (conflict-free) into mma.sync m16n8k16.
 //
 // Both take C % 8 == 0 (16-byte vectors of 8 channels), any O >= 1, any
 // H, W (stride 2: H, W >= 2); offsets into activations are 64-bit
@@ -177,28 +191,39 @@ constexpr int kWBytes = kBN * kCK * 2;  // one tap's weight stage
 
 constexpr int round1024(int b) { return (b + 1023) / 1024 * 1024; }
 
-// An output tile (TH x TW pixels) and its halo at stride S: one
-// (TH + 2) x (TW + 2) box at stride 1; four (TH + 1) x (TW + 1) parity
-// planes at stride 2.  MT: m64 tiles of each consumer warpgroup; HS, WS:
-// halo and weight stages, as many as shared memory holds (a third halo
-// stage at stride 1 beat two more weight stages)
+// The Hopper loop's three modes: S = 1, 2 the conv's stride; S = 0 the
+// nearest-2x upsample (its tiles, halo and taps at the input resolution).
+// An output tile (TH x TW pixels; for the upsample TH x TW input positions
+// of one output phase) and its halo: one (TH + 2) x (TW + 2) box at
+// stride 1 and for the upsample; four (TH + 1) x (TW + 1) parity planes at
+// stride 2.  MT: m64 tiles of each consumer warpgroup; TAPS: weight stages
+// of a chunk (9 taps, or the upsample's 4 collapsed ones).  STAGED: the
+// epilogue writes the tile into a shared-memory stage of STAGE_BYTES and
+// warpgroup 1 stores it while the consumers go on with the next tile: the
+// upsample, whose epilogue writes four output bytes for each input byte
+// (its stores took 27% of the kernel before, PERF.md).  HS, WS: halo and
+// weight stages, as many as shared memory holds (a third halo stage at
+// stride 1 beat two more weight stages)
 template <int S>
 struct HTile {
-  static constexpr int TH = S == 1 ? 16 : 8;
+  static constexpr int TH = S == 2 ? 8 : 16;
   static constexpr int TW = 16;
   static constexpr int MT = TH * TW / 128;
-  static constexpr int PH = S == 1 ? TH + 2 : TH + 1;
-  static constexpr int PW = S == 1 ? TW + 2 : TW + 1;
-  static constexpr int PLANES = S == 1 ? 1 : 4;
+  static constexpr int PH = S == 2 ? TH + 1 : TH + 2;
+  static constexpr int PW = S == 2 ? TW + 1 : TW + 2;
+  static constexpr int PLANES = S == 2 ? 4 : 1;
+  static constexpr int TAPS = S == 0 ? 4 : 9;
   static constexpr int BOX_BYTES = PH * PW * kCK * 2;  // one TMA box
   static constexpr int PLANE_BYTES = round1024(BOX_BYTES);
   static constexpr int HALO_BYTES = PLANES * PLANE_BYTES;
-  static constexpr int HS = S == 1 ? 3 : 2;   // halo stages
-  static constexpr int WS = S == 1 ? 6 : 4;   // weight stages
-  static constexpr int N_BARS = 3 * HS + 2 * WS;
+  static constexpr bool STAGED = S == 0;
+  static constexpr int STAGE_BYTES = STAGED ? TH * TW * kBN * 2 : 0;
+  static constexpr int HS = S == 2 || STAGED ? 2 : 3;  // halo stages
+  static constexpr int WS = S == 2 || STAGED ? 4 : 6;  // weight stages
+  static constexpr int N_BARS = 3 * HS + 2 * WS + (STAGED ? 2 : 0);
   // + 1024 to align the buffers (the 128-byte swizzle repeats every 1024)
-  static constexpr size_t SMEM =
-      1024 + HS * HALO_BYTES + WS * kWBytes + 8 * N_BARS;
+  static constexpr size_t SMEM = 1024 + HS * HALO_BYTES + WS * kWBytes +
+                                 STAGE_BYTES + 8 * N_BARS;
   static_assert(SMEM <= 232448, "shared memory");
 };
 
@@ -246,16 +271,17 @@ __device__ __forceinline__ void quad_transpose(const float (&a)[4][2],
 }
 
 // where a block's tile lies: output tile (ty0, tx0) of image b, output
-// channels [n0, n0 + 128)
+// channels [n0, n0 + 128); for the upsample, the tile of input positions
+// at (ty0, tx0) and output phase p = 2 di + dj
 struct TileAt {
-  int ty0, tx0, n0, b;
+  int ty0, tx0, n0, b, p;
 };
 
-// tiles are numbered with the output-channel tile fastest, then the
-// column, the row and the image: the blocks in flight at any time share
-// their input halos and all of their weights in L2 (with the column
-// fastest, a halo was read from memory once for every output-channel
-// tile: PERF.md)
+// tiles are numbered with the output-channel tile fastest, then (for the
+// upsample) the phase, then the column, the row and the image: the blocks
+// in flight at any time share their input halos and all of their weights
+// in L2 (with the column fastest, a halo was read from memory once for
+// every output-channel tile: PERF.md)
 template <int S>
 __device__ __forceinline__ TileAt tile_at(int tile, int tiles_w, int tiles_h,
                                           int tiles_n) {
@@ -263,6 +289,8 @@ __device__ __forceinline__ TileAt tile_at(int tile, int tiles_w, int tiles_h,
   TileAt t;
   t.n0 = (tile % tiles_n) * kBN;
   tile /= tiles_n;
+  t.p = S == 0 ? tile & 3 : 0;
+  if (S == 0) tile >>= 2;
   t.tx0 = (tile % tiles_w) * T::TW;
   tile /= tiles_w;
   t.ty0 = (tile % tiles_h) * T::TH;
@@ -270,13 +298,30 @@ __device__ __forceinline__ TileAt tile_at(int tile, int tiles_w, int tiles_h,
   return t;
 }
 
+// the output row and column of a tile's row r and column c: for the
+// upsample (2 (ty0 + r) + di, 2 (tx0 + c) + dj)
+template <int S>
+__device__ __forceinline__ int out_row(const TileAt& t, int r) {
+  return S == 0 ? 2 * (t.ty0 + r) + (t.p >> 1) : t.ty0 + r;
+}
+
+template <int S>
+__device__ __forceinline__ int out_col(const TileAt& t, int c) {
+  return S == 0 ? 2 * (t.tx0 + c) + (t.p & 1) : t.tx0 + c;
+}
+
 // PRO: prologue; RES: add a residual [B, Ho, Wo, O] in the epilogue; S: the
-// stride (2 only with kNone).  Output pixel (oy, ox) reads input pixel
-// (S * oy + dy - pad, S * ox + dx - pad) at tap (dy, dx).  Persistent: block
-// i takes tiles i, i + gridDim.x, ... of the n_tiles = tiles_w x tiles_h x
-// tiles_n x B tiles, and every role walks the same sequence of (tile,
-// chunk) steps, so the producer and the activation run ahead into the next
-// tile while the consumers finish this one.
+// stride (2 only with kNone), or 0 for the upsample (kNone, no residual).
+// Output pixel (oy, ox) reads input pixel (S * oy + dy - pad, S * ox + dx -
+// pad) at tap (dy, dx).  The upsample's output pixel (2y + di, 2x + dj)
+// reads input pixel (y - 1 + di + a, x - 1 + dj + b) at collapsed tap
+// (a, b) of phase (di, dj): the stride-1 halo of input position (y, x),
+// shifted by (di, dj); its out-of-bounds zero fill is the SAME pad ring of
+// the upsampled image.  Persistent: block i takes tiles i, i + gridDim.x,
+// ... of the n_tiles = tiles_w x tiles_h x tiles_n x B (x 4 phases) tiles,
+// and every role walks the same sequence of (tile, chunk) steps, so the
+// producer and the activation run ahead into the next tile while the
+// consumers finish this one.
 template <int PRO, bool RES, int S>
 __global__ void __launch_bounds__(kHThreads, 1)
 conv3x3_hopper(const __grid_constant__ Maps maps,
@@ -287,17 +332,23 @@ conv3x3_hopper(const __grid_constant__ Maps maps,
                __nv_bfloat16* __restrict__ out, int H, int W, int C, int O,
                int Ho, int Wo, int pad, int tiles_w, int tiles_h,
                int tiles_n, int n_tiles) {
-  static_assert(S == 1 || (S == 2 && PRO == kNone), "stride");
+  static_assert(S == 1 || (PRO == kNone && (S == 2 || (S == 0 && !RES))),
+                "mode");
   using T = HTile<S>;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* halo = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~(uintptr_t)1023);
   unsigned char* wts = halo + T::HS * T::HALO_BYTES;
-  uint64_t* hfull = reinterpret_cast<uint64_t*>(wts + T::WS * kWBytes);
+  // STAGED: a tile's bf16 outputs, [pixel][128 channels], the 16-byte
+  // vector v of pixel px at v ^ (px & 7) (conflict-free on both sides)
+  unsigned char* stage = wts + T::WS * kWBytes;
+  uint64_t* hfull = reinterpret_cast<uint64_t*>(stage + T::STAGE_BYTES);
   uint64_t* hact = hfull + T::HS;    // halo activated (prologues 1, 2)
   uint64_t* hempty = hact + T::HS;   // halo read by the consumers
   uint64_t* wfull = hempty + T::HS;
   uint64_t* wempty = wfull + T::WS;
+  uint64_t* sfull = wempty + T::WS;  // STAGED: the stage written
+  uint64_t* sempty = sfull + 1;      // STAGED: the stage stored
 
   const int n_chunks = (C + kCK - 1) / kCK;
   // this block's steps: (tile, chunk) pairs, chunk fastest; step k uses
@@ -322,6 +373,10 @@ conv3x3_hopper(const __grid_constant__ Maps maps,
       mbar_init(&wfull[i], 1);
       mbar_init(&wempty[i], kConsumerWarps);
     }
+    if (T::STAGED) {  // every writer and every reader arrives
+      mbar_init(sfull, 32 * kConsumerWarps);
+      mbar_init(sempty, 128);
+    }
     mbar_init_fence();
   }
   __syncthreads();
@@ -331,18 +386,19 @@ conv3x3_hopper(const __grid_constant__ Maps maps,
     if (warp == 0) {
       if (lane != 0) return;
       // the producer: the halo of step k in stage k % HS, the weights of
-      // (step, tap) in stage (9 * step + tap) % WS.  The halo of step
+      // (step, tap) in stage (TAPS * step + tap) % WS.  The halo of step
       // k + HS - 1 is asked for after step k's third tap, when the stage
       // it overwrites (step k - 1's) is about to be released
       auto load_halo = [&](int k) {
         const int s = k % T::HS;
         const TileAt t = step_tile(k);
-        const int iy0 = S * t.ty0 - pad, ix0 = S * t.tx0 - pad;
+        const int iy0 = (S == 2 ? 2 * t.ty0 : t.ty0) - pad;
+        const int ix0 = (S == 2 ? 2 * t.tx0 : t.tx0) - pad;
         const int c0 = (k % n_chunks) * kCK;
         mbar_wait_asm(&hempty[s], ((k / T::HS) & 1) ^ 1);
         mbar_expect_tx(&hfull[s], T::PLANES * T::BOX_BYTES);
         unsigned char* dst = halo + s * T::HALO_BYTES;
-        if (S == 1) {
+        if (S != 2) {
           tma_load_4d(dst, &maps.x[0], &hfull[s], c0, ix0, iy0, t.b);
         } else {
 #pragma unroll
@@ -361,19 +417,55 @@ conv3x3_hopper(const __grid_constant__ Maps maps,
       uint32_t wph = 0;
       for (int k = 0; k < T::HS - 1 && k < n_steps; ++k) load_halo(k);
       for (int k = 0; k < n_steps; ++k) {
-        const int n0 = step_tile(k).n0;
-        const int j = k % n_chunks;
-        for (int tap = 0; tap < 9; ++tap) {
+        const TileAt t = step_tile(k);
+        // the chunk's taps in the weight layout [P][Cp / 64][TAPS][O][64]
+        // (P = 4 phases for the upsample, else 1)
+        const int d0 = (t.p * n_chunks + k % n_chunks) * T::TAPS;
+        for (int tap = 0; tap < T::TAPS; ++tap) {
           mbar_wait_asm(&wempty[ws], wph ^ 1);
           mbar_expect_tx(&wfull[ws], kWBytes);
-          tma_load_3d(wts + ws * kWBytes, &maps.w, &wfull[ws], 0, n0,
-                      9 * j + tap);
+          tma_load_3d(wts + ws * kWBytes, &maps.w, &wfull[ws], 0, t.n0,
+                      d0 + tap);
           if (++ws == T::WS) {
             ws = 0;
             wph ^= 1;
           }
           if (tap == 2 && k + T::HS - 1 < n_steps) load_halo(k + T::HS - 1);
         }
+      }
+      return;
+    }
+    if (T::STAGED) {
+      // warpgroup 1 stores each staged tile.  Thread t keeps 16-byte
+      // vector t % 16 of tile columns t / 16 and t / 16 + 8 of every row:
+      // a warp takes two pixels' 256-byte rows a pass, so its reads cover
+      // the banks once and its 16-byte stores fill whole sectors
+      if (warp < 4 || (O & 7) != 0) return;  // O % 8 != 0: stored directly
+      const int vec = threadIdx.x % 16;
+      const int c0 = (threadIdx.x - 128) / 16;
+      const int sw = (vec ^ c0) << 4;  // its place in a row: px & 7 == c0
+      for (int k0 = 0, j = 0; k0 < n_steps; k0 += n_chunks, ++j) {
+        const TileAt at = step_tile(k0);
+        const int n = at.n0 + 8 * vec;
+        mbar_wait_asm(sfull, j & 1);
+        if (n < O) {
+#pragma unroll 2
+          for (int r = 0; r < T::TH; ++r) {
+            const int y = out_row<S>(at, r);
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              const int c = c0 + 8 * h;
+              const int xx = out_col<S>(at, c);
+              if (y < Ho && xx < Wo) {
+                *reinterpret_cast<uint4*>(
+                    out + (((size_t)at.b * Ho + y) * Wo + xx) * O + n) =
+                    *reinterpret_cast<const uint4*>(
+                        stage + (r * T::TW + c) * (kBN * 2) + sw);
+              }
+            }
+          }
+        }
+        mbar_arrive(sempty);
       }
       return;
     }
@@ -433,6 +525,8 @@ conv3x3_hopper(const __grid_constant__ Maps maps,
   uint32_t wph = 0;
   for (int k0 = 0; k0 < n_steps; k0 += n_chunks) {
     const TileAt at = step_tile(k0);
+    // the upsample's phase (di, dj) shifts every tap's window by (di, dj)
+    const int ph_off = S == 0 ? (at.p >> 1) * T::PW + (at.p & 1) : 0;
 #pragma unroll
     for (int mt = 0; mt < T::MT; ++mt) {
 #pragma unroll
@@ -461,19 +555,21 @@ conv3x3_hopper(const __grid_constant__ Maps maps,
       mbar_wait_asm(PRO == kNone ? &hfull[s] : &hact[s], (k / T::HS) & 1);
       const unsigned hb = smem_addr(halo + s * T::HALO_BYTES);
 #pragma unroll
-      for (int tap = 0; tap < 9; ++tap) {
-        const int dy = tap / 3, dx = tap % 3;
+      for (int tap = 0; tap < T::TAPS; ++tap) {
+        // (row, column) of the tap; (a, b) of the upsample's collapsed tap
+        const int dy = S == 0 ? tap >> 1 : tap / 3;
+        const int dx = S == 0 ? tap & 1 : tap % 3;
 #pragma unroll
         for (int h = 0; h < 2; ++h) {  // k-steps 2h, 2h + 1 of the tap
 #pragma unroll
           for (int mt = 0; mt < T::MT; ++mt) {
             const int r = (cg * T::MT + mt) * 4 + wq;  // tile row
-            const int hr = S == 1
-                               ? (r + dy) * T::PW + a_px + dx
-                               : (r + (dy >> 1)) * T::PW + a_px + (dx >> 1);
+            const int hr =
+                S == 2 ? (r + (dy >> 1)) * T::PW + a_px + (dx >> 1)
+                       : (r + dy) * T::PW + a_px + dx + ph_off;
             const unsigned base =
                 hb +
-                (S == 1 ? 0 : ((dy & 1) * 2 + (dx & 1)) * T::PLANE_BYTES) +
+                (S == 2 ? ((dy & 1) * 2 + (dx & 1)) * T::PLANE_BYTES : 0) +
                 hr * 128;
 #pragma unroll
             for (int k2 = 0; k2 < 2; ++k2) {
@@ -535,16 +631,21 @@ conv3x3_hopper(const __grid_constant__ Maps maps,
     // Where O % 8 == 0 the quad's four lanes first trade values
     // (quad_transpose), so that each lane holds the 8 channels of one
     // n-tile and writes them with one 16-byte store: a warp's store then
-    // fills whole 32-byte sectors, where a 4-byte store fills half of one
+    // fills whole 32-byte sectors, where a 4-byte store fills half of one.
+    // Where STAGED, the 16-byte vectors go to the stage instead (once the
+    // store warps have taken the tile before), all 128 channels (past O
+    // too: masked when stored).
     const int g = lane >> 2;
     const int q = lane & 3;
     if ((O & 7) == 0) {
+      if (T::STAGED) mbar_wait_asm(sempty, ((k0 / n_chunks) & 1) ^ 1);
 #pragma unroll
       for (int mt = 0; mt < T::MT; ++mt) {
-        const int y = at.ty0 + (cg * T::MT + mt) * 4 + wq;
+        const int r = (cg * T::MT + mt) * 4 + wq;
+        const int y = out_row<S>(at, r);
 #pragma unroll
         for (int half = 0; half < 2; ++half) {
-          const int xx = at.tx0 + g + 8 * half;
+          const int xx = out_col<S>(at, g + 8 * half);
           const bool inside = y < Ho && xx < Wo;
           const size_t o_off = (((size_t)at.b * Ho + y) * Wo + xx) * O;
           // the row's residual vectors, all asked for before the first is
@@ -567,6 +668,25 @@ conv3x3_hopper(const __grid_constant__ Maps maps,
             }
             quad_transpose(a, v, q);
             const int n = at.n0 + 8 * (4 * m + q);
+            if (T::STAGED) {
+              const int px = r * T::TW + g + 8 * half;
+              // channels past O take channel 0's bias (a branch here
+              // spilled a register): they are not stored
+              const float* bn = bias + (n < O ? n : 0);
+              const float4 b0 = __ldg(reinterpret_cast<const float4*>(bn));
+              const float4 b1 =
+                  __ldg(reinterpret_cast<const float4*>(bn + 4));
+              uint4 pk;
+              __nv_bfloat162* p2 = reinterpret_cast<__nv_bfloat162*>(&pk);
+              p2[0] = __floats2bfloat162_rn(v[0] + b0.x, v[1] + b0.y);
+              p2[1] = __floats2bfloat162_rn(v[2] + b0.z, v[3] + b0.w);
+              p2[2] = __floats2bfloat162_rn(v[4] + b1.x, v[5] + b1.y);
+              p2[3] = __floats2bfloat162_rn(v[6] + b1.z, v[7] + b1.w);
+              *reinterpret_cast<uint4*>(
+                  stage + px * (kBN * 2) + (((4 * m + q) ^ (px & 7)) << 4)) =
+                  pk;
+              continue;
+            }
             if (!inside || n >= O) continue;
             const float4 b0 = __ldg(reinterpret_cast<const float4*>(bias + n));
             const float4 b1 =
@@ -591,15 +711,16 @@ conv3x3_hopper(const __grid_constant__ Maps maps,
           }
         }
       }
+      if (T::STAGED) mbar_arrive(sfull);
       continue;
     }
     const bool pairs = (O & 1) == 0;
 #pragma unroll
     for (int mt = 0; mt < T::MT; ++mt) {
-      const int y = at.ty0 + (cg * T::MT + mt) * 4 + wq;
+      const int y = out_row<S>(at, (cg * T::MT + mt) * 4 + wq);
 #pragma unroll
       for (int half = 0; half < 2; ++half) {
-        const int xx = at.tx0 + g + 8 * half;
+        const int xx = out_col<S>(at, g + 8 * half);
         if (y >= Ho || xx >= Wo) continue;
         const size_t o_off = (((size_t)at.b * Ho + y) * Wo + xx) * O;
 #pragma unroll
@@ -644,9 +765,10 @@ int launch_hopper(const void* x, const void* scale, const void* shift,
   Maps maps = {};
   const cuuint64_t e = 2;  // bytes of a bf16
   const int n_chunks = (C + kCK - 1) / kCK;
-  {  // weights [n_chunks * 9][O][64]: box one tap's 128 x 64
+  {  // weights [P * n_chunks * TAPS][O][64]: box one tap's 128 x 64
     const cuuint64_t dims[3] = {(cuuint64_t)kCK, (cuuint64_t)O,
-                                (cuuint64_t)n_chunks * 9};
+                                (cuuint64_t)(S == 0 ? 4 : 1) * n_chunks *
+                                    T::TAPS};
     const cuuint64_t strides[2] = {kCK * e, (cuuint64_t)O * kCK * e};
     const cuuint32_t box[3] = {kCK, kBN, 1};
     if (!encode_bf16(enc, &maps.w, w, 3, dims, strides, box)) {
@@ -654,14 +776,16 @@ int launch_hopper(const void* x, const void* scale, const void* shift,
     }
   }
   const cuuint64_t img = (cuuint64_t)H * W * C * e;
-  for (int p = 0; p < (S == 1 ? 1 : 4); ++p) {
-    // stride 1: [B, H, W, C]; stride 2: parity plane (py, px), the pixels
-    // (py + 2i, px + 2j) of every image
+  constexpr int SX = S == 2 ? 2 : 1;  // a parity plane steps 2 pixels
+  for (int p = 0; p < T::PLANES; ++p) {
+    // stride 1 and the upsample: [B, H, W, C]; stride 2: parity plane
+    // (py, px), the pixels (py + 2i, px + 2j) of every image
     const int py = p >> 1, px = p & 1;
     const cuuint64_t dims[4] = {
-        (cuuint64_t)C, (cuuint64_t)(S == 1 ? W : (W - px + 1) / 2),
-        (cuuint64_t)(S == 1 ? H : (H - py + 1) / 2), (cuuint64_t)B};
-    const cuuint64_t strides[3] = {S * C * e, S * (cuuint64_t)W * C * e, img};
+        (cuuint64_t)C, (cuuint64_t)(S == 2 ? (W - px + 1) / 2 : W),
+        (cuuint64_t)(S == 2 ? (H - py + 1) / 2 : H), (cuuint64_t)B};
+    const cuuint64_t strides[3] = {SX * C * e, SX * (cuuint64_t)W * C * e,
+                                   img};
     const cuuint32_t box[4] = {kCK, T::PW, T::PH, 1};
     const __nv_bfloat16* base =
         static_cast<const __nv_bfloat16*>(x) + ((size_t)py * W + px) * C;
@@ -679,10 +803,13 @@ int launch_hopper(const void* x, const void* scale, const void* shift,
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   }
   if (err != cudaSuccess) return (int)err;
-  const int tiles_w = (Wo + T::TW - 1) / T::TW;
-  const int tiles_h = (Ho + T::TH - 1) / T::TH;
+  // tiles over the output, or for the upsample over the input's positions
+  // (x 4 phases)
+  const int tiles_w = ((S == 0 ? W : Wo) + T::TW - 1) / T::TW;
+  const int tiles_h = ((S == 0 ? H : Ho) + T::TH - 1) / T::TH;
   const int tiles_n = (O + kBN - 1) / kBN;
-  const long long n_tiles = (long long)tiles_w * tiles_h * tiles_n * B;
+  const long long n_tiles =
+      (long long)tiles_w * tiles_h * tiles_n * B * (S == 0 ? 4 : 1);
   if (n_tiles > (1LL << 30)) return (int)cudaErrorInvalidValue;
   // one block per SM (its shared memory allows no second)
   const int grid = (int)(n_tiles < sms ? n_tiles : sms);
@@ -696,11 +823,12 @@ int launch_hopper(const void* x, const void* scale, const void* shift,
 }
 
 // ---------------------------------------------------------------------------
-// The mma.sync loop (the upsample, and dc_conv3x3 where O <= 16).
+// The mma.sync loop (dc_conv3x3 and dc_upsample_conv3x3 where O <= 16).
 
 constexpr int kThreads = 512;     // 16 warps
 constexpr int kStages = 3;        // shared-memory stages of the chunk ring
 constexpr int kWarps = kThreads / 32;
+constexpr int kMmaBN = 16;         // output channels of a block
 constexpr int kTW = 16;           // output columns of a block's tile
 constexpr int kTH = 16;           // output rows of a block's tile
 constexpr int kBM = kTH * kTW;    // output pixels of a block
@@ -747,13 +875,14 @@ struct Smem {
 };
 
 // PRO: prologue; RES: add a residual [B, H, W, O] in the epilogue; UP: the
-// upsample's 4 phases of 4 collapsed taps, else 9 taps; BN: output channels
-// of a block; WARPS_M x WARPS_N = 16 warps over the kBM x BN tile; KW: the
-// input channels of a chunk of the weight layout ([P][Cp / KW][TAPS][O][KW],
-// read 16 channels at a time).  Output pixel (oy, ox) of the base grid
-// H x W (the output, or for UP the input resolution) reads input pixel
-// (oy + dy - 1, ox + dx - 1) at tap (dy, dx).
-template <int PRO, bool RES, bool UP, int BN, int WARPS_M, int KW>
+// upsample's 4 phases of 4 collapsed taps, else 9 taps.  A block computes
+// BN = 16 output channels (the loop serves O <= 16 only), its 16 warps
+// (WARPS_M) down the pixels; KW: the input channels of a chunk of the
+// weight layout ([P][Cp / KW][TAPS][O][KW], read 16 channels at a time).
+// Output pixel (oy, ox) of the base grid H x W (the output, or for UP the
+// input resolution) reads input pixel (oy + dy - 1, ox + dx - 1) at tap
+// (dy, dx).
+template <int PRO, bool RES, bool UP>
 __global__ void __launch_bounds__(kThreads, 1)
 conv3x3_kernel(const __nv_bfloat16* __restrict__ x,
                const float* __restrict__ scale,
@@ -763,7 +892,7 @@ conv3x3_kernel(const __nv_bfloat16* __restrict__ x,
                const __nv_bfloat16* __restrict__ res,
                __nv_bfloat16* __restrict__ out, int H, int W, int C, int O,
                int tiles_w) {
-  static_assert(KW % kBK == 0, "weight chunk");
+  constexpr int BN = kMmaBN, WARPS_M = kWarps, KW = kCK;
   constexpr int TAPS = UP ? 4 : 9;
   constexpr int WARPS_N = kWarps / WARPS_M;
   constexpr int WM = kBM / WARPS_M;  // rows (pixels) of a warp
@@ -957,18 +1086,19 @@ conv3x3_kernel(const __nv_bfloat16* __restrict__ x,
   }
 }
 
-template <int PRO, bool RES, bool UP, int BN, int WARPS_M, int KW>
+template <int PRO, bool RES, bool UP>
 int launch(const void* x, const void* scale, const void* shift,
            const void* w, const void* bias, const void* res, void* out,
            int B, int H, int W, int C, int O, cudaStream_t stream) {
-  constexpr size_t smem = Smem<UP ? 4 : 9, BN>::kBytes;
-  auto kernel = conv3x3_kernel<PRO, RES, UP, BN, WARPS_M, KW>;
+  constexpr size_t smem = Smem<UP ? 4 : 9, kMmaBN>::kBytes;
+  auto kernel = conv3x3_kernel<PRO, RES, UP>;
   static std::atomic<bool> smem_set[kMaxDevices];
   cudaError_t err = set_smem(kernel, smem, smem_set);
   if (err != cudaSuccess) return (int)err;
   const int tiles_w = (W + kTW - 1) / kTW;
   const int tiles_h = (H + kTH - 1) / kTH;
-  const dim3 grid(tiles_w * tiles_h, (O + BN - 1) / BN, UP ? 4 * B : B);
+  const dim3 grid(tiles_w * tiles_h, (O + kMmaBN - 1) / kMmaBN,
+                  UP ? 4 * B : B);
   if (grid.y > 65535 || grid.z > 65535) return (int)cudaErrorInvalidValue;
   kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(x),
@@ -979,15 +1109,14 @@ int launch(const void* x, const void* scale, const void* shift,
   return (int)cudaGetLastError();
 }
 
-// dc_conv3x3: the mma.sync loop with BN = 16 (16 warps down the pixels)
-// where O <= 16, else the Hopper loop
+// dc_conv3x3: the mma.sync loop where O <= 16, else the Hopper loop
 template <int PRO, bool RES>
 int launch_conv(const void* x, const void* scale, const void* shift,
                 const void* w, const void* bias, const void* res, void* out,
                 int B, int H, int W, int C, int O, cudaStream_t stream) {
   if (O <= 16) {
-    return launch<PRO, RES, false, 16, 16, kCK>(x, scale, shift, w, bias, res,
-                                                out, B, H, W, C, O, stream);
+    return launch<PRO, RES, false>(x, scale, shift, w, bias, res, out, B, H,
+                                   W, C, O, stream);
   }
   return launch_hopper<PRO, RES, 1>(x, scale, shift, w, bias, res, out, B, H,
                                     W, C, O, H, W, 1, stream);
@@ -1029,21 +1158,24 @@ extern "C" int dc_conv3x3(const void* x, const void* scale, const void* shift,
 }
 
 // out [B, 2H, 2W, O] = conv3x3 SAME (nearest_up2(x)) + bias.
-// x [B, H, W, C] bf16; w [4, Cp / 16, 4, O, 16] bf16: phase di * 2 + dj,
+// x [B, H, W, C] bf16; w [4, Cp / 64, 4, O, 64] bf16: phase di * 2 + dj,
 // collapsed tap a * 2 + b (conv_pallas.py::_collapse_upsample_kernel's
 // taps), C zero-padded to Cp; bias [O] fp32.  Same requirements and
-// return as dc_conv3x3.
+// return as dc_conv3x3.  The Hopper loop in its upsample mode where
+// O > 16 (a block computes one phase of 16 x 16 input positions by 128
+// output channels from their 18 x 18 halo), else the mma.sync loop.
 extern "C" int dc_upsample_conv3x3(const void* x, const void* w,
                                    const void* bias, void* out, int B, int H,
                                    int W, int C, int O, void* stream) {
   if (bad_shape(B, H, W, C, O)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   if (O <= 16) {
-    return launch<kNone, false, true, 16, 16, kBK>(
-        x, nullptr, nullptr, w, bias, nullptr, out, B, H, W, C, O, s);
+    return launch<kNone, false, true>(x, nullptr, nullptr, w, bias, nullptr,
+                                      out, B, H, W, C, O, s);
   }
-  return launch<kNone, false, true, 128, 8, kBK>(
-      x, nullptr, nullptr, w, bias, nullptr, out, B, H, W, C, O, s);
+  return launch_hopper<kNone, false, 0>(x, nullptr, nullptr, w, bias,
+                                        nullptr, out, B, H, W, C, O, 2 * H,
+                                        2 * W, 1, s);
 }
 
 // out [B, Ho, Wo, O] = conv3x3 stride 2 (x padded by `pad` rows and

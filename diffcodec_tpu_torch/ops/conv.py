@@ -25,10 +25,10 @@ the plain version (`_kernels.PlainBackward`), as the JAX package's
 `custom_vjp`s take the VJP of their `*_ref` forms (`conv_pallas.py:270-307,
 328-342, 589-603, 783-791`).  Each wrapper turns the
 OIHW weight into the kernel's layout per call: the taps [O, 9, C] of the
-3x3 conv, cut into chunks of 64 input channels (one 128-byte row, what
-the Hopper loop's TMA copies take), or for the upsample the collapsed taps
-[4, O, 4, C] (phase di * 2 + dj, tap a * 2 + b, summed in fp32 and rounded
-to the weight's dtype once), cut into chunks of 16 (`chunk_taps`).
+3x3 conv, or for the upsample the collapsed taps [4, O, 4, C] (phase
+di * 2 + dj, tap a * 2 + b, summed in fp32 and rounded to the weight's
+dtype once), cut into chunks of 64 input channels (one 128-byte row, what
+the Hopper loop's TMA copies take; `chunk_taps`).
 
 Other counterpart (plain math only; the TPU's packed-lane layout is not
 ported): `conv_silu_chain` <- `ops/packed_conv.py::reference_chain` (:142).
@@ -125,9 +125,8 @@ def collapse_upsample_taps(weight: torch.Tensor) -> torch.Tensor:
 
 # input channels of a chunk of the kernels' weight layouts: `dc_conv3x3` and
 # `dc_downsample_conv3x3` take [Cp / 64, 9, O, 64], `dc_upsample_conv3x3`
-# [4, Cp / 16, 4, O, 16]
+# [4, Cp / 64, 4, O, 64]
 CONV_CHUNK = 64
-UPSAMPLE_CHUNK = 16
 
 
 def chunk_taps(taps: torch.Tensor, chunk: int) -> torch.Tensor:
@@ -270,7 +269,7 @@ def _upsample_conv3x3(x, weight, bias):
     B, H, W, C, O = _check_cuda("upsample_conv3x3", x, weight, bias)
     out = torch.empty(B, 2 * H, 2 * W, O, device=x.device,
                       dtype=torch.bfloat16)
-    taps = chunk_taps(collapse_upsample_taps(weight), UPSAMPLE_CHUNK)
+    taps = chunk_taps(collapse_upsample_taps(weight), CONV_CHUNK)
     bias32 = bias.float()
     lib = _kernels.lib()
     with torch.cuda.device(x.device):

@@ -43,7 +43,6 @@ from __future__ import annotations
 import argparse
 import json
 import os
-import re
 import subprocess
 import sys
 import tempfile
@@ -57,7 +56,7 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 import attention_bwd_ab  # noqa: E402
 import chip_smoke as cs  # noqa: E402
-from conv_kernel_ab import sass_report  # noqa: E402
+from conv_kernel_ab import same_sass  # noqa: E402
 from conv_kernel_breakdown import edited, start_edited_build  # noqa: E402
 from diffcodec_tpu_torch import _kernels  # noqa: E402
 
@@ -157,41 +156,6 @@ def one_width(d):
     return [(call, f"    if constexpr (8 * decltype(d8)::value != {d}) "
                    "return (int)cudaErrorNotSupported;\n"
                    f"    else{call[3:]}")] + attention_bwd_ab.one_width(d)
-
-
-def sass_functions(cubin):
-    """{function name: its SASS text} of a cubin, from cuobjdump -sass."""
-    nvcc = _kernels.LIBRARY._nvcc()
-    text = subprocess.run(
-        [os.path.join(os.path.dirname(nvcc), "cuobjdump"), "-sass", cubin],
-        capture_output=True, text=True, check=True).stdout
-    funcs, name = {}, None
-    for line in text.splitlines():
-        m = re.search(r"Function : (\w+)", line)
-        if m:
-            # the anonymous namespace's name carries a digest of the file
-            name = re.sub(r"_GLOBAL__N__[0-9a-f]+_", "_GLOBAL__N__",
-                          m.group(1))
-            funcs[name] = []
-        elif name:
-            funcs[name].append(line.strip())
-    return {n: "\n".join(body) for n, body in funcs.items()}
-
-
-def same_sass(old_src, new_src, tmp, prefix):
-    """(ptxas/HGMMA report of new_src, of old_src, {kernel: same SASS})
-    for the kernels both define, each source compiled to its own cubin."""
-    out = {}
-    for label, src in (("new", new_src), ("old", old_src)):
-        d = os.path.join(tmp, f"{label}_{os.path.basename(src)}")
-        os.makedirs(d, exist_ok=True)
-        report = sass_report(src, d, prefix=prefix)
-        cubin = os.path.join(d, os.path.basename(src).replace(".cu",
-                                                              ".cubin"))
-        out[label] = (report, sass_functions(cubin))
-    new_f, old_f = out["new"][1], out["old"][1]
-    same = {n: new_f[n] == old_f[n] for n in sorted(new_f) if n in old_f}
-    return out["new"][0], out["old"][0], same
 
 
 def forward_call(lib, q, k, v, with_lse, scale):

@@ -1,25 +1,28 @@
 #!/usr/bin/env python3
 """The 3x3 conv kernels of this tree against an older `conv3x3.cu`, in turns.
 
-    python3 scripts/conv_kernel_ab.py OLD_CU [--old-chunk 16] [--out PATH]
+    python3 scripts/conv_kernel_ab.py OLD_CU [--old-chunk 64]
+        [--old-up-chunk 16] [--reps 10] [--out PATH]
 
 Builds OLD_CU (for example a parent commit's
-`diffcodec_tpu_torch/csrc/conv3x3.cu`, written out with `git show`) into a
-library of its own with this tree's nvcc flags, beside this tree's library,
-and times both libraries' C entry points on the same inputs at every shape
+`diffcodec_tpu_torch/csrc/conv3x3.cu`, written out with `git show` beside
+that commit's `hopper.cuh`, which it includes) into a library of its own
+with this tree's nvcc flags, beside this tree's library, and times both
+libraries' C entry points on the same inputs at every shape
 `chip_smoke.py` checks (the fused decoder's and the encoder's GN+SiLU+conv
 launches, the three stride-2 convs with both paddings, the upsamplers, the
 SiLU+conv) in the order old, new, new, old, with `chip_smoke.time_ms`
-(CUDA events, median of per-call times).  Each library gets the weights in
-its own layout: chunks of `--old-chunk` input channels for the old one
-(16 before the Hopper loop), `conv.CONV_CHUNK` for this tree's; the
-upsample takes `conv.UPSAMPLE_CHUNK` in both.  Beside them: cuDNN's conv of
-the input already activated, upsampled or padded (`F.conv2d`), the bound,
-and max |new - old|.  First it reports, for each kernel of this tree's
-`conv3x3.cu` and of OLD_CU, what `nvcc -Xptxas -v` says (registers,
-stack, spills) and how many HGMMA (wgmma) instructions `cuobjdump -sass`
-finds in it.  Needs
-one CUDA device and nvcc; writes every row to --out (default
+(CUDA events, median of per-call times).  Each library gets the weights
+in its own layout: chunks of `conv.CONV_CHUNK` input channels for this
+tree's, and for the old one chunks of `--old-chunk` (64 since the Hopper
+loop, 16 before it) and, for the upsample, of `--old-up-chunk` (16 while
+the upsample ran on the mma.sync loop).  Beside them: cuDNN's conv of the input already activated,
+upsampled or padded (`F.conv2d`), the bound, and max |new - old|.  First
+it reports, for each kernel of this tree's `conv3x3.cu` and of OLD_CU,
+what `nvcc -Xptxas -v` says (registers, stack, spills), how many HGMMA
+(wgmma) instructions `cuobjdump -sass` finds in it, and whether each
+kernel that both define compiles to the same SASS in both.  Needs one
+CUDA device and nvcc; writes every row to --out (default
 chiprun_out/conv_kernel_ab.json) and prints the card's name and power
 limit last.
 """
@@ -112,6 +115,41 @@ def sass_report(src, out_dir, prefix="conv3x3_"):
     return report
 
 
+def sass_functions(cubin):
+    """{function name: its SASS text} of a cubin, from cuobjdump -sass."""
+    nvcc = _kernels.LIBRARY._nvcc()
+    text = subprocess.run(
+        [os.path.join(os.path.dirname(nvcc), "cuobjdump"), "-sass", cubin],
+        capture_output=True, text=True, check=True).stdout
+    funcs, name = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Function : (\w+)", line)
+        if m:
+            # the anonymous namespace's name carries a digest of the file
+            name = re.sub(r"_GLOBAL__N__[0-9a-f]+_", "_GLOBAL__N__",
+                          m.group(1))
+            funcs[name] = []
+        elif name:
+            funcs[name].append(line.strip())
+    return {n: "\n".join(body) for n, body in funcs.items()}
+
+
+def same_sass(old_src, new_src, tmp, prefix):
+    """(ptxas/HGMMA report of new_src, of old_src, {kernel: same SASS})
+    for the kernels both define, each source compiled to its own cubin."""
+    out = {}
+    for label, src in (("new", new_src), ("old", old_src)):
+        d = os.path.join(tmp, f"{label}_{os.path.basename(src)}")
+        os.makedirs(d, exist_ok=True)
+        report = sass_report(src, d, prefix=prefix)
+        cubin = os.path.join(d, os.path.basename(src).replace(".cu",
+                                                              ".cubin"))
+        out[label] = (report, sass_functions(cubin))
+    new_f, old_f = out["new"][1], out["old"][1]
+    same = {n: new_f[n] == old_f[n] for n in sorted(new_f) if n in old_f}
+    return out["new"][0], out["old"][0], same
+
+
 def cases(gen):
     """(kind, shape, call(lib, taps), taps before chunking, library call,
     flops, bytes), one case at a time, its inputs alive only while it is
@@ -201,7 +239,8 @@ def cases(gen):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("old_cu")
-    ap.add_argument("--old-chunk", type=int, default=16)
+    ap.add_argument("--old-chunk", type=int, default=conv.CONV_CHUNK)
+    ap.add_argument("--old-up-chunk", type=int, default=16)
     ap.add_argument("--reps", type=int, default=10)
     ap.add_argument("--out", default="chiprun_out/conv_kernel_ab.json")
     args = ap.parse_args()
@@ -215,19 +254,19 @@ def main() -> int:
     gen = torch.Generator(device="cuda").manual_seed(0)
     rows = []
     with tempfile.TemporaryDirectory() as tmp:
-        sass = sass_report(os.path.join(_kernels.CSRC_DIR, "conv3x3.cu"),
-                           tmp)
-        old_sass = sass_report(args.old_cu, tmp)
+        sass, old_sass, same = same_sass(
+            args.old_cu, os.path.join(_kernels.CSRC_DIR, "conv3x3.cu"), tmp,
+            "conv3x3_")
         for label, rep in (("new", sass), ("old", old_sass)):
             for name, info in rep.items():
                 print(json.dumps(dict(build=label, kernel=name, **info)),
                       flush=True)
+        print(json.dumps(dict(same_sass_as_old=same)), flush=True)
         old = load(build_old(args.old_cu, tmp))
         for kind, shape, call, taps, library, flops, nbytes in cases(gen):
-            up = kind == "upsample_conv3x3"
-            t_new = conv.chunk_taps(taps, conv.UPSAMPLE_CHUNK if up
-                                    else conv.CONV_CHUNK)
-            t_old = conv.chunk_taps(taps, conv.UPSAMPLE_CHUNK if up
+            t_new = conv.chunk_taps(taps, conv.CONV_CHUNK)
+            t_old = conv.chunk_taps(taps, args.old_up_chunk
+                                    if kind == "upsample_conv3x3"
                                     else args.old_chunk)
             err = (call(new, t_new).float()
                    - call(old, t_old).float()).abs().max().item()
@@ -248,7 +287,8 @@ def main() -> int:
     os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
     with open(args.out, "w") as f:
         json.dump(dict(device=smi, old=args.old_cu, build=sass,
-                       old_build=old_sass, rows=rows), f, indent=1)
+                       old_build=old_sass, same_sass_as_old=same,
+                       rows=rows), f, indent=1)
     print(smi, flush=True)
     return 0
 

@@ -2,26 +2,27 @@
 """Where the 3x3 conv kernel's time goes on the card, and what each design
 choice of its Hopper loop is worth.
 
-    python3 scripts/conv_kernel_breakdown.py [--out PATH]
+    python3 scripts/conv_kernel_breakdown.py [--only NAME ...] [--out PATH]
 
 Builds `diffcodec_tpu_torch/csrc/conv3x3.cu` as it is and once for each
-entry of BUILDS below (the source is edited in memory; the build fails
-loudly if the source no longer reads as expected, and a CPU test applies
-every edit to the current source), one nvcc per build, all started
-together:
+entry of BUILDS below (`--only` keeps the builds named), the source edited
+in memory (the build fails loudly if the source no longer reads as
+expected, and a CPU test applies every edit to the current source), one
+nvcc per build, all started together:
   * parts switched off, alone and in pairs: the TMA copies (the producer
     arrives on the stage's barrier without copying), the activation warps'
-    work, and the consumers' wgmma products (their ldmatrix goes with
-    them: nothing reads the registers).  Such a build computes garbage:
-    only its time is read; times that add up across parts mean the parts
-    do not overlap;
+    work, the consumers' wgmma products (their ldmatrix goes with them:
+    nothing reads the registers), and the epilogue's stores.  Such a build
+    computes garbage: only its time is read; times that add up across
+    parts mean the parts do not overlap;
   * one design choice undone each: its output is checked too.
-Each build's `dc_conv3x3` (prologue 2) or `dc_downsample_conv3x3` is timed
-with CUDA events (`chip_smoke.time_ms`, twice) at SHAPES, and checked
-against an fp32 reference of the same function: the count of elements off
-by more than 0.05 + 0.02 |reference|.  Needs one CUDA device and nvcc;
-writes every row to --out (default chiprun_out/conv_kernel_breakdown.json)
-and prints the card's name and power limit last.
+Each build's `dc_conv3x3` (prologue 2), `dc_downsample_conv3x3` or
+`dc_upsample_conv3x3` is timed with CUDA events (`chip_smoke.time_ms`,
+twice) at SHAPES, and checked against an fp32 reference of the same
+function: the count of elements off by more than 0.05 + 0.02 |reference|.
+Needs one CUDA device and nvcc; writes every row to --out (default
+chiprun_out/conv_kernel_breakdown.json) and prints the card's name and
+power limit last.
 """
 
 from __future__ import annotations
@@ -60,49 +61,89 @@ PARTS = {
     "products": [
         ("              wgmma_rs<kBN, 0>(acc[mt], afr[h][mt][k2],",
          "              if (false) wgmma_rs<kBN, 0>(acc[mt], afr[h][mt][k2],")],
+    # the epilogue's 16-byte stores (O % 8 == 0), and the work that feeds
+    # them; where the tile is staged, the store warps' stores
+    "epilogue": [
+        ("            if (!inside || n >= O) continue;",
+         "            if (true) continue;"),
+        ("              if (y < Ho && xx < Wo) {",
+         "              if (false) {")],
 }
+# the upsample's phase in the tile walk, next to the output-channel tile
+_PHASE = ("  t.p = S == 0 ? tile & 3 : 0;\n"
+          "  if (S == 0) tile >>= 2;\n")
 # design choice undone -> [(text of conv3x3.cu, what replaces it)]
 CHOICES = {
-    # two halo stages and eight weight stages at stride 1, not three and six
+    # two halo stages and eight weight stages at stride 1, not three and
+    # six
     "two_halo_stages": [
-        ("static constexpr int HS = S == 1 ? 3 : 2;",
+        ("static constexpr int HS = S == 2 || STAGED ? 2 : 3;",
          "static constexpr int HS = 2;"),
-        ("static constexpr int WS = S == 1 ? 6 : 4;",
-         "static constexpr int WS = S == 1 ? 8 : 4;")],
+        ("static constexpr int WS = S == 2 || STAGED ? 4 : 6;",
+         "static constexpr int WS = S == 2 || STAGED ? 4 : 8;")],
+    # the upsample's epilogue storing from the consumers' registers, as at
+    # stride 1 and 2, with three halo and six weight stages in the shared
+    # memory the stage took
+    "unstaged_epilogue": [
+        ("static constexpr bool STAGED = S == 0;",
+         "static constexpr bool STAGED = false;")],
     # tiles numbered with the column fastest, the output-channel tile third
+    # (stride 1 and 2; the upsample's phase stays next to the channel tile)
     "column_fastest": [
         ("  t.n0 = (tile % tiles_n) * kBN;\n"
-         "  tile /= tiles_n;\n"
+         "  tile /= tiles_n;\n" + _PHASE +
          "  t.tx0 = (tile % tiles_w) * T::TW;\n"
          "  tile /= tiles_w;\n"
          "  t.ty0 = (tile % tiles_h) * T::TH;\n"
          "  t.b = tile / tiles_h;",
+         _PHASE +
          "  t.tx0 = (tile % tiles_w) * T::TW;\n"
          "  tile /= tiles_w;\n"
          "  t.ty0 = (tile % tiles_h) * T::TH;\n"
          "  tile /= tiles_h;\n"
          "  t.n0 = (tile % tiles_n) * kBN;\n"
          "  t.b = tile / tiles_n;")],
-    # the epilogue's 4-byte stores of channel pairs, no quad transpose
-    "pair_stores": [("    if ((O & 7) == 0) {", "    if (false) {")],
+    # the upsample's phase fastest in the tile walk, before the channel tile
+    "phase_fastest": [
+        ("  t.n0 = (tile % tiles_n) * kBN;\n"
+         "  tile /= tiles_n;\n" + _PHASE,
+         _PHASE + "  t.n0 = (tile % tiles_n) * kBN;\n"
+         "  tile /= tiles_n;\n")],
+    # the upsample's phase after the tile row: each image's four phases one
+    # after the other, each reading the image's input again
+    "phase_per_image": [
+        (_PHASE, ""),
+        ("  t.b = tile / tiles_h;",
+         "  tile /= tiles_h;\n"
+         "  t.p = S == 0 ? tile & 3 : 0;\n"
+         "  t.b = S == 0 ? tile >> 2 : tile;")],
+    # the epilogue's 4-byte stores of channel pairs, no quad transpose (and
+    # no stage: its store warps stand down)
+    "pair_stores": [
+        ("    if ((O & 7) == 0) {", "    if (false) {"),
+        ("      if (warp < 4 || (O & 7) != 0) return;",
+         "      if (true) return;")],
     # no L2 prefetch of the residual rows
     "no_residual_prefetch": [
         ("      if (RES && k == k0 + n_chunks - 1) {", "      if (false) {")],
 }
 OFF = [("activation",), ("copies",), ("copies", "activation"),
-       ("products",), ("products", "activation")]
+       ("products",), ("products", "activation"), ("epilogue",)]
 # name -> (edits, whether the build computes the function)
 BUILDS = {"as_is": ([], True)}
 BUILDS.update({"off_" + "_".join(off): (
     list(itertools.chain.from_iterable(PARTS[p] for p in off)), False)
     for off in OFF})
 BUILDS.update({name: (edits, True) for name, edits in CHOICES.items()})
-# (B, H, W, C, O, stride, residual)
+# (B, H, W, C, O, stride, residual); stride 0: the upsample (H, W its
+# input's), at the decoder's two heaviest upsamplers
 SHAPES = [(7, 512, 512, 256, 128, 1, False),
           (7, 512, 512, 128, 128, 1, True),
           (7, 128, 128, 512, 512, 1, False),
           (8, 512, 512, 128, 128, 2, False),
-          (8, 256, 256, 256, 256, 2, False)]
+          (8, 256, 256, 256, 256, 2, False),
+          (7, 256, 256, 256, 256, 0, False),
+          (7, 128, 128, 512, 512, 0, False)]
 
 
 def edited(src, edits, what):
@@ -139,7 +180,8 @@ def build(name, edits, src, out_dir):
 def inputs(gen, B, H, W, C, O, stride, residual):
     """x, scale, shift, chunked taps, bias, residual and the fp32
     reference of the function (GN affine + SiLU + conv at stride 1, the
-    encoder's bottom/right-padded conv at stride 2)."""
+    encoder's bottom/right-padded conv at stride 2, the conv of the
+    nearest-2x upsampled x at stride 0)."""
     x = torch.randn(B, H, W, C, device="cuda", generator=gen).bfloat16()
     sc = torch.randn(B, C, device="cuda", generator=gen) * 0.25 + 1
     sh = torch.randn(B, C, device="cuda", generator=gen)
@@ -152,21 +194,28 @@ def inputs(gen, B, H, W, C, O, stride, residual):
                      .bfloat16().float())
         want = F.conv2d(act.permute(0, 3, 1, 2), w.float(), padding=1)
         del act
-    else:
+    elif stride == 2:
         want = F.conv2d(F.pad(x.float(), (0, 0, 0, 1, 0, 1))
                         .permute(0, 3, 1, 2), w.float(), stride=2)
+    else:
+        up = (x.float()[:, :, None, :, None, :].expand(B, H, 2, W, 2, C)
+              .reshape(B, 2 * H, 2 * W, C))
+        want = F.conv2d(up.permute(0, 3, 1, 2), w.float(), padding=1)
+        del up
     want = want.permute(0, 2, 3, 1)
     if residual:
         res = torch.randn(want.shape, device="cuda",
                           generator=gen).bfloat16()
         want = want + res.float()
-    taps = conv.chunk_taps(conv.conv3x3_taps(w)[None], conv.CONV_CHUNK)
+    taps = conv.chunk_taps(conv.collapse_upsample_taps(w) if stride == 0
+                           else conv.conv3x3_taps(w)[None], conv.CONV_CHUNK)
     return x, sc, sh, taps, bias, res, want
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", default="chiprun_out/conv_kernel_breakdown.json")
+    ap.add_argument("--only", nargs="+", default=None)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("conv_kernel_breakdown: needs a CUDA device", file=sys.stderr)
@@ -179,14 +228,16 @@ def main() -> int:
     rows = []
     with tempfile.TemporaryDirectory() as tmp:
         procs = {name: build(name, edits, src, tmp)
-                 for name, (edits, _) in BUILDS.items()}
+                 for name, (edits, _) in BUILDS.items()
+                 if not args.only or name in args.only or name == "as_is"}
         libs = {}
         for name, (proc, path) in procs.items():
             _, err = proc.communicate()
             if proc.returncode != 0:
                 raise RuntimeError(f"nvcc failed for {name}:\n{err}")
             lib = ctypes.CDLL(path)
-            for fn in ("dc_conv3x3", "dc_downsample_conv3x3"):
+            for fn in ("dc_conv3x3", "dc_downsample_conv3x3",
+                       "dc_upsample_conv3x3"):
                 getattr(lib, fn).argtypes = _kernels._SIGNATURES[fn]
             libs[name] = lib
         gen = torch.Generator(device="cuda").manual_seed(0)
@@ -206,6 +257,10 @@ def main() -> int:
                             taps.data_ptr(), bias.data_ptr(),
                             None if res is None else res.data_ptr(),
                             out.data_ptr(), B, H, W, C, O, 2, stream)
+                    elif stride == 0:
+                        code = lib.dc_upsample_conv3x3(
+                            x.data_ptr(), taps.data_ptr(), bias.data_ptr(),
+                            out.data_ptr(), B, H, W, C, O, stream)
                     else:
                         code = lib.dc_downsample_conv3x3(
                             x.data_ptr(), taps.data_ptr(), bias.data_ptr(),

@@ -98,8 +98,10 @@ def test_upsample_conv3x3_matches_pallas_interpret(H, W, C, O):
 def test_collapsed_upsample_taps_match_jax(chunk):
     """The kernel's [4, O, 4, C] taps are JAX's [2, 2, 2, 2, C, O]
     `_collapse_upsample_kernel`, re-laid out; both sum in fp32 here.  The
-    chunked layout is pinned at both chunk widths the kernels take (16 for
-    the upsample, 64 for the Hopper loop's TMA rows)."""
+    chunked layout is pinned at two chunk widths: 64, the Hopper loop's TMA
+    rows, which every entry takes now, and 16, what the mma.sync loop's
+    upsample took before (`scripts/conv_kernel_ab.py` lays an older
+    source's weights out so)."""
     k = _conv_inputs(3, C=8, O=5)["k"]
     want = np.asarray(jconv._collapse_upsample_kernel(jnp.asarray(k)))
     want = want.transpose(0, 1, 5, 2, 3, 4).reshape(4, 5, 4, 8)
@@ -115,6 +117,55 @@ def test_collapsed_upsample_taps_match_jax(chunk):
     np.testing.assert_array_equal(chunked[..., :8],
                                   got.numpy().transpose(0, 2, 1, 3)[:, None])
     assert not chunked[..., 8:].any()
+
+
+def _upsample_walk(x, weight, bias):
+    """The Hopper loop's upsample (`conv3x3.cu`, mode S = 0), written out
+    in torch: x padded by one pixel (the TMA box's zero fill) and to Cp
+    channels; for each phase (di, dj), the sum over chunks k of 64 input
+    channels and collapsed taps (a, b) of the window at offset (di + a,
+    dj + b) times the weights at depth (p * n_chunks + k) * 4 + t of the
+    kernel's [4, Cp / 64, 4, O, 64] layout, read as the weight tensor
+    map's [depth][O][64]; plus the bias; the phases interleaved."""
+    B, H, W, C = x.shape
+    O = weight.shape[0]
+    taps = tconv.chunk_taps(tconv.collapse_upsample_taps(weight),
+                            tconv.CONV_CHUNK)
+    n_chunks = taps.shape[1]
+    depth = taps.reshape(-1, O, tconv.CONV_CHUNK)
+    xp = torch.nn.functional.pad(
+        x, (0, n_chunks * tconv.CONV_CHUNK - C, 1, 1, 1, 1))
+    out = torch.empty(B, 2 * H, 2 * W, O)
+    for p in range(4):
+        di, dj = p >> 1, p & 1
+        acc = torch.zeros(B, H, W, O)
+        for k in range(n_chunks):
+            chans = slice(k * tconv.CONV_CHUNK, (k + 1) * tconv.CONV_CHUNK)
+            for t in range(4):
+                a, b = t >> 1, t & 1
+                win = xp[:, di + a:di + a + H, dj + b:dj + b + W, chans]
+                acc += win @ depth[(p * n_chunks + k) * 4 + t].T
+        out[:, di::2, dj::2] = acc + bias
+    return out
+
+
+@pytest.mark.parametrize("reference", ["pallas_interpret", "xla_ref"])
+@pytest.mark.parametrize("B,H,W,C,O", [(2, 8, 8, 16, 8),
+                                       (1, 8, 16, 72, 12)])
+def test_upsample_walk_matches_jax(B, H, W, C, O, reference):
+    """The indexing of the upsample's Hopper walk (phases, shifted windows,
+    weight depths, chunks of 64 with C = 72 past one, interleave) against
+    the JAX package's Pallas kernel in interpret mode and its XLA
+    reference, fp32."""
+    d = _conv_inputs(5, B=B, H=H, W=W, C=C, O=O)
+    args = (jnp.asarray(d["x"]), jnp.asarray(d["k"]), jnp.asarray(d["b"]))
+    if reference == "pallas_interpret":
+        want = jconv.upsample_conv3x3_pallas(*args, th=8, interpret=True)
+    else:
+        want = jconv.upsample_conv3x3_ref(*args)
+    got = _upsample_walk(_t(d["x"]), _oihw(d["k"]), _t(d["b"]))
+    assert got.shape == (B, 2 * H, 2 * W, O)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **KERNEL_TOL)
 
 
 def test_chunk_taps_spans_chunks():

@@ -246,8 +246,17 @@ def test_silu_conv3x3_kernel_matches_plain(cuda_device, B, H, W, C, O):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("B,H,W,C,O", [
-    (2, 8, 8, 16, 16), (1, 5, 11, 32, 40), (1, 3, 4, 8, 3),
-    (1, 16, 16, 256, 256)])
+    (2, 8, 8, 16, 16),       # O <= 16: the mma.sync loop
+    (1, 3, 4, 8, 3),         # the mma.sync loop at C = 8, O = 3
+    (1, 5, 11, 32, 40),      # the Hopper loop from here on
+    (1, 16, 16, 256, 256),
+    (1, 13, 21, 40, 200),    # C = 40: a part of one 64-channel chunk;
+                             # O = 200: a part of a 128-column tile; H, W
+                             # off the 16 x 16 tile
+    (2, 9, 17, 8, 24),       # C = 8; O = 24 (a part of a tile)
+    (1, 7, 9, 24, 20),       # O % 8 != 0: the epilogue's pair stores
+    (2, 50, 70, 96, 136),    # 320 tiles: more than the SMs; C = 96
+    (1, 64, 64, 512, 512)])  # full width (a race showed only there)
 def test_upsample_conv3x3_kernel_matches_plain(cuda_device, B, H, W, C, O):
     a = _conv_args(cuda_device, B, H, W, C, O, seed=H * W + O)
     before = conv.upsample_conv3x3.launches
@@ -256,6 +265,19 @@ def test_upsample_conv3x3_kernel_matches_plain(cuda_device, B, H, W, C, O):
     want = conv.upsample_conv3x3_ref(a["x"], a["weight"], a["bias"])
     assert got.shape == want.shape == (B, 2 * H, 2 * W, O)
     _assert_conv_close(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,W,C,O", [(2, 50, 70, 96, 136),
+                                       (1, 64, 64, 512, 512)])
+def test_upsample_conv3x3_kernel_repeats_bitwise(cuda_device, B, H, W, C, O):
+    """The upsample's Hopper loop sums in a fixed order (no atomics), so
+    runs on the same inputs agree bit for bit; a difference is a race."""
+    a = _conv_args(cuda_device, B, H, W, C, O, seed=B * C + O)
+    first = conv.upsample_conv3x3(a["x"], a["weight"], a["bias"])
+    for _ in range(3):
+        again = conv.upsample_conv3x3(a["x"], a["weight"], a["bias"])
+        assert torch.equal(again, first)
 
 
 @pytest.mark.cuda
