@@ -17,8 +17,10 @@ Phases, each printed as one JSON line with the elapsed seconds `t`:
   decode_fusedconv
              the same decode with `fused_conv=True` (the JAX package's
              `exact_fusedconv` point): every conv3x3 of the VAE decoder
-             through the conv kernels (29 GN+SiLU+conv, 3 upsample+conv
-             launches); its VAE against the cuDNN one on the same latents
+             through the conv kernels (29 GN+SiLU+conv launches, one of them
+             the 128 -> 3 out-head on the project-then-stencil kernel, and 3
+             upsample+conv launches); its VAE against the cuDNN one on the
+             same latents
   decode_distilled
              `DistilledPipeline` with K = 4 consistency steps over the same
              models, fused mode, no CFG (the JAX package's bench.py
@@ -158,8 +160,11 @@ UP_SHAPES = [(7, 256, 256, 256, 256), (7, 128, 128, 512, 512),
 # row 4's entry (SiLU + conv, the affine compiled out) at the widest
 # decoder shape; no decode launches it (see PERF.md)
 SILU_SHAPES = [(7, 512, 512, 128, 128)]
-# the two launch counts of the fused decoder, asserted per decode
-FUSED_VAE_LAUNCHES = {"gn_silu_conv3x3": 29, "upsample_conv3x3": 3}
+# the launch counts of the fused decoder, asserted per decode: 29
+# GN+SiLU+conv calls, one of them the out-head (O = 3) on the
+# project-then-stencil kernel, and 3 upsample+conv calls
+FUSED_VAE_LAUNCHES = {"gn_silu_conv3x3": 29, "conv3x3_head": 1,
+                      "upsample_conv3x3": 3}
 DISTILL_STEPS = 4
 # training: scripts/bench_train.py's point, batch 8 at 512 x 512
 TRAIN_BATCH, TRAIN_STEPS = 8, 6
@@ -358,7 +363,9 @@ def _conv_row(name, shape, got, want, fn, plain, library, reps, taps,
 
 
 def check_gn_conv(gen, shapes) -> list:
-    """The GN+SiLU+conv kernel at (B, H, W, C, O, residual) `shapes`."""
+    """The GN+SiLU+conv kernel at (B, H, W, C, O, residual) `shapes`: the
+    Hopper loop, or where O <= conv.HEAD_MAX_O the project-then-stencil
+    kernel (its rows named `conv3x3_head`)."""
     rows = []
     for B, H, W, C, O, residual in shapes:
         a = _conv_inputs(gen, B, H, W, C, O)
@@ -371,7 +378,8 @@ def check_gn_conv(gen, shapes) -> list:
         act_nchw = act.permute(0, 3, 1, 2)
         n_out = B * H * W * O
         rows.append(_conv_row(
-            "gn_silu_conv3x3", (B, H, W, C, O, residual),
+            "conv3x3_head" if O <= conv.HEAD_MAX_O else "gn_silu_conv3x3",
+            (B, H, W, C, O, residual),
             conv.gn_silu_conv3x3(x, sc, sh, w, b, res),
             conv.gn_silu_conv3x3_ref(x, sc, sh, w, b, res),
             lambda: conv.gn_silu_conv3x3(x, sc, sh, w, b, res),
@@ -483,6 +491,7 @@ def counted(fn):
                 "attention_bwd": attention_bwd,
                 "splat_sum": splat_sum,
                 "gn_silu_conv3x3": conv.gn_silu_conv3x3,
+                "conv3x3_head": conv.projected_head,
                 "silu_conv3x3": conv.silu_conv3x3,
                 "upsample_conv3x3": conv.upsample_conv3x3,
                 "downsample_conv3x3": conv.downsample_conv3x3}
@@ -528,7 +537,8 @@ def decode(gen):
     # the exact point stays on cuDNN: no conv kernel
     check_launches("decode", launches, {
         "attention": None, "splat_sum": None, "gn_silu_conv3x3": 0,
-        "upsample_conv3x3": 0, "silu_conv3x3": 0, **NO_TRAIN_KERNELS})
+        "conv3x3_head": 0, "upsample_conv3x3": 0, "silu_conv3x3": 0,
+        **NO_TRAIN_KERNELS})
 
     _, second_s = timed(lambda: run(pipe, x))
     # the pyramid alone, the denoise loop (pyramid included), the VAE
@@ -658,8 +668,9 @@ def reference_check():
         want = run(cpu, x)
         got, _, launches = counted(lambda: run(card, x_card))
         expected = {"attention": None, "splat_sum": None}
-        if fused:
-            expected.update(gn_silu_conv3x3=None, upsample_conv3x3=None)
+        if fused:  # the tiny decoder's out-head is 8 -> 3
+            expected.update(gn_silu_conv3x3=None, conv3x3_head=None,
+                            upsample_conv3x3=None)
         check_launches(f"reference ({mode})", launches, expected)
         diff = (got.float().cpu() - want).abs()
         out = dict(vae=mode, max_abs_err=diff.max().item(),
@@ -926,7 +937,7 @@ def train(gen) -> dict:
         raise AssertionError(f"train: non-finite loss {losses}")
     check_launches("train", launches, {
         **ENCODER_LAUNCHES, "splat_sum": None, "upsample_conv3x3": 0,
-        "silu_conv3x3": 0, "attention_bwd": with_grad})
+        "conv3x3_head": 0, "silu_conv3x3": 0, "attention_bwd": with_grad})
     if with_grad <= 0:
         raise AssertionError("train: no attention call needed a gradient")
     if len(changed) < 0.95 * len(state.params):
@@ -1066,16 +1077,32 @@ def main() -> int:
                      "and dQ-zeroing pass and the dQ cast; backward_ms is "
                      "attention_backward, the same plus dout.contiguous()"),
         summary(rows, paths, "splat_sum", cu + "splat.cu",
-                "diffcodec_tpu/ops/softsplat_pallas.py:112", "decode"),
+                "diffcodec_tpu/ops/softsplat_pallas.py:112", "decode",
+                note="splat_sum_kernel (C >= 16): a warp a pixel, each "
+                     "corner's row in v4 reductions (red.global.add.v4.f32) "
+                     "over its 16-byte-aligned body and scalar ones over "
+                     "its unaligned head and tail; splat_small_kernel "
+                     "(C < 16): PR 4's scalar reductions"),
         summary(rows, paths, "gn_silu_conv3x3", cu + "conv3x3.cu",
-                "diffcodec_tpu/ops/conv_pallas.py:211", "decode_fusedconv"),
+                "diffcodec_tpu/ops/conv_pallas.py:211", "decode_fusedconv",
+                note="conv3x3_hopper where O > 8 (its launches include the "
+                     "out-head's, which conv3x3_head lists)"),
+        summary(rows, paths, "conv3x3_head", cu + "conv3x3.cu",
+                "diffcodec_tpu/ops/conv_pallas.py:211", "decode_fusedconv",
+                note="conv3x3_head: dc_conv3x3 where O <= 8, the VAE's "
+                     "128 -> 3 out-head, project-then-stencil (the Hopper "
+                     "counterpart of conv_pallas.py:424 "
+                     "gn_silu_conv3x3_projected): a 12 x 16 tile's halo by "
+                     "TMA in chunks of 64 channels, activated in place, "
+                     "projected onto 32 columns (9 taps x 3 channels) by "
+                     "wgmma, the 9 taps summed from fp32 projections in "
+                     "shared memory; 3 blocks an SM"),
         summary(rows, paths, "upsample_conv3x3", cu + "conv3x3.cu",
                 "diffcodec_tpu/ops/conv_pallas.py:531", "decode_fusedconv",
-                note="conv3x3_hopper in its upsample mode: a tile is one "
-                     "output phase of 16 x 16 input positions by 128 "
-                     "output channels, read from the stride-1 halo by 4 "
-                     "collapsed taps a chunk; the mma.sync loop only "
-                     "where O <= 16, which no decode reaches"),
+                note="conv3x3_hopper in its upsample mode at every O: a "
+                     "tile is one output phase of 16 x 16 input positions "
+                     "by 128 output channels, read from the stride-1 halo "
+                     "by 4 collapsed taps a chunk"),
         summary(rows, paths, "downsample_conv3x3", cu + "conv3x3.cu",
                 "diffcodec_tpu/ops/conv_pallas.py:703", "train"),
         summary(rows, paths, "silu_conv3x3", cu + "conv3x3.cu",

@@ -29,11 +29,13 @@
 //     the operations: 0.97 ms at [7, 256, 256, 256 -> 256] and at
 //     [7, 128, 128, 512 -> 512].
 //
-// Two main loops.  Every entry runs on the Hopper loop where O > 16;
-// dc_conv3x3 and dc_upsample_conv3x3 take the mma.sync loop where O <= 16.
+// Two kernels.  dc_conv3x3 takes the project-then-stencil kernel where
+// O <= 8 and the Hopper loop where O > 8; dc_upsample_conv3x3 and
+// dc_downsample_conv3x3 take the Hopper loop at every O.
 //
-// The Hopper loop (conv3x3_hopper): dc_conv3x3 and dc_upsample_conv3x3
-// where O > 16, and dc_downsample_conv3x3 at every O.  Three modes: stride
+// The Hopper loop (conv3x3_hopper): dc_conv3x3 where O > 8,
+// dc_upsample_conv3x3 and dc_downsample_conv3x3 at every O (it masks its
+// 128-column tile on O).  Three modes: stride
 // 1, stride 2 and the upsample.  Persistent: one block of 512 threads
 // per SM walks tiles i, i + #SMs, ...; its roles walk the same sequence of
 // (tile, chunk of 64 input channels) steps, so the copies and the
@@ -101,19 +103,53 @@
 // H100 at 700 W: with its products off it takes half the time, with its
 // copies or its stores off 5-7% less (PERF.md).
 //
-// The mma.sync loop (conv3x3_kernel), kept for dc_conv3x3 and
-// dc_upsample_conv3x3 where O <= 16 (the 128 -> 3 out-head, bound by
-// bytes): a 128-column wgmma tile would be 8x wider than the output.
-// A block of 16 warps computes 256 output pixels (a 16 x 16 tile, one
-// output phase for the upsample) by BN = 16 channels; input channels are
-// walked in chunks of 16 (read from the weight layout's chunks of 64),
-// copied with cp.async into a three-stage ring and activated once in
-// shared memory by the thread that copied them; fragments come by
-// ldmatrix at a 48-byte row stride (conflict-free) into mma.sync m16n8k16.
+// The project-then-stencil kernel (conv3x3_head): dc_conv3x3 where
+// O <= 8, the VAE decoder's 128 -> 3 out-head.
+// The Hopper counterpart of conv_pallas.py::gn_silu_conv3x3_projected
+// (:424-443), the TPU's own route for the head: a 128-column tile would
+// be 43x wider than the output, so the kernel projects every input pixel
+// onto its 9 * O tap-outputs first and sums the taps after.
+//   * a block owns a 12 x 16 tile of output pixels and up to 3 output
+//     channels (9 taps x 3 = 27 of 32 projection columns; O > 3 runs
+//     ceil(O / 3) blocks a tile, the group fastest so they share the halo
+//     in L2).  256 threads, 3 blocks an SM (73 KB of shared memory each):
+//     while one block computes, the others' copies run.  (Persistent
+//     blocks that copied the next tile's first chunk under this tile's
+//     last one were slower: PERF.md.)
+//   * one thread copies the tile's 14 x 18 halo by TMA, 64 channels a
+//     chunk (the 4-D map of the Hopper loop with this box; its zero fill
+//     is the SAME pad ring), with the chunk's projection columns [32][64]
+//     (from the wrapper's [G][Cp / 64][32][64]), into a ring of two
+//     stages on mbarriers: the next chunk lands while this one is used.
+//   * every thread activates the landed halo in place: the Hopper loop's
+//     rounding order (fp32 affine as a product then a sum, rounded to
+//     bf16; SiLU; rounded to bf16), only at in-image positions below C
+//     (a padded zero must not become silu(shift)).  SiLU is h + h tanh(h)
+//     with h = x / 2 and tanh.approx.f32: one SFU operation an element
+//     where __expf and the division take two (those took 42% longer at
+//     the head's shape: PERF.md).  Its error is at most ~2^-11 |h| before
+//     the rounding to bf16: where x < -3 an activation may land an ulp or
+//     two from the plain version's.
+//   * each warpgroup multiplies two m64 tiles of the halo's pixels by the
+//     32 projection columns with wgmma m64n32k16, A and B both read from
+//     the 128-byte-swizzled stage (K-major), fp32 accumulators in
+//     registers across the chunks.
+//   * the projections go to shared memory in fp32 ([column][pixel], over
+//     the stages, which no copy writes any more), and each output pixel
+//     sums its 9 taps in fp32, adds the bias and the residual and rounds
+//     once to bf16.  JAX's projected form rounds each projection to bf16
+//     and adds the bias in bf16 (conv_pallas.py:437,442); this kernel
+//     rounds only the result, as the Hopper loop does.
+// At [7, 512, 512, 128 -> 3] it must read 470 MB and write 11 MB: 0.144
+// ms at 3.35 TB/s.  Its products (~20 GFLOP with the halo and the padded
+// columns) take ~0.02 ms of the tensor cores.  What bounds it now
+// (PERF.md): its activation, ~0.28 G elements with the halo at ~10
+// instructions and a tanh.approx each; without it the copies alone take
+// 0.166 ms, with it 0.249.
 //
-// Both take C % 8 == 0 (16-byte vectors of 8 channels), any O >= 1, any
-// H, W (stride 2: H, W >= 2); offsets into activations are 64-bit
-// ([7, 512, 512, 256] holds 4.7e8 elements).
+// Every entry takes C % 8 == 0 (16-byte vectors of 8 channels), any
+// O >= 1, any H, W (stride 2: H, W >= 2); offsets into activations are
+// 64-bit ([7, 512, 512, 256] holds 4.7e8 elements).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -823,300 +859,300 @@ int launch_hopper(const void* x, const void* scale, const void* shift,
 }
 
 // ---------------------------------------------------------------------------
-// The mma.sync loop (dc_conv3x3 and dc_upsample_conv3x3 where O <= 16).
+// The project-then-stencil kernel (dc_conv3x3 where O <= 8).
 
-constexpr int kThreads = 512;     // 16 warps
-constexpr int kStages = 3;        // shared-memory stages of the chunk ring
-constexpr int kWarps = kThreads / 32;
-constexpr int kMmaBN = 16;         // output channels of a block
-constexpr int kTW = 16;           // output columns of a block's tile
-constexpr int kTH = 16;           // output rows of a block's tile
-constexpr int kBM = kTH * kTW;    // output pixels of a block
-constexpr int kHaloW = kTW + 2;
-constexpr int kHalo = (kTH + 2) * kHaloW;
-constexpr int kBK = 16;           // input channels per chunk
-constexpr int kVec = kBK / 8;     // 16-byte vectors per chunk row
-constexpr int kLD = kBK + 8;      // bf16 row stride in shared memory
+constexpr int kHeadMaxO = 8;   // dc_conv3x3 takes conv3x3_head up to here
+constexpr int kPThreads = 256;
+constexpr int kPTH = 12, kPTW = 16;              // the output tile
+constexpr int kPPH = kPTH + 2, kPPW = kPTW + 2;  // its halo
+constexpr int kPPix = kPPH * kPPW;               // 252 halo pixels
+constexpr int kPMT = (kPPix + 63) / 64;          // m64 tiles over them
+constexpr int kPMW = kPMT / 2;                   // m64 tiles of a warpgroup
+constexpr int kPOG = 3;   // output channels of a block: 9 x 3 <= kPN
+constexpr int kPN = 32;   // projection columns
+constexpr int kPBoxBytes = kPPix * kCK * 2;      // one halo TMA box
+constexpr int kPHaloBytes = round1024(kPMT * 64 * 128);  // every m-tile row
+constexpr int kPWBytes = kPN * kCK * 2;          // a chunk's columns
+constexpr int kPStage = kPHaloBytes + kPWBytes;
+constexpr int kPStages = 2;
+// the projections' column stride in floats: = 4 (mod 32), so that the
+// accumulators' stores (8 rows x 4 column pairs a warp) hit 32 banks
+constexpr int kPZS = kPMT * 64 + 4;
+constexpr size_t kPSmem = 1024 + kPStages * kPStage + 8 * kPStages;
+static_assert(kPMT == 2 * kPMW && kPThreads == 256, "two warpgroups");
+static_assert(9 * kPOG <= kPN, "projection columns");
+static_assert(kPN * kPZS * 4 <= kPStages * kPStage, "projections");
+static_assert(3 * (kPSmem + 1024) <= 233472, "three blocks an SM");
 
-// 16-byte global -> shared copy that bypasses registers; zero-fills the
-// destination when `valid` is false
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src), "r"(valid ? 16 : 0));
+__device__ __forceinline__ float tanh_approx(float x) {
+  float y;
+  asm("tanh.approx.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// d[16x8] += a[16x16] . b[16x8], bf16 operands, fp32 accumulators
-__device__ __forceinline__ void mma_16816(float (&d)[4],
-                                          const uint32_t (&a)[4], uint32_t b0,
-                                          uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-template <int TAPS, int BN>
-struct Smem {
-  static constexpr int kStage = (kHalo + TAPS * BN) * kLD;  // bf16
-  static constexpr size_t kBytes =
-      kStages * sizeof(__nv_bfloat16) * kStage;
-};
-
-// PRO: prologue; RES: add a residual [B, H, W, O] in the epilogue; UP: the
-// upsample's 4 phases of 4 collapsed taps, else 9 taps.  A block computes
-// BN = 16 output channels (the loop serves O <= 16 only), its 16 warps
-// (WARPS_M) down the pixels; KW: the input channels of a chunk of the
-// weight layout ([P][Cp / KW][TAPS][O][KW], read 16 channels at a time).
-// Output pixel (oy, ox) of the base grid H x W (the output, or for UP the
-// input resolution) reads input pixel (oy + dy - 1, ox + dx - 1) at tap
-// (dy, dx).
-template <int PRO, bool RES, bool UP>
-__global__ void __launch_bounds__(kThreads, 1)
-conv3x3_kernel(const __nv_bfloat16* __restrict__ x,
-               const float* __restrict__ scale,
-               const float* __restrict__ shift,
-               const __nv_bfloat16* __restrict__ w,
-               const float* __restrict__ bias,
-               const __nv_bfloat16* __restrict__ res,
-               __nv_bfloat16* __restrict__ out, int H, int W, int C, int O,
-               int tiles_w) {
-  constexpr int BN = kMmaBN, WARPS_M = kWarps, KW = kCK;
-  constexpr int TAPS = UP ? 4 : 9;
-  constexpr int WARPS_N = kWarps / WARPS_M;
-  constexpr int WM = kBM / WARPS_M;  // rows (pixels) of a warp
-  constexpr int WN = BN / WARPS_N;   // columns (channels) of a warp
-  constexpr int MT = WM / 16;
-  constexpr int NT = WN / 8;
-  constexpr int kStage = Smem<TAPS, BN>::kStage;
-  static_assert(WM % 16 == 0 && WN % 16 == 0, "warp tile");
-  extern __shared__ __align__(16) unsigned char smem[];
-  // kStages stages of [halo kHalo][kLD] then [weights TAPS * BN][kLD]
-  __nv_bfloat16* stages = reinterpret_cast<__nv_bfloat16*>(smem);
-
-  const int ty0 = (blockIdx.x / tiles_w) * kTH;
-  const int tx0 = (blockIdx.x % tiles_w) * kTW;
-  const int iy0 = ty0 - 1;  // input pixel of the halo's corner
-  const int ix0 = tx0 - 1;
-  const int n0 = blockIdx.y * BN;
-  const int phase = UP ? (blockIdx.z & 3) : 0;
-  const int b = UP ? (blockIdx.z >> 2) : blockIdx.z;
-  const int di = phase >> 1, dj = phase & 1;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int wm = warp % WARPS_M;
-  const int wn = warp / WARPS_M;
-
-  const __nv_bfloat16* xb = x + (size_t)b * H * W * C;
-  const int n_chunks = (C + kBK - 1) / kBK;
-  // this phase's weights, [Cp / KW][TAPS][O][KW], zero past C
-  const __nv_bfloat16* wp =
-      w + (size_t)phase * ((C + KW - 1) / KW) * TAPS * O * KW;
-  const size_t bc = PRO == kAffineSilu ? (size_t)b * C : 0;
-  const float* scb = scale + bc;  // null, and unread, below kAffineSilu
-  const float* shb = shift + bc;
-
-  // one chunk of channels [c0, c0 + kBK): the raw halo and the weights,
-  // copied asynchronously into `stage`, as one cp.async group; 0 outside
-  // the image, past C and past O
-  auto copy_chunk = [&](int c0, __nv_bfloat16* stage) {
-    for (int i = threadIdx.x; i < kHalo * kVec; i += kThreads) {
-      const int p = i / kVec;
-      const int v = i - p * kVec;
-      const int y = iy0 + p / kHaloW;
-      const int xx = ix0 + p % kHaloW;
-      const int c = c0 + v * 8;
-      const bool ok = y >= 0 && y < H && xx >= 0 && xx < W && c < C;
-      cp_async16(stage + p * kLD + v * 8,
-                 ok ? xb + ((size_t)y * W + xx) * C + c : xb, ok);
-    }
-    __nv_bfloat16* sw = stage + kHalo * kLD;
-    const __nv_bfloat16* wc =
-        wp + (size_t)(c0 / KW) * TAPS * O * KW + c0 % KW;
-    for (int i = threadIdx.x; i < TAPS * BN * kVec; i += kThreads) {
-      const int r = i / kVec;  // tap * BN + n
-      const int v = i - r * kVec;
-      const int tap = r / BN;
-      const int n = n0 + r - tap * BN;
-      const bool ok = n < O;
-      cp_async16(sw + r * kLD + v * 8,
-                 ok ? wc + ((size_t)tap * O + n) * KW + v * 8 : wp, ok);
-    }
-    cp_async_commit();
-  };
-  // the prologue on the halo vectors this thread copied (its own copies
-  // are visible to it once waited for); padding stays 0: a padded zero
-  // must not become silu(shift)
-  auto activate = [&](int c0, __nv_bfloat16* stage) {
-    if (PRO == kNone) return;
-    for (int i = threadIdx.x; i < kHalo * kVec; i += kThreads) {
-      const int p = i / kVec;
-      const int v = i - p * kVec;
-      const int y = iy0 + p / kHaloW;
-      const int xx = ix0 + p % kHaloW;
-      const int c = c0 + v * 8;
-      if (y >= 0 && y < H && xx >= 0 && xx < W && c < C) {
-        uint4* q = reinterpret_cast<uint4*>(stage + p * kLD + v * 8);
-        uint4 val = *q;
-        float sc[8], sh[8];
-        affine_of<PRO>(sc, sh, scb, shb, c);
-        prologue<PRO>(val, sc, sh);
-        *q = val;
-      }
-    }
-  };
-
-  float acc[MT][NT][4];
+// the prologue of `prologue` above, with SiLU as h + h tanh(h), h = x / 2
+// (one SFU operation an element; see the header)
+template <int PRO>
+__device__ __forceinline__ void prologue_tanh(uint4& raw,
+                                              const float (&sc)[8],
+                                              const float (&sh)[8]) {
+  __nv_bfloat162* v = reinterpret_cast<__nv_bfloat162*>(&raw);
 #pragma unroll
-  for (int mt = 0; mt < MT; ++mt) {
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-      acc[mt][nt][0] = acc[mt][nt][1] = acc[mt][nt][2] = acc[mt][nt][3] = 0.f;
+  for (int j = 0; j < 4; ++j) {
+    float2 f = __bfloat1622float2(v[j]);
+    if (PRO == kAffineSilu) {
+      f = __bfloat1622float2(
+          __floats2bfloat162_rn(__fadd_rn(__fmul_rn(f.x, sc[2 * j]),
+                                          sh[2 * j]),
+                                __fadd_rn(__fmul_rn(f.y, sc[2 * j + 1]),
+                                          sh[2 * j + 1])));
     }
+    const float hx = 0.5f * f.x, hy = 0.5f * f.y;
+    v[j] = __floats2bfloat162_rn(fmaf(hx, tanh_approx(hx), hx),
+                                 fmaf(hy, tanh_approx(hy), hy));
   }
+}
 
-  // ldmatrix lane roles: A rows (pixels) lane % 16, k half lane / 16; B
-  // rows (channels) lane % 8 + 8 * (lane / 16), k half (lane / 8) % 2
-  const int a_row = lane & 15;
-  const int a_k = (lane >> 4) * 8;
-  const int b_row = (lane & 7) + ((lane >> 4) << 3);
-  const int b_k = ((lane >> 3) & 1) * 8;
+// the prologue, in place, on a stage's halo pixels: thread t takes its
+// 16-byte vector grp (at grp ^ (pixel & 7) in the pixel's row: 8 threads
+// a row, conflict-free) of pixels t / 8, t / 8 + 32, ..., with its
+// channels' scale and shift in registers.  CHECK: only the pixels inside
+// the image (the pad ring stays zero); a tile whose halo lies inside
+// skips the test (4% of the kernel at the head's shape: PERF.md)
+template <int PRO, bool CHECK>
+__device__ __forceinline__ void activate_halo(unsigned char* st, int t,
+                                              const float (&sc)[8],
+                                              const float (&sh)[8], int iy0,
+                                              int ix0, int H, int W) {
+  const int grp = t & 7;
+#pragma unroll 4
+  for (int p = t >> 3; p < kPPix; p += kPThreads / 8) {
+    if (CHECK) {
+      const int hy = p / kPPW;
+      const int y = iy0 + hy;
+      const int xx = ix0 + p - hy * kPPW;
+      if (y < 0 || y >= H || xx < 0 || xx >= W) continue;
+    }
+    uint4* q =
+        reinterpret_cast<uint4*>(st + p * 128 + ((grp ^ (p & 7)) << 4));
+    uint4 val = *q;
+    prologue_tanh<PRO>(val, sc, sh);
+    *q = val;
+  }
+}
 
-  // chunk j lives in stage j % 3; an empty group keeps the count of
-  // cp.async groups uniform, so wait<1> always means "chunk j + 1 landed"
-  auto stage = [&](int j) { return stages + (j % kStages) * kStage; };
-  copy_chunk(0, stage(0));
-  if (n_chunks > 1) copy_chunk(kBK, stage(1));
-  else cp_async_commit();
-  cp_async_wait<1>();
-  activate(0, stage(0));
+// PRO: prologue; RES: add a residual [B, H, W, O].  Block i: output
+// channel group i % groups (channels [3 g, 3 g + og)), then the tile
+// column, the tile row and the image.  Output pixel (y, x) reads input
+// pixel (y + dy - 1, x + dx - 1) at tap (dy, dx).
+template <int PRO, bool RES>
+__global__ void __launch_bounds__(kPThreads, 3)
+conv3x3_head(const __grid_constant__ CUtensorMap xmap,
+             const __grid_constant__ CUtensorMap wmap,
+             const float* __restrict__ scale,
+             const float* __restrict__ shift,
+             const float* __restrict__ bias,
+             const __nv_bfloat16* __restrict__ res,
+             __nv_bfloat16* __restrict__ out, int H, int W, int C, int O,
+             int tiles_w, int tiles_h, int groups) {
+  extern __shared__ unsigned char smem_raw[];
+  // stage s: [kPMT * 64 pixels][64 channels] of the halo (128-byte
+  // swizzle; rows past kPPix unused), then [32 columns][64 channels]
+  unsigned char* stages = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~(uintptr_t)1023);
+  uint64_t* full = reinterpret_cast<uint64_t*>(stages + kPStages * kPStage);
+
+  int blk = blockIdx.x;
+  const int g = blk % groups;
+  blk /= groups;
+  const int tx0 = (blk % tiles_w) * kPTW;
+  blk /= tiles_w;
+  const int ty0 = (blk % tiles_h) * kPTH;
+  const int b = blk / tiles_h;
+  const int o0 = kPOG * g;
+  const int og = min(kPOG, O - o0);
+  const int iy0 = ty0 - 1, ix0 = tx0 - 1;
+  const int n_chunks = (C + kCK - 1) / kCK;
+  const int t = threadIdx.x;
+
+  if (t == 0) {
+    for (int s = 0; s < kPStages; ++s) mbar_init(&full[s], 1);
+    mbar_init_fence();
+  }
   __syncthreads();
-  for (int j = 0; j < n_chunks; ++j) {
-    // stage (j + 2) % 3 was last read in iteration j - 1, before its
-    // closing barrier
-    if (j + 2 < n_chunks) copy_chunk((j + 2) * kBK, stage(j + 2));
-    else cp_async_commit();
-    cp_async_wait<1>();
-    if (j + 1 < n_chunks) activate((j + 1) * kBK, stage(j + 1));
-    const __nv_bfloat16* sx = stage(j);
-    const __nv_bfloat16* sw = sx + kHalo * kLD;
-
-#pragma unroll
-    for (int tap = 0; tap < TAPS; ++tap) {
-      // halo offset of the tap: rows and columns of the padded tile
-      const int dy = UP ? (tap >> 1) + di : tap / 3;
-      const int dx = UP ? (tap & 1) + dj : tap % 3;
-      uint32_t a[MT][4];
-#pragma unroll
-      for (int mt = 0; mt < MT; ++mt) {
-        // an m-tile is one tile row of 16 pixels
-        const int py = (wm * WM + mt * 16) / kTW;
-        ldmatrix_x4(a[mt], smem_addr(sx + ((py + dy) * kHaloW + dx + a_row) *
-                                              kLD + a_k));
-      }
-#pragma unroll
-      for (int nt = 0; nt < NT; nt += 2) {
-        uint32_t bf[4];  // b0, b1 of n-tiles nt and nt + 1
-        ldmatrix_x4(bf, smem_addr(sw + (tap * BN + wn * WN + nt * 8 + b_row) *
-                                           kLD + b_k));
-#pragma unroll
-        for (int mt = 0; mt < MT; ++mt) {
-          mma_16816(acc[mt][nt], a[mt], bf[0], bf[1]);
-          mma_16816(acc[mt][nt + 1], a[mt], bf[2], bf[3]);
-        }
-      }
-    }
-    __syncthreads();  // chunk j + 1 activated for all; stage j free
+  // chunk k's halo and projection columns into stage k % kPStages
+  auto load = [&](int k) {
+    unsigned char* st = stages + (k % kPStages) * kPStage;
+    uint64_t* bar = &full[k % kPStages];
+    mbar_expect_tx(bar, kPBoxBytes + kPWBytes);
+    tma_load_4d(st, &xmap, bar, k * kCK, ix0, iy0, b);
+    tma_load_3d(st + kPHaloBytes, &wmap, bar, 0, 0, g * n_chunks + k);
+  };
+  if (t == 0) {
+    for (int k = 0; k < kPStages && k < n_chunks; ++k) load(k);
   }
 
-  // epilogue: + bias (+ residual) in fp32, one rounding to bf16
-  const int g = lane >> 2;  // accumulator row group
-  const int t = lane & 3;   // accumulator column pair
-  const int Ho = UP ? 2 * H : H;
-  const int Wo = UP ? 2 * W : W;
-  const bool pairs = (O & 1) == 0;
+  // the activation: thread t takes channels 8 grp .. + 7 of a chunk
+  const int grp = t & 7;
+  const bool inside = iy0 >= 0 && iy0 + kPPH <= H && ix0 >= 0 &&
+                      ix0 + kPPW <= W;
+  // the products: warpgroup wg takes m64 tiles wg and wg + 2 of the halo's
+  // pixels
+  const int warp = t / 32, lane = t % 32;
+  const int wg = warp >> 2;
+  float acc[kPMW][kPN / 2];
 #pragma unroll
-  for (int mt = 0; mt < MT; ++mt) {
+  for (int m = 0; m < kPMW; ++m) {
 #pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int r = wm * WM + mt * 16 + g + 8 * half;
-      const int y = ty0 + r / kTW;
-      const int xx = tx0 + r % kTW;
-      if (y >= H || xx >= W) continue;
-      const int oy = UP ? 2 * y + di : y;
-      const int ox = UP ? 2 * xx + dj : xx;
-      const size_t o_off = (((size_t)b * Ho + oy) * Wo + ox) * O;
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt) {
-        const int n = n0 + wn * WN + nt * 8 + 2 * t;
-        if (n >= O) continue;
-        const bool two = n + 1 < O;
-        float v0 = acc[mt][nt][2 * half] + bias[n];
-        float v1 = two ? acc[mt][nt][2 * half + 1] + bias[n + 1] : 0.f;
-        if (pairs) {  // n even, O even: n + 1 < O and 4-byte aligned
-          if (RES) {
-            const __nv_bfloat162 rv =
-                *reinterpret_cast<const __nv_bfloat162*>(res + o_off + n);
-            v0 += __low2float(rv);
-            v1 += __high2float(rv);
-          }
-          *reinterpret_cast<__nv_bfloat162*>(out + o_off + n) =
-              __floats2bfloat162_rn(v0, v1);
-        } else {
-          if (RES) v0 += __bfloat162float(res[o_off + n]);
-          out[o_off + n] = __float2bfloat16(v0);
-          if (two) {
-            if (RES) v1 += __bfloat162float(res[o_off + n + 1]);
-            out[o_off + n + 1] = __float2bfloat16(v1);
-          }
-        }
+    for (int i = 0; i < kPN / 2; ++i) acc[m][i] = 0.f;
+    fence_regs(acc[m]);
+  }
+  for (int k = 0; k < n_chunks; ++k) {
+    const int s = k % kPStages;
+    unsigned char* st = stages + s * kPStage;
+    const int c = k * kCK + 8 * grp;
+    float sc[8], sh[8];
+    if (c < C) {
+      const size_t bc = PRO == kAffineSilu ? (size_t)b * C : 0;
+      affine_of<PRO>(sc, sh, scale + bc, shift + bc, c);
+    }
+    mbar_wait_asm(&full[s], (k / kPStages) & 1);
+    if (c < C) {
+      if (inside) {
+        activate_halo<PRO, false>(st, t, sc, sh, iy0, ix0, H, W);
+      } else {
+        activate_halo<PRO, true>(st, t, sc, sh, iy0, ix0, H, W);
       }
     }
+    // the activation's generic writes precede wgmma's reads
+    fence_proxy_async();
+    __syncthreads();  // the chunk activated for every warp
+    // A: the halo's 128-byte rows, K-major; B: the chunk's 32 columns,
+    // K-major; a k-step of 16 channels is 32 bytes of a row
+    const unsigned hb = smem_addr(st);
+    const uint64_t db = desc_sw128(hb + kPHaloBytes, 16, 1024);
+    wgmma_fence();
+#pragma unroll
+    for (int m = 0; m < kPMW; ++m) {
+      const uint64_t da =
+          desc_sw128(hb + (wg + 2 * m) * 64 * 128, 16, 1024);
+#pragma unroll
+      for (int ks = 0; ks < kCK / 16; ++ks) {
+        wgmma_ss<kPN, 0, 0>(acc[m], desc_advance(da, 32 * ks),
+                            desc_advance(db, 32 * ks), 1);
+      }
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+#pragma unroll
+    for (int m = 0; m < kPMW; ++m) fence_regs(acc[m]);
+    __syncthreads();  // every product has read the stage: it may refill
+    if (t == 0 && k + kPStages < n_chunks) load(k + kPStages);
+  }
+
+  // the projections, fp32 [column][pixel] over the stages (every copy has
+  // landed and been read): thread t of warpgroup wg holds, of m64 tile
+  // wg + 2 m, rows 16 (t / 32) + (t % 32) / 4 (+ 8), columns 8 n + 2 (t % 4)
+  // (+ 1) in acc[m][4 n ..]
+  float* z = reinterpret_cast<float*>(stages);
+  {
+    const int rg = lane >> 2, cq = 2 * (lane & 3);
+#pragma unroll
+    for (int m = 0; m < kPMW; ++m) {
+      const int p = (wg + 2 * m) * 64 + 16 * (warp & 3) + rg;
+#pragma unroll
+      for (int n = 0; n < kPN / 8; ++n) {
+        float* zc = z + (8 * n + cq) * kPZS + p;
+        zc[0] = acc[m][4 * n];
+        zc[kPZS] = acc[m][4 * n + 1];
+        zc[8] = acc[m][4 * n + 2];
+        zc[kPZS + 8] = acc[m][4 * n + 3];
+      }
+    }
+  }
+  __syncthreads();
+
+  // the stencil: thread t takes output pixel (t / 16, t % 16) of the tile
+  // and its og channels: the 9 taps' projections (column tap * og + o at
+  // halo pixel (r + dy, c + dx)) summed in fp32, + bias (+ residual),
+  // rounded once
+  if (t >= kPTH * kPTW) return;
+  const int r = t / kPTW, cx = t % kPTW;
+  const int y = ty0 + r, xx = tx0 + cx;
+  if (y >= H || xx >= W) return;
+  const size_t o_off = (((size_t)b * H + y) * W + xx) * O + o0;
+  for (int o = 0; o < og; ++o) {
+    float v = 0.f;
+#pragma unroll
+    for (int tap = 0; tap < 9; ++tap) {
+      v += z[(tap * og + o) * kPZS + (r + tap / 3) * kPPW + cx + tap % 3];
+    }
+    v += bias[o0 + o];
+    if (RES) v += __bfloat162float(res[o_off + o]);
+    out[o_off + o] = __float2bfloat16(v);
   }
 }
 
-template <int PRO, bool RES, bool UP>
-int launch(const void* x, const void* scale, const void* shift,
-           const void* w, const void* bias, const void* res, void* out,
-           int B, int H, int W, int C, int O, cudaStream_t stream) {
-  constexpr size_t smem = Smem<UP ? 4 : 9, kMmaBN>::kBytes;
-  auto kernel = conv3x3_kernel<PRO, RES, UP>;
+template <int PRO, bool RES>
+int launch_head(const void* x, const void* scale, const void* shift,
+                const void* w, const void* bias, const void* res, void* out,
+                int B, int H, int W, int C, int O, cudaStream_t stream) {
+  const EncodeTiled enc = encode_tiled();
+  if (!enc) return (int)cudaErrorNotSupported;
+  const cuuint64_t e = 2;  // bytes of a bf16
+  const int n_chunks = (C + kCK - 1) / kCK;
+  const int groups = (O + kPOG - 1) / kPOG;
+  CUtensorMap xmap, wmap;
+  {  // x [B, H, W, C]: box a chunk's 64 channels of the 14 x 18 halo
+    const cuuint64_t dims[4] = {(cuuint64_t)C, (cuuint64_t)W, (cuuint64_t)H,
+                                (cuuint64_t)B};
+    const cuuint64_t strides[3] = {C * e, (cuuint64_t)W * C * e,
+                                   (cuuint64_t)H * W * C * e};
+    const cuuint32_t box[4] = {kCK, kPPW, kPPH, 1};
+    if (!encode_bf16(enc, &xmap, x, 4, dims, strides, box)) {
+      return (int)cudaErrorInvalidValue;
+    }
+  }
+  {  // the projection [groups * n_chunks][32][64]: box one chunk's
+    const cuuint64_t dims[3] = {kCK, kPN, (cuuint64_t)groups * n_chunks};
+    const cuuint64_t strides[2] = {kCK * e, kPN * kCK * e};
+    const cuuint32_t box[3] = {kCK, kPN, 1};
+    if (!encode_bf16(enc, &wmap, w, 3, dims, strides, box)) {
+      return (int)cudaErrorInvalidValue;
+    }
+  }
+  auto kernel = conv3x3_head<PRO, RES>;
   static std::atomic<bool> smem_set[kMaxDevices];
-  cudaError_t err = set_smem(kernel, smem, smem_set);
+  cudaError_t err = set_smem(kernel, kPSmem, smem_set);
   if (err != cudaSuccess) return (int)err;
-  const int tiles_w = (W + kTW - 1) / kTW;
-  const int tiles_h = (H + kTH - 1) / kTH;
-  const dim3 grid(tiles_w * tiles_h, (O + kMmaBN - 1) / kMmaBN,
-                  UP ? 4 * B : B);
-  if (grid.y > 65535 || grid.z > 65535) return (int)cudaErrorInvalidValue;
-  kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(x),
-      static_cast<const float*>(scale), static_cast<const float*>(shift),
-      static_cast<const __nv_bfloat16*>(w), static_cast<const float*>(bias),
+  // three blocks an SM need the whole carveout for shared memory (the
+  // attribute is the function's, and setting it again is harmless)
+  err = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributePreferredSharedMemoryCarveout,
+                             (int)cudaSharedmemCarveoutMaxShared);
+  if (err != cudaSuccess) return (int)err;
+  const int tiles_w = (W + kPTW - 1) / kPTW;
+  const int tiles_h = (H + kPTH - 1) / kPTH;
+  const long long blocks = (long long)groups * tiles_w * tiles_h * B;
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  kernel<<<(unsigned)blocks, kPThreads, kPSmem, stream>>>(
+      xmap, wmap, static_cast<const float*>(scale),
+      static_cast<const float*>(shift), static_cast<const float*>(bias),
       static_cast<const __nv_bfloat16*>(res),
-      static_cast<__nv_bfloat16*>(out), H, W, C, O, tiles_w);
+      static_cast<__nv_bfloat16*>(out), H, W, C, O, tiles_w, tiles_h,
+      groups);
   return (int)cudaGetLastError();
 }
 
-// dc_conv3x3: the mma.sync loop where O <= 16, else the Hopper loop
+// dc_conv3x3: the project-then-stencil kernel where O <= 8, else the
+// Hopper loop
 template <int PRO, bool RES>
 int launch_conv(const void* x, const void* scale, const void* shift,
                 const void* w, const void* bias, const void* res, void* out,
                 int B, int H, int W, int C, int O, cudaStream_t stream) {
-  if (O <= 16) {
-    return launch<PRO, RES, false>(x, scale, shift, w, bias, res, out, B, H,
-                                   W, C, O, stream);
+  if (O <= kHeadMaxO) {
+    return launch_head<PRO, RES>(x, scale, shift, w, bias, res, out, B, H, W,
+                                 C, O, stream);
   }
   return launch_hopper<PRO, RES, 1>(x, scale, shift, w, bias, res, out, B, H,
                                     W, C, O, H, W, 1, stream);
@@ -1129,8 +1165,12 @@ bool bad_shape(int B, int H, int W, int C, int O) {
 }  // namespace
 
 // out [B, H, W, O] = conv3x3 SAME (prologue(x)) + bias (+ res).
-// x [B, H, W, C] bf16; w [Cp / 64, 9, O, 64] bf16, C zero-padded to Cp
-// (tap = 3 * row + column); bias [O] fp32; scale, shift [B, C] fp32 (read
+// x [B, H, W, C] bf16; w, C zero-padded to Cp (tap = 3 * row + column):
+// where O > 8 the taps [Cp / 64, 9, O, 64] bf16 (the Hopper loop), where
+// O <= 8 the projection [G, Cp / 64, 32, 64] bf16 (conv3x3_head), G =
+// ceil(O / 3): group g holds output channels [3 g, 3 g + og), og =
+// min(3, O - 3 g), its column tap * og + o the tap's weights of channel
+// 3 g + o, zero past 9 og; bias [O] fp32; scale, shift [B, C] fp32 (read
 // only for prologue 2); res [B, H, W, O] bf16 or null.  prologue 1: SiLU
 // (no residual: no caller adds one); 2: affine, then SiLU.  x and w
 // contiguous and 16-byte aligned, C % 8 == 0.  Launches on `stream` of the
@@ -1161,21 +1201,16 @@ extern "C" int dc_conv3x3(const void* x, const void* scale, const void* shift,
 // x [B, H, W, C] bf16; w [4, Cp / 64, 4, O, 64] bf16: phase di * 2 + dj,
 // collapsed tap a * 2 + b (conv_pallas.py::_collapse_upsample_kernel's
 // taps), C zero-padded to Cp; bias [O] fp32.  Same requirements and
-// return as dc_conv3x3.  The Hopper loop in its upsample mode where
-// O > 16 (a block computes one phase of 16 x 16 input positions by 128
-// output channels from their 18 x 18 halo), else the mma.sync loop.
+// return as dc_conv3x3.  The Hopper loop in its upsample mode (a block
+// computes one phase of 16 x 16 input positions by 128 output channels
+// from their 18 x 18 halo; the weight map's box zero-fills past O).
 extern "C" int dc_upsample_conv3x3(const void* x, const void* w,
                                    const void* bias, void* out, int B, int H,
                                    int W, int C, int O, void* stream) {
   if (bad_shape(B, H, W, C, O)) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-  if (O <= 16) {
-    return launch<kNone, false, true>(x, nullptr, nullptr, w, bias, nullptr,
-                                      out, B, H, W, C, O, s);
-  }
   return launch_hopper<kNone, false, 0>(x, nullptr, nullptr, w, bias,
                                         nullptr, out, B, H, W, C, O, 2 * H,
-                                        2 * W, 1, s);
+                                        2 * W, 1, (cudaStream_t)stream);
 }
 
 // out [B, Ho, Wo, O] = conv3x3 stride 2 (x padded by `pad` rows and

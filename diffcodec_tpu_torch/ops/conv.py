@@ -20,15 +20,21 @@ The kernels and their plain versions (counterparts in
 On a CPU tensor a wrapper computes its plain version.  On a CUDA tensor it
 launches the kernel (one `dc_conv3x3`, `dc_upsample_conv3x3` or
 `dc_downsample_conv3x3` call) or raises; `<wrapper>.launches` counts the
-launches.  Every wrapper is differentiable: its gradient is autograd's of
-the plain version (`_kernels.PlainBackward`), as the JAX package's
-`custom_vjp`s take the VJP of their `*_ref` forms (`conv_pallas.py:270-307,
-328-342, 589-603, 783-791`).  Each wrapper turns the
-OIHW weight into the kernel's layout per call: the taps [O, 9, C] of the
+launches.  `dc_conv3x3` runs the conv's Hopper loop where O > HEAD_MAX_O
+and the project-then-stencil kernel where O <= HEAD_MAX_O (the VAE's
+128 -> 3 out-head; the counterpart of
+`conv_pallas.py::gn_silu_conv3x3_projected` :424), whose launches
+`projected_head.launches` counts besides.  Every wrapper is
+differentiable: its gradient is autograd's of the plain version
+(`_kernels.PlainBackward`), as the JAX package's `custom_vjp`s take the
+VJP of their `*_ref` forms (`conv_pallas.py:270-307, 328-342, 589-603,
+783-791`).  Each wrapper turns the OIHW weight into the kernel's layout
+per call: the taps [O, 9, C] of the
 3x3 conv, or for the upsample the collapsed taps [4, O, 4, C] (phase
 di * 2 + dj, tap a * 2 + b, summed in fp32 and rounded to the weight's
 dtype once), cut into chunks of 64 input channels (one 128-byte row, what
-the Hopper loop's TMA copies take; `chunk_taps`).
+the Hopper loop's TMA copies take; `chunk_taps`); where O <= HEAD_MAX_O the
+projection columns of `head_projection`.
 
 Other counterpart (plain math only; the TPU's packed-lane layout is not
 ported): `conv_silu_chain` <- `ops/packed_conv.py::reference_chain` (:142).
@@ -36,6 +42,7 @@ ported): `conv_silu_chain` <- `ops/packed_conv.py::reference_chain` (:142).
 
 from __future__ import annotations
 
+import types
 from typing import Optional, Sequence
 
 import torch
@@ -139,6 +146,51 @@ def chunk_taps(taps: torch.Tensor, chunk: int) -> torch.Tensor:
             .contiguous())
 
 
+# `dc_conv3x3` takes the project-then-stencil kernel where O <= HEAD_MAX_O;
+# a block of it projects onto 32 columns, the 9 taps of up to HEAD_GROUP
+# output channels
+HEAD_MAX_O = 8
+HEAD_GROUP = 3
+HEAD_COLUMNS = 32
+
+
+def head_projection(weight: torch.Tensor) -> torch.Tensor:
+    """OIHW [O, C, 3, 3], O <= HEAD_MAX_O -> the head kernel's projection
+    [G, Cp / 64, 32, 64], G = ceil(O / 3): group g holds output channels
+    [3 g, 3 g + og), og = min(3, O - 3 g), and its column tap * og + o
+    (tap = 3 * row + col) the weights of channel 3 g + o at that tap, over
+    input channels zero-padded to Cp; columns past 9 og are zero.  Within a
+    group these are the tap-major columns of JAX's projected head
+    (`conv_pallas.py:435-436`, w2[c, tap * O + o])."""
+    O, C = weight.shape[:2]
+    if O > HEAD_MAX_O:
+        raise ValueError(f"head_projection: O = {O} > {HEAD_MAX_O}")
+    taps = weight.permute(2, 3, 0, 1).reshape(9, O, C)  # [tap, O, C]
+    groups = []
+    for o0 in range(0, O, HEAD_GROUP):
+        og = min(HEAD_GROUP, O - o0)
+        cols = taps[:, o0:o0 + og].reshape(9 * og, C)  # column tap * og + o
+        groups.append(F.pad(cols, (0, -C % CONV_CHUNK,
+                                   0, HEAD_COLUMNS - 9 * og)))
+    proj = torch.stack(groups)  # [G, 32, Cp]
+    G, N, Cp = proj.shape
+    return (proj.reshape(G, N, Cp // CONV_CHUNK, CONV_CHUNK)
+            .permute(0, 2, 1, 3).contiguous())
+
+
+def conv3x3_weights(weight: torch.Tensor) -> torch.Tensor:
+    """OIHW [O, C, 3, 3] -> what `dc_conv3x3` reads for this O: the
+    projection where O <= HEAD_MAX_O, else the chunked taps."""
+    if weight.shape[0] <= HEAD_MAX_O:
+        return head_projection(weight)
+    return chunk_taps(conv3x3_taps(weight)[None], CONV_CHUNK)
+
+
+# launches of the project-then-stencil kernel, by `silu_conv3x3` and
+# `gn_silu_conv3x3` (each counts them in its own `launches` too)
+projected_head = types.SimpleNamespace(launches=0)
+
+
 def _check_cuda(name: str, x, weight, bias, extra=()):
     """Raise unless x is a CUDA [B, H, W, C] tensor with C % 8 == 0, the
     weight [O, C, 3, 3] (any strides: it is laid out anew) and every
@@ -193,7 +245,7 @@ def _conv_cuda(name: str, x, weight, bias, scale=None, shift=None,
                       tuple(x.shape[:-1]) + (weight.shape[0],)))
     B, H, W, C, O = _check_cuda(name, x, weight, bias, extra)
     out = torch.empty(B, H, W, O, device=x.device, dtype=torch.bfloat16)
-    taps = chunk_taps(conv3x3_taps(weight)[None], CONV_CHUNK)
+    taps = conv3x3_weights(weight)
     bias32 = bias.float()
     lib = _kernels.lib()
     with torch.cuda.device(x.device):
@@ -205,6 +257,8 @@ def _conv_cuda(name: str, x, weight, bias, scale=None, shift=None,
             out.data_ptr(), B, H, W, C, O, 1 if scale is None else 2,
             _kernels.stream_ptr(x.device))
     _kernels.check(code, "dc_conv3x3")
+    if O <= HEAD_MAX_O:
+        projected_head.launches += 1
     return out
 
 

@@ -2,7 +2,7 @@
 """The 3x3 conv kernels of this tree against an older `conv3x3.cu`, in turns.
 
     python3 scripts/conv_kernel_ab.py OLD_CU [--old-chunk 64]
-        [--old-up-chunk 16] [--reps 10] [--out PATH]
+        [--old-up-chunk 64] [--small-o] [--reps 10] [--out PATH]
 
 Builds OLD_CU (for example a parent commit's
 `diffcodec_tpu_torch/csrc/conv3x3.cu`, written out with `git show` beside
@@ -11,12 +11,16 @@ with this tree's nvcc flags, beside this tree's library, and times both
 libraries' C entry points on the same inputs at every shape
 `chip_smoke.py` checks (the fused decoder's and the encoder's GN+SiLU+conv
 launches, the three stride-2 convs with both paddings, the upsamplers, the
-SiLU+conv) in the order old, new, new, old, with `chip_smoke.time_ms`
+SiLU+conv; with --small-o only the entries with O <= 16: the out-head and
+SMALL_O_SHAPES) in the order old, new, new, old, with `chip_smoke.time_ms`
 (CUDA events, median of per-call times).  Each library gets the weights
-in its own layout: chunks of `conv.CONV_CHUNK` input channels for this
-tree's, and for the old one chunks of `--old-chunk` (64 since the Hopper
-loop, 16 before it) and, for the upsample, of `--old-up-chunk` (16 while
-the upsample ran on the mma.sync loop).  Beside them: cuDNN's conv of the input already activated,
+in its own layout: this tree's what `conv.conv3x3_weights` and
+`conv.chunk_taps` lay out (the head kernel's projection where O <= 8,
+chunks of `conv.CONV_CHUNK` input channels else), and for the old one
+chunks of `--old-chunk` (64 since the Hopper loop, 16 before it) and, for
+the upsample, of `--old-up-chunk` (64 since `5a765f9`; 16 while the
+upsample ran on the mma.sync loop's chunks of 16, up to `6d70e99`).
+Beside them: cuDNN's conv of the input already activated,
 upsampled or padded (`F.conv2d`), the bound, and max |new - old|.  First
 it reports, for each kernel of this tree's `conv3x3.cu` and of OLD_CU,
 what `nvcc -Xptxas -v` says (registers, stack, spills), how many HGMMA
@@ -150,12 +154,34 @@ def same_sass(old_src, new_src, tmp, prefix):
     return out["new"][0], out["old"][0], same
 
 
-def cases(gen):
-    """(kind, shape, call(lib, taps), taps before chunking, library call,
-    flops, bytes), one case at a time, its inputs alive only while it is
-    timed."""
+# (kind, B, H, W, C, O, residual) of the entries with O <= 16 that no path
+# calls, beside the out-head: the head kernel with a residual and at O = 1
+# and 8, the Hopper loop at 8 < O <= 16 (the mma.sync loop's up to
+# `5a765f9`), the upsample at O <= 16 (likewise)
+SMALL_O_SHAPES = [("gn", 7, 512, 512, 128, 3, True),
+                  ("gn", 7, 512, 512, 128, 1, False),
+                  ("gn", 7, 512, 512, 128, 8, False),
+                  ("gn", 7, 512, 512, 128, 12, False),
+                  ("gn", 7, 512, 512, 128, 16, False),
+                  ("up", 7, 256, 256, 128, 3, False),
+                  ("up", 7, 256, 256, 128, 16, False)]
+
+
+def cases(gen, small_o=False):
+    """(kind, shape, call(lib, taps), taps before chunking, this tree's
+    weights, library call, flops, bytes), one case at a time, its inputs
+    alive only while it is timed; with small_o only the entries with
+    O <= 16."""
     stream = lambda: torch.cuda.current_stream().cuda_stream  # noqa: E731
-    for B, H, W, C, O, residual in cs.GN_SHAPES + cs.ENCODER_GN_SHAPES:
+    gn_shapes = cs.GN_SHAPES + cs.ENCODER_GN_SHAPES
+    up_shapes, down_shapes, silu_shapes = (cs.UP_SHAPES, cs.DOWN_SHAPES,
+                                           cs.SILU_SHAPES)
+    if small_o:
+        gn_shapes = [sh for sh in gn_shapes if sh[4] <= 16] + [
+            sh[1:] for sh in SMALL_O_SHAPES if sh[0] == "gn"]
+        up_shapes = [sh[1:6] for sh in SMALL_O_SHAPES if sh[0] == "up"]
+        down_shapes = silu_shapes = []
+    for B, H, W, C, O, residual in gn_shapes:
         a = cs._conv_inputs(gen, B, H, W, C, O)
         x, sc, sh, w, b = (a[k] for k in ("x", "scale", "shift", "weight",
                                           "bias"))
@@ -174,11 +200,12 @@ def cases(gen):
                 out.data_ptr(), *shape, 2, stream()), "dc_conv3x3")
             return out
         yield ("gn_silu_conv3x3", (B, H, W, C, O, residual), call,
-               conv.conv3x3_taps(w)[None], lambda act=act, w=w, b=b:
+               conv.conv3x3_taps(w)[None], conv.conv3x3_weights(w),
+               lambda act=act, w=w, b=b:
                F.conv2d(act, w, b, padding=1), 18.0 * B * H * W * C * O,
                2 * (B * H * W * C + B * H * W * O * (2 if residual else 1)
                     + 9 * C * O) + 4 * (2 * B * C + O))
-    for B, H, W, C, O in cs.DOWN_SHAPES:
+    for B, H, W, C, O in down_shapes:
         for pad in (0, 1):
             a = cs._conv_inputs(gen, B, H, W, C, O)
             x, w, b = a["x"], a["weight"], a["bias"]
@@ -195,12 +222,14 @@ def cases(gen):
                     out.data_ptr(), *shape, pad, stream()),
                     "dc_downsample_conv3x3")
                 return out
+            taps = conv.conv3x3_taps(w)[None]
             yield ("downsample_conv3x3", (B, H, W, C, O, pad == 0), call,
-                   conv.conv3x3_taps(w)[None], lambda xp=xp, w=w, b=b:
+                   taps, conv.chunk_taps(taps, conv.CONV_CHUNK),
+                   lambda xp=xp, w=w, b=b:
                    F.conv2d(xp, w, b, stride=2),
                    18.0 * B * Ho * Wo * C * O,
                    2 * (B * H * W * C + B * Ho * Wo * O + 9 * C * O) + 4 * O)
-    for B, H, W, C, O in cs.UP_SHAPES:
+    for B, H, W, C, O in up_shapes:
         a = cs._conv_inputs(gen, B, H, W, C, O)
         x, w, b = a["x"], a["weight"], a["bias"]
         up = (x[:, :, None, :, None, :].expand(B, H, 2, W, 2, C)
@@ -214,11 +243,12 @@ def cases(gen):
                 x.data_ptr(), taps.data_ptr(), b32.data_ptr(),
                 out.data_ptr(), *shape, stream()), "dc_upsample_conv3x3")
             return out
-        yield ("upsample_conv3x3", (B, H, W, C, O), call,
-               conv.collapse_upsample_taps(w), lambda up=up, w=w, b=b:
+        taps = conv.collapse_upsample_taps(w)
+        yield ("upsample_conv3x3", (B, H, W, C, O), call, taps,
+               conv.chunk_taps(taps, conv.CONV_CHUNK), lambda up=up, w=w, b=b:
                F.conv2d(up, w, b, padding=1), 32.0 * B * H * W * C * O,
                2 * (B * H * W * C + 4 * B * H * W * O + 9 * C * O) + 4 * O)
-    for B, H, W, C, O in cs.SILU_SHAPES:
+    for B, H, W, C, O in silu_shapes:
         a = cs._conv_inputs(gen, B, H, W, C, O)
         x, w, b = a["x"], a["weight"], a["bias"]
         act = F.silu(x).permute(0, 3, 1, 2)
@@ -231,7 +261,8 @@ def cases(gen):
                 None, out.data_ptr(), *shape, 1, stream()), "dc_conv3x3")
             return out
         yield ("silu_conv3x3", (B, H, W, C, O), call,
-               conv.conv3x3_taps(w)[None], lambda act=act, w=w, b=b:
+               conv.conv3x3_taps(w)[None], conv.conv3x3_weights(w),
+               lambda act=act, w=w, b=b:
                F.conv2d(act, w, b, padding=1), 18.0 * B * H * W * C * O,
                2 * (B * H * W * (C + O) + 9 * C * O) + 4 * O)
 
@@ -240,7 +271,9 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("old_cu")
     ap.add_argument("--old-chunk", type=int, default=conv.CONV_CHUNK)
-    ap.add_argument("--old-up-chunk", type=int, default=16)
+    ap.add_argument("--old-up-chunk", type=int, default=conv.CONV_CHUNK)
+    ap.add_argument("--small-o", action="store_true",
+                    help="only the entries with O <= 16")
     ap.add_argument("--reps", type=int, default=10)
     ap.add_argument("--out", default="chiprun_out/conv_kernel_ab.json")
     args = ap.parse_args()
@@ -263,8 +296,8 @@ def main() -> int:
                       flush=True)
         print(json.dumps(dict(same_sass_as_old=same)), flush=True)
         old = load(build_old(args.old_cu, tmp))
-        for kind, shape, call, taps, library, flops, nbytes in cases(gen):
-            t_new = conv.chunk_taps(taps, conv.CONV_CHUNK)
+        for (kind, shape, call, taps, t_new, library, flops,
+             nbytes) in cases(gen, args.small_o):
             t_old = conv.chunk_taps(taps, args.old_up_chunk
                                     if kind == "upsample_conv3x3"
                                     else args.old_chunk)

@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
-"""Where the 3x3 conv kernel's time goes on the card, and what each design
-choice of its Hopper loop is worth.
+"""Where the 3x3 conv kernels' time goes on the card, and what each design
+choice of the Hopper loop and of the project-then-stencil head is worth.
 
-    python3 scripts/conv_kernel_breakdown.py [--only NAME ...] [--out PATH]
+    python3 scripts/conv_kernel_breakdown.py [--only NAME ...]
+        [--shapes all|head] [--out PATH]
 
 Builds `diffcodec_tpu_torch/csrc/conv3x3.cu` as it is and once for each
 entry of BUILDS below (`--only` keeps the builds named), the source edited
@@ -15,11 +16,15 @@ nvcc per build, all started together:
     nothing reads the registers), and the epilogue's stores.  Such a build
     computes garbage: only its time is read; times that add up across
     parts mean the parts do not overlap;
+  * the same for the head kernel (`conv3x3_head`, dc_conv3x3 where
+    O <= 8; builds named head_*): its copies, its activation, its wgmma
+    products, its stencil (the 9-tap sums; the stores stay);
   * one design choice undone each: its output is checked too.
 Each build's `dc_conv3x3` (prologue 2), `dc_downsample_conv3x3` or
 `dc_upsample_conv3x3` is timed with CUDA events (`chip_smoke.time_ms`,
-twice) at SHAPES, and checked against an fp32 reference of the same
-function: the count of elements off by more than 0.05 + 0.02 |reference|.
+twice) at SHAPES (`--shapes head`: the out-head's alone), and checked
+against an fp32 reference of the same function: the count of elements
+off by more than 0.05 + 0.02 |reference|.
 Needs one CUDA device and nvcc; writes every row to --out (default
 chiprun_out/conv_kernel_breakdown.json) and prints the card's name and
 power limit last.
@@ -68,6 +73,31 @@ PARTS = {
          "            if (true) continue;"),
         ("              if (y < Ho && xx < Wo) {",
          "              if (false) {")],
+}
+# the head kernel's parts -> [(text of conv3x3.cu, what switches it off)]
+HEAD_PARTS = {
+    # the TMA copies: the thread arrives on the stage's barrier without
+    # copying (the stage keeps what it held)
+    "head_copies": [
+        ("    mbar_expect_tx(bar, kPBoxBytes + kPWBytes);\n"
+         "    tma_load_4d(st, &xmap, bar, k * kCK, ix0, iy0, b);\n"
+         "    tma_load_3d(st + kPHaloBytes, &wmap, bar, 0, 0, g * n_chunks + "
+         "k);\n",
+         "    mbar_arrive(bar);\n")],
+    "head_activation": [
+        ("  for (int p = t >> 3; p < kPPix; p += kPThreads / 8) {",
+         "  for (int p = t >> 3; p < 0; p += kPThreads / 8) {")],
+    # the wgmma products
+    "head_products": [
+        ("        wgmma_ss<kPN, 0, 0>(acc[m], desc_advance(da, 32 * ks),",
+         "        if (false) wgmma_ss<kPN, 0, 0>(acc[m], "
+         "desc_advance(da, 32 * ks),")],
+    # the 9-tap sums of the stencil (the bias, residual and stores stay)
+    "head_stencil": [
+        ("    for (int tap = 0; tap < 9; ++tap) {\n"
+         "      v += z[",
+         "    for (int tap = 0; tap < 0; ++tap) {\n"
+         "      v += z[")],
 }
 # the upsample's phase in the tile walk, next to the output-channel tile
 _PHASE = ("  t.p = S == 0 ? tile & 3 : 0;\n"
@@ -126,18 +156,35 @@ CHOICES = {
     # no L2 prefetch of the residual rows
     "no_residual_prefetch": [
         ("      if (RES && k == k0 + n_chunks - 1) {", "      if (false) {")],
+    # the head's SiLU by the Hopper loop's __expf and division (two SFU
+    # operations an element) instead of tanh.approx (one)
+    "head_exp_silu": [
+        ("    prologue_tanh<PRO>(val, sc, sh);",
+         "    prologue<PRO>(val, sc, sh);")],
+    # the head's in-image test on every halo pixel, also where the whole
+    # halo lies inside the image
+    "head_checked_halo": [
+        ("        activate_halo<PRO, false>(st, t, sc, sh, iy0, ix0, H, W);",
+         "        activate_halo<PRO, true>(st, t, sc, sh, iy0, ix0, H, W);")],
 }
 OFF = [("activation",), ("copies",), ("copies", "activation"),
        ("products",), ("products", "activation"), ("epilogue",)]
+HEAD_OFF = [("head_copies",), ("head_activation",), ("head_products",),
+            ("head_stencil",), ("head_activation", "head_products"),
+            ("head_activation", "head_products", "head_stencil")]
 # name -> (edits, whether the build computes the function)
 BUILDS = {"as_is": ([], True)}
 BUILDS.update({"off_" + "_".join(off): (
     list(itertools.chain.from_iterable(PARTS[p] for p in off)), False)
     for off in OFF})
+BUILDS.update({"head_off_" + "_".join(p[5:] for p in off): (
+    list(itertools.chain.from_iterable(HEAD_PARTS[p] for p in off)), False)
+    for off in HEAD_OFF})
 BUILDS.update({name: (edits, True) for name, edits in CHOICES.items()})
 # (B, H, W, C, O, stride, residual); stride 0: the upsample (H, W its
 # input's), at the decoder's two heaviest upsamplers
-SHAPES = [(7, 512, 512, 256, 128, 1, False),
+SHAPES = [(7, 512, 512, 128, 3, 1, False),    # the out-head (conv3x3_head)
+          (7, 512, 512, 256, 128, 1, False),
           (7, 512, 512, 128, 128, 1, True),
           (7, 128, 128, 512, 512, 1, False),
           (8, 512, 512, 128, 128, 2, False),
@@ -207,8 +254,12 @@ def inputs(gen, B, H, W, C, O, stride, residual):
         res = torch.randn(want.shape, device="cuda",
                           generator=gen).bfloat16()
         want = want + res.float()
-    taps = conv.chunk_taps(conv.collapse_upsample_taps(w) if stride == 0
-                           else conv.conv3x3_taps(w)[None], conv.CONV_CHUNK)
+    if stride == 1:
+        taps = conv.conv3x3_weights(w)
+    else:
+        taps = conv.chunk_taps(conv.collapse_upsample_taps(w) if stride == 0
+                               else conv.conv3x3_taps(w)[None],
+                               conv.CONV_CHUNK)
     return x, sc, sh, taps, bias, res, want
 
 
@@ -216,6 +267,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", default="chiprun_out/conv_kernel_breakdown.json")
     ap.add_argument("--only", nargs="+", default=None)
+    ap.add_argument("--shapes", choices=("all", "head"), default="all")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("conv_kernel_breakdown: needs a CUDA device", file=sys.stderr)
@@ -241,7 +293,9 @@ def main() -> int:
                 getattr(lib, fn).argtypes = _kernels._SIGNATURES[fn]
             libs[name] = lib
         gen = torch.Generator(device="cuda").manual_seed(0)
-        for B, H, W, C, O, stride, residual in SHAPES:
+        shapes = [sh for sh in SHAPES if args.shapes == "all"
+                  or sh[4] <= conv.HEAD_MAX_O]
+        for B, H, W, C, O, stride, residual in shapes:
             x, sc, sh, taps, bias, res, want = inputs(
                 gen, B, H, W, C, O, stride, residual)
             out = torch.empty(want.shape, device="cuda",

@@ -168,6 +168,117 @@ def test_upsample_walk_matches_jax(B, H, W, C, O, reference):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **KERNEL_TOL)
 
 
+def _head_walk(x, scale, shift, weight, bias, residual=None):
+    """The project-then-stencil kernel (`conv3x3.cu`, `conv3x3_head`),
+    written out in torch: the activation (affine, SiLU) at in-image
+    positions, x padded by one pixel (the TMA box's zero fill, which stays
+    zero) and to Cp channels; for each group of `head_projection`, the
+    projections Z = sum over chunks k of 64 channels of the chunk times the
+    group's [32][64] columns at depth g * n_chunks + k, in fp32; each output
+    channel 3 g + o the sum of the 9 taps' columns tap * og + o at the
+    shifted halo pixels; plus the bias and the residual."""
+    B, H, W, C = x.shape
+    O = weight.shape[0]
+    proj = tconv.head_projection(weight)
+    G, n_chunks = proj.shape[:2]
+    depth = proj.reshape(-1, tconv.HEAD_COLUMNS, tconv.CONV_CHUNK)
+    act = torch.nn.functional.silu(x * scale[:, None, None]
+                                   + shift[:, None, None])
+    xp = torch.nn.functional.pad(
+        act, (0, n_chunks * tconv.CONV_CHUNK - C, 1, 1, 1, 1))
+    out = torch.empty(B, H, W, O)
+    for g in range(G):
+        o0 = tconv.HEAD_GROUP * g
+        og = min(tconv.HEAD_GROUP, O - o0)
+        z = sum(xp[..., k * tconv.CONV_CHUNK:(k + 1) * tconv.CONV_CHUNK]
+                @ depth[g * n_chunks + k].T for k in range(n_chunks))
+        for o in range(og):
+            out[..., o0 + o] = sum(
+                z[:, t // 3:t // 3 + H, t % 3:t % 3 + W, t * og + o]
+                for t in range(9)) + bias[o0 + o]
+    return out if residual is None else out + residual
+
+
+@pytest.mark.parametrize("B,H,W,C,O,reference", [
+    (2, 13, 20, 72, 3, "xla_projected"),
+    (1, 9, 7, 8, 1, "xla_projected"),
+    (1, 8, 16, 16, 8, "xla_projected"),
+    (1, 8, 16, 16, 8, "pallas_interpret"),   # the Pallas kernel takes
+    (2, 16, 24, 72, 5, "pallas_interpret")])  # H % 8 == 0, W % 8 == 0
+def test_head_walk_matches_jax(B, H, W, C, O, reference):
+    """The indexing of the head kernel (projection columns, groups of 3
+    output channels, chunks of 64 with C = 72 past one, the shifted halo
+    pixels of the stencil, H and W off its 12 x 16 tile) against JAX's
+    projected head (`gn_silu_conv3x3_projected`, XLA) and its Pallas
+    GN+SiLU+conv in interpret mode, fp32."""
+    d = _conv_inputs(6, B=B, H=H, W=W, C=C, O=O)
+    args = [jnp.asarray(d[k]) for k in ("x", "scale", "shift", "k", "b")]
+    if reference == "xla_projected":
+        want = jconv.gn_silu_conv3x3_projected(*args)
+    else:
+        want = jconv.gn_silu_conv3x3_pallas(*args, th=8, interpret=True)
+    got = _head_walk(_t(d["x"]), _t(d["scale"]), _t(d["shift"]),
+                     _oihw(d["k"]), _t(d["b"]))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **KERNEL_TOL)
+
+
+@pytest.mark.parametrize("O,C", [(3, 64), (1, 8), (8, 40), (5, 128)])
+def test_head_projection_columns_match_jax(O, C):
+    """Each group of the head kernel's projection holds the tap-major
+    columns of JAX's projected head (`conv_pallas.py:435-436`: w2[c,
+    tap * O + o], here per group of 3 output channels), zero past 9 og
+    columns and past C channels, in chunks of 64 channels."""
+    k = _conv_inputs(7, C=C, O=O)["k"]
+    got = tconv.head_projection(_oihw(k)).numpy()
+    G = -(-O // tconv.HEAD_GROUP)
+    n_chunks = -(-C // tconv.CONV_CHUNK)
+    assert got.shape == (G, n_chunks, tconv.HEAD_COLUMNS, tconv.CONV_CHUNK)
+    cols = got.transpose(0, 2, 1, 3).reshape(G, tconv.HEAD_COLUMNS, -1)
+    assert not cols[..., C:].any()
+    for g in range(G):
+        o0 = tconv.HEAD_GROUP * g
+        og = min(tconv.HEAD_GROUP, O - o0)
+        # JAX's w2 of this group's kernel [3, 3, C, og]: [C, 9 * og]
+        w2 = k[..., o0:o0 + og].transpose(2, 0, 1, 3).reshape(C, 9 * og)
+        np.testing.assert_array_equal(cols[g, :9 * og, :C], w2.T)
+        assert not cols[g, 9 * og:].any()
+    with pytest.raises(ValueError):
+        tconv.head_projection(torch.zeros(tconv.HEAD_MAX_O + 1, 8, 3, 3))
+
+
+def test_gn_silu_conv3x3_matches_jax_projected_head_bf16():
+    """The port's GN+SiLU+conv at the out-head's kind of shape,
+    [1, 16, 24, 64 -> 3] in bf16, on the CPU (its plain version, which the
+    head kernel is held to on the card) against JAX's projected head
+    (`conv_pallas.py:424`) called directly, on the same numpy inputs.  The
+    two round at other places: the projected form rounds SiLU's sigmoid
+    and product in bf16, each of the 9 projections to bf16, their fp32 sum
+    to bf16, then adds the bias in bf16; the port rounds the activation
+    once and the conv plus bias once.  Each rounding is at most 2^-9 of a
+    partial sum bounded by A = sum over taps and channels of |h| |w| (the
+    conv of the magnitudes) plus |b|, and there are fewer than 8 of them
+    on a path: |port - jax| <= 2^-6 (A + |b|) elementwise, and
+    ||port - jax|| <= 1e-2 ||jax||."""
+    d = _conv_inputs(8, B=1, H=16, W=24, C=64, O=3)
+    bf = lambda a: jnp.asarray(a, jnp.bfloat16)  # noqa: E731
+    want = jconv.gn_silu_conv3x3_projected(
+        bf(d["x"]), jnp.asarray(d["scale"]), jnp.asarray(d["shift"]),
+        bf(d["k"]), bf(d["b"]))
+    want = torch.from_numpy(np.array(want.astype(jnp.float32)))
+    x = _t(d["x"]).bfloat16()
+    w = _oihw(d["k"]).bfloat16()
+    b = _t(d["b"]).bfloat16()
+    got = tconv.gn_silu_conv3x3(x, _t(d["scale"]), _t(d["shift"]), w, b)
+    assert got.dtype == torch.bfloat16 and got.shape == (1, 16, 24, 3)
+    h = torch.nn.functional.silu(
+        (x.float() * _t(d["scale"])[:, None, None]
+         + _t(d["shift"])[:, None, None]).bfloat16().float())
+    mag = tconv.conv2d_nhwc(h.abs(), w.float().abs(), b.float().abs())
+    err = (got.float() - want).abs()
+    assert bool((err <= 2.0 ** -6 * mag).all()), (err / mag).max()
+    assert (got.float() - want).norm() <= 1e-2 * want.norm()
+
+
 def test_chunk_taps_spans_chunks():
     """C = 96 at the Hopper loop's chunk of 64: two chunks, the second
     holding channels 64-95 and then zeros, each [taps][O][64] one run."""

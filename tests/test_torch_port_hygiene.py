@@ -5,8 +5,9 @@ optax, PIL, safetensors, transformers or triton, and the port must not
 lean on the JAX package.  A subprocess installs an import hook that
 refuses those modules, then imports every module of `diffcodec_tpu_torch`,
 `chip_smoke` and the port's scripts, `scripts/profile_torch_decode.py`,
-`scripts/conv_kernel_breakdown.py`, `scripts/conv_kernel_ab.py` and
-`scripts/attention_bwd_ab.py` (without running them).
+`scripts/conv_kernel_breakdown.py`, `scripts/conv_kernel_ab.py`,
+`scripts/attention_bwd_ab.py`, `scripts/attention_fwd_ab.py` and
+`scripts/splat_kernel_ab.py` (without running them).
 """
 
 import os
@@ -46,6 +47,8 @@ import profile_torch_decode
 import conv_kernel_breakdown
 import conv_kernel_ab
 import attention_bwd_ab
+import attention_fwd_ab
+import splat_kernel_ab
 loaded = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
 assert not loaded, loaded
 print("imported", len(names), "modules")

@@ -10,8 +10,9 @@ no JAX, so on the card's machine it runs without the repo's conftest:
 
 The unmarked tests check `_kernels.py` (nvcc missing or failing raises with
 the compiler's output) and that every in-memory edit of a kernel source
-that `scripts/conv_kernel_breakdown.py`, `scripts/attention_bwd_ab.py` and
-`scripts/attention_fwd_ab.py` build still finds its text, on any machine.
+that `scripts/conv_kernel_breakdown.py`, `scripts/attention_bwd_ab.py`,
+`scripts/attention_fwd_ab.py` and `scripts/splat_kernel_ab.py` build still
+finds its text, on any machine.
 """
 
 import os
@@ -37,6 +38,7 @@ sys.path[:0] = [_REPO, os.path.join(_REPO, "scripts")]
 import attention_bwd_ab  # noqa: E402
 import attention_fwd_ab  # noqa: E402
 import conv_kernel_breakdown  # noqa: E402
+import splat_kernel_ab  # noqa: E402
 
 
 @pytest.fixture
@@ -164,6 +166,48 @@ def test_splat_kernel_matches_plain(cuda_device, B, H, W, C):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("C", [1, 2, 3, 5, 161, 321, 641])
+def test_splat_kernel_matches_plain_at_every_alignment(cuda_device, C):
+    """Odd H and W and C = 1, 2, 3, 5, 161, 321, 641: destination rows
+    start at every offset mod 4 floats, so each corner's row has every
+    head (0-3 scalar channels before its first 16-byte boundary) and tail
+    of the v4 reductions; with a NaN, an infinite, an off-frame and a
+    -1e9 flow."""
+    rng = np.random.default_rng(C)
+    B, H, W = 3, 9, 13
+    vals = torch.from_numpy(rng.standard_normal((B, H, W, C)).astype(
+        np.float32))
+    flow = _flow(rng, B, H, W)
+    flow[1, 2, :, 1] = -1e9
+    before = splat_sum.launches
+    got = splat_sum(vals.to(cuda_device), flow.to(cuda_device))
+    assert splat_sum.launches == before + 1
+    # fp32 reductions add in a varying order
+    torch.testing.assert_close(got.cpu(), splat_sum_reference(vals, flow),
+                               atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,W,C,spread", [
+    (2, 40, 37, 161, 0.5), (2, 40, 37, 161, 6.0), (1, 64, 64, 33, 1.5),
+    (2, 33, 70, 321, 2.0)])
+def test_splat_kernel_matches_plain_with_local_and_wide_flows(
+        cuda_device, B, H, W, C, spread):
+    """Larger frames, with flows of a spread of half a pixel (most corners
+    land next to their source) to six pixels, and a NaN, an infinite, an
+    off-frame and a -1e9 flow."""
+    rng = np.random.default_rng(H * W + C)
+    vals = torch.from_numpy(rng.standard_normal((B, H, W, C)).astype(
+        np.float32))
+    flow = _flow(rng, B, H, W) * (spread / 2.5)
+    flow[:, :, -1, 0] = W + 3.0
+    flow[-1, 3, :, 1] = -1e9
+    got = splat_sum(vals.to(cuda_device), flow.to(cuda_device))
+    torch.testing.assert_close(got.cpu(), splat_sum_reference(vals, flow),
+                               atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.cuda
 def test_softsplat_soft_on_card_matches_cpu(cuda_device):
     rng = np.random.default_rng(3)
     vals = torch.from_numpy(rng.standard_normal((2, 12, 12, 9)).astype(
@@ -233,6 +277,77 @@ def test_gn_silu_conv3x3_kernel_matches_plain(cuda_device, B, H, W, C, O,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("B,H,W,C,O,prologue,residual", [
+    (2, 13, 21, 8, 3, "gn", False),     # C = 8; H, W off the 12 x 16 tile
+    (1, 25, 33, 40, 3, "gn", True),     # C = 40: part of a 64-channel chunk
+    (2, 12, 16, 128, 1, "gn", True),    # exactly one tile; O = 1
+    (1, 17, 40, 128, 8, "gn", False),   # O = 8: groups of 3, 3 and 2
+    (1, 30, 18, 40, 8, "gn", True),
+    (1, 5, 7, 128, 3, "gn", False),     # smaller than one tile
+    (1, 40, 52, 200, 5, "gn", True),    # C = 200: 4 chunks, the ring wraps
+    (2, 11, 9, 8, 1, "silu", False),
+    (1, 26, 35, 40, 3, "silu", False),
+    (1, 24, 48, 128, 8, "silu", False),
+    (1, 512, 512, 128, 3, "gn", False)])  # the out-head's full width
+def test_conv3x3_head_kernel_matches_plain(cuda_device, B, H, W, C, O,
+                                           prologue, residual):
+    """dc_conv3x3 where O <= 8: the project-then-stencil kernel, both
+    prologues, with and without a residual."""
+    a = _conv_args(cuda_device, B, H, W, C, O, seed=H * W + C + O)
+    res = a["residual"] if residual else None
+    before = (conv.projected_head.launches, conv.gn_silu_conv3x3.launches,
+              conv.silu_conv3x3.launches)
+    if prologue == "gn":
+        args = (a["x"], a["scale"], a["shift"], a["weight"], a["bias"], res)
+        got = conv.gn_silu_conv3x3(*args)
+        want = conv.gn_silu_conv3x3_ref(*args)
+        counted = (1, 1, 0)
+    else:
+        args = (a["x"], a["weight"], a["bias"])
+        got = conv.silu_conv3x3(*args)
+        want = conv.silu_conv3x3_ref(*args)
+        counted = (1, 0, 1)
+    assert (conv.projected_head.launches - before[0],
+            conv.gn_silu_conv3x3.launches - before[1],
+            conv.silu_conv3x3.launches - before[2]) == counted
+    assert got.shape == want.shape == (B, H, W, O)
+    _assert_conv_close(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,W,C,O,residual", [
+    (2, 16, 24, 64, 9, False), (1, 13, 21, 40, 12, True),
+    (1, 32, 32, 128, 16, True), (2, 9, 17, 8, 16, False)])
+def test_conv3x3_between_8_and_16_runs_the_hopper_loop(cuda_device, B, H, W,
+                                                       C, O, residual):
+    """dc_conv3x3 at 8 < O <= 16: the Hopper loop, whose 128-column tile
+    is masked on O."""
+    a = _conv_args(cuda_device, B, H, W, C, O, seed=B + W + O)
+    res = a["residual"] if residual else None
+    args = (a["x"], a["scale"], a["shift"], a["weight"], a["bias"], res)
+    before = conv.projected_head.launches
+    got = conv.gn_silu_conv3x3(*args)
+    assert conv.projected_head.launches == before
+    _assert_conv_close(got, conv.gn_silu_conv3x3_ref(*args))
+    got = conv.silu_conv3x3(*args[:1], *args[3:5])
+    _assert_conv_close(got, conv.silu_conv3x3_ref(*args[:1], *args[3:5]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,W,C,O", [(2, 50, 70, 40, 8),
+                                       (1, 512, 512, 128, 3)])
+def test_conv3x3_head_kernel_repeats_bitwise(cuda_device, B, H, W, C, O):
+    """The head kernel sums in a fixed order (no atomics), so runs on the
+    same inputs agree bit for bit; a difference is a race."""
+    a = _conv_args(cuda_device, B, H, W, C, O, seed=C + O)
+    args = (a["x"], a["scale"], a["shift"], a["weight"], a["bias"],
+            a["residual"])
+    first = conv.gn_silu_conv3x3(*args)
+    for _ in range(3):
+        assert torch.equal(conv.gn_silu_conv3x3(*args), first)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("B,H,W,C,O", [(2, 16, 24, 32, 64),
                                        (1, 7, 9, 8, 3)])
 def test_silu_conv3x3_kernel_matches_plain(cuda_device, B, H, W, C, O):
@@ -246,9 +361,9 @@ def test_silu_conv3x3_kernel_matches_plain(cuda_device, B, H, W, C, O):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("B,H,W,C,O", [
-    (2, 8, 8, 16, 16),       # O <= 16: the mma.sync loop
-    (1, 3, 4, 8, 3),         # the mma.sync loop at C = 8, O = 3
-    (1, 5, 11, 32, 40),      # the Hopper loop from here on
+    (2, 8, 8, 16, 16),       # O <= 16: the weight box zero-fills past O
+    (1, 3, 4, 8, 3),
+    (1, 5, 11, 32, 40),
     (1, 16, 16, 256, 256),
     (1, 13, 21, 40, 200),    # C = 40: a part of one 64-channel chunk;
                              # O = 200: a part of a 128-column tile; H, W
@@ -595,6 +710,15 @@ def test_attention_fwd_ablation_edits_match_the_source(name):
         src, edits + attention_fwd_ab.one_width(40), name)
     assert got != src
     assert got.count("if constexpr (8 * decltype(d8)::value != 40)") == 2
+
+
+@pytest.mark.parametrize("name", sorted(splat_kernel_ab.ABLATIONS))
+def test_splat_ablation_edits_match_the_source(name):
+    """Each ablated build of the splat edits text that occurs exactly once
+    in the current splat.cu."""
+    src = _csrc("splat.cu")
+    edits = splat_kernel_ab.ABLATIONS[name][0]
+    assert conv_kernel_breakdown.edited(src, edits, name) != src
 
 
 def test_source_edits_refuse_text_that_is_not_there_once():
