@@ -25,9 +25,33 @@ Phases, each printed as one JSON line with the elapsed seconds `t`:
              `DistilledPipeline` with K = 4 consistency steps over the same
              models, fused mode, no CFG (the JAX package's bench.py
              distilled point)
+  kernel     (the 1080p tiled shapes) every kernel again where a chunk of
+             15 tiles through the distilled pipeline puts it: attention at
+             BH = 120, splats at B = 30, the VAE's convs at B = 15
+  cmp        the CMP densifier at full width (resnet50 + skip, 198 bins,
+             seeded random weights and running statistics, fp32) at 1080 x
+             1920: ms a call, peak memory; then the card against the CPU
+             at 64 x 96 on the same weights
+  tiled_exact
+             one 1080p frame through `sample_tiled` with the exact
+             fused-conv pipeline (bench.py's 1080p point: 15 tiles of 512
+             overlapping by 64, 7 a call, uint8 conditioning): s/frame of
+             the first and second call, the host's crop and merge timed
+             apart, peak memory, launches (3 chunks' fused VAE asserted)
+  codec      a synthetic 1080p GOP-8 (9 frames, known flows) through the
+             codec: the sparse flow bitstreams (watershed + grid sampler),
+             14 CMP calls on the card, then `decode_inter_frames` with
+             `sample_tiled` over the distilled K = 4 fused pipeline, 15
+             tiles a call; seconds and inter frames/s of the second call,
+             stage seconds, peak memory, launches; uint8 [9, 1080, 1920, 3]
+             with the anchors unchanged asserted
   reference  the same pipeline at a tiny config on the card (bf16, kernels)
              against the CPU (fp32, plain versions) on the same weights,
              with the VAE unfused and fused
+  tiled_reference
+             the tiny pipeline tiled over a 112 x 168 frame (12 tiles of
+             64, overlap 16), exact and distilled, fused VAE: the card
+             against the CPU on the same weights and noise
   kernel     (training shapes) the attention forward with its log-sum-exp
              and the backward kernel (dQ, dK and dV in one launch, with its
              delta and dQ-cast passes) against autograd of the plain
@@ -60,18 +84,27 @@ last {"ok": true, "device": {...}}.  Any failure raises and exits non-zero.
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import json
 import math
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
+import types
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
 from diffcodec_tpu_torch import _kernels
+from diffcodec_tpu_torch.codec.gop import gop_schedule
+from diffcodec_tpu_torch.codec.runner import (EncodedVideo,
+                                              decode_inter_frames,
+                                              encode_flows,
+                                              make_cmp_densifier)
 from diffcodec_tpu_torch.config import (ControlNetConfig, DistillConfig,
                                         SamplerConfig, SchedulerConfig,
                                         TrainConfig, UNetConfig, VAEConfig)
@@ -81,12 +114,16 @@ from diffcodec_tpu_torch.ops.attention import (attention, attention_backward,
                                                attention_forward,
                                                attention_reference)
 from diffcodec_tpu_torch.ops.softsplat import splat_sum, splat_sum_reference
+from diffcodec_tpu_torch.ops.tiling import merge_tiles
+from diffcodec_tpu_torch.models.cmp import CMP
 from diffcodec_tpu_torch.models.controlnet import DualFlowControlNet
 from diffcodec_tpu_torch.models.unet2d_condition import UNet2DConditionModel
 from diffcodec_tpu_torch.models.vae import AutoencoderKL, decode_from_latents
 from diffcodec_tpu_torch.sampling.distilled import DistilledPipeline
 from diffcodec_tpu_torch.sampling.pipeline import DualFlowPipeline
 from diffcodec_tpu_torch.sampling.schedulers import NoiseSchedule
+from diffcodec_tpu_torch.sampling.tiled import (_crop_batch, sample_tiled,
+                                                tile_grid)
 from diffcodec_tpu_torch.train.trainer import (ControlNetTrainer, Optimizer,
                                                TrainState)
 
@@ -193,6 +230,27 @@ GRAD_ULP = 2.0 ** -5
 # all latents (bf16 error averages out); the gradients carry bf16's 2^-8
 # relative rounding through a dozen layers
 TRAIN_REF_TOL = dict(loss_rel=0.02, grad_norm_rel=0.05, grad_cosine=0.98)
+# the 1080p tiled decode (UVG's and HEVC class B's frame size): 512 px
+# tiles overlapping by 64 and feathered over 64, 3 x 5 = 15 tiles a frame
+FRAME_H, FRAME_W = 1080, 1920
+TILE, OVERLAP, FEATHER = 512, 64, 64
+N_TILES = 15
+# bench.py's 1080p point (exact, tile_batch 7: chunks of 7, 7 and 1 tiles)
+TILED_EXACT_BATCH = 7
+# the codec's distilled decode: one GOP-8 (anchors 0 and 8, 7 inter
+# frames, one sampler call), a frame's 15 tiles a pipeline call, no CFG;
+# so attention at BH = 15 x 8 = 120, splats at B = 30 (two directions)
+# and the VAE's convs at B = 15: the kernels' new shapes
+CODEC_FRAMES, CODEC_GOP, CODEC_TILE_BATCH = 9, 8, 15
+CODEC_INTER = CODEC_FRAMES - 2
+# CMP at full width (resnet50 + skip, 198 bins), fp32; card against CPU
+# at a small size.  cuDNN's fp32 convs use TF32 by default (operands
+# rounded to 10-bit mantissas, 2^-11 relative, fp32 sums): through ~20
+# layers in sequence the logits move by ~1e-3 of their norm, which the
+# softmax expectation over centres up to 50 px turns into hundredths of a
+# pixel, tenths at a few sharp pixels
+CMP_SMALL = (64, 96)
+CMP_TOL = dict(logit_rel_norm=2e-2, flow_max_abs=0.5, flow_mean_abs=0.05)
 
 
 def compare(label: str, got, want, atol: float, rtol: float) -> float:
@@ -257,10 +315,9 @@ def _attention_close(label, got, want, ulp) -> tuple:
     return err, rel
 
 
-def check_attention(gen) -> list:
+def check_attention(gen, BH: int = BATCH * HEADS) -> list:
     rows = []
     for Lq, Lk, D in ATTN_SHAPES:
-        BH = BATCH * HEADS
         q, k, v = (torch.randn(BH, L, D, device="cuda", generator=gen)
                    .bfloat16() for L in (Lq, Lk, Lk))
         scale = D ** -0.5
@@ -394,10 +451,11 @@ def check_gn_conv(gen, shapes) -> list:
     return rows
 
 
-def check_conv(gen) -> list:
-    """Each conv kernel at every shape the fused decoder gives it."""
-    rows = check_gn_conv(gen, GN_SHAPES)
-    for B, H, W, C, O in UP_SHAPES:
+def check_upsample(gen, shapes) -> list:
+    """The upsample+conv kernel at (B, H, W, C, O) `shapes` (input
+    resolution)."""
+    rows = []
+    for B, H, W, C, O in shapes:
         a = _conv_inputs(gen, B, H, W, C, O)
         x, w, b = a["x"], a["weight"], a["bias"]
         up_nchw = (x[:, :, None, :, None, :].expand(B, H, 2, W, 2, C)
@@ -413,6 +471,12 @@ def check_conv(gen) -> list:
             + 4 * O))
         del a, x, up_nchw
         torch.cuda.empty_cache()
+    return rows
+
+
+def check_conv(gen) -> list:
+    """Each conv kernel at every shape the fused decoder gives it."""
+    rows = check_gn_conv(gen, GN_SHAPES) + check_upsample(gen, UP_SHAPES)
     for B, H, W, C, O in SILU_SHAPES:
         a = _conv_inputs(gen, B, H, W, C, O)
         x, w, b = a["x"], a["weight"], a["bias"]
@@ -682,6 +746,392 @@ def reference_check():
                 and out["mean_abs_err"] <= tol["mean_abs"]):
             raise AssertionError(f"tiny decode on the card disagrees with "
                                  f"the CPU: {out}")
+
+
+def check_tiled_kernels(gen) -> list:
+    """Every kernel at the shapes the codec's tiled decode gives it and
+    the 512 px decodes do not: a chunk of 15 tiles through the distilled
+    pipeline (attention at BH = 120, splats at B = 30, the VAE's convs at
+    B = 15)."""
+    b = CODEC_TILE_BATCH
+    return (check_attention(gen, b * HEADS) + check_splat(gen, 2 * b)
+            + check_gn_conv(gen, [(b,) + s[1:] for s in GN_SHAPES
+                                  if s[0] == FRAMES])
+            + check_upsample(gen, [(b,) + s[1:] for s in UP_SHAPES]))
+
+
+@torch.no_grad()
+def fill_cmp(model: CMP, gen: torch.Generator):
+    """Seeded random CMP weights: `fill_params`, with the convs' kernels
+    scaled to N(0, 1.3 / fan_in) so the bin logits keep a spread of a few
+    units through the 60 layers (`tests/test_torch_port_cmp.py`), and
+    BatchNorm running means ~ N(0, 0.1^2), variances in [0.5, 1.5]."""
+    fill_params(model, gen)
+    for m in model.modules():
+        if isinstance(m, torch.nn.Conv2d):
+            m.weight.mul_(1.3 ** 0.5)
+        elif isinstance(m, torch.nn.BatchNorm2d):
+            shape, dev = m.running_mean.shape, m.running_mean.device
+            m.running_mean.copy_(0.1 * torch.randn(shape, device=dev,
+                                                   generator=gen))
+            m.running_var.copy_(0.5 + torch.rand(shape, device=dev,
+                                                 generator=gen))
+
+
+def sparse_input(gen, H, W, device, points=150):
+    """An image in [0, 1] and a sparse field of `points` flow vectors
+    (uniform in +-20 px) with their mask: the CMP's inputs."""
+    image = torch.rand((1, H, W, 3), device=device, generator=gen)
+    sparse = torch.zeros((1, H, W, 4), device=device)
+    ys = torch.randint(0, H, (points,), device=device, generator=gen)
+    xs = torch.randint(0, W, (points,), device=device, generator=gen)
+    sparse[0, ys, xs, :2] = (torch.rand((points, 2), device=device,
+                                        generator=gen) * 40 - 20)
+    sparse[0, ys, xs, 2:] = 1.0
+    return image, sparse
+
+
+def build_cmp():
+    """DiffCodec's CMP at full width with seeded random weights and
+    running statistics: (on the CPU, a copy on the card)."""
+    cpu = CMP().eval()
+    fill_cmp(cpu, torch.Generator().manual_seed(11))
+    return cpu, copy.deepcopy(cpu).cuda()
+
+
+@torch.no_grad()
+def cmp_phase():
+    """CMP at full width on the card: ms a call at 1080 x 1920 and peak
+    memory, then the card against the CPU at CMP_SMALL on the same
+    weights.  Returns (its line, the model on the card)."""
+    cpu, card = build_cmp()
+    n_params = sum(p.numel() for p in card.parameters())
+    image, sparse = sparse_input(
+        torch.Generator(device="cuda").manual_seed(12), FRAME_H, FRAME_W,
+        "cuda")
+    torch.cuda.reset_peak_memory_stats()
+    flow = card(image, sparse)
+    if tuple(flow.shape) != (1, FRAME_H, FRAME_W, 2) or not bool(
+            torch.isfinite(flow).all()):
+        raise AssertionError(f"cmp: {tuple(flow.shape)}, finite "
+                             f"{bool(torch.isfinite(flow).all())}")
+    ms = time_ms(lambda: card(image, sparse), 5)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    del image, sparse, flow
+
+    image, sparse = sparse_input(torch.Generator().manual_seed(13),
+                                 *CMP_SMALL, "cpu")
+    want_logits, want = cpu.logits(image, sparse), cpu(image, sparse)
+    got_logits = card.logits(image.cuda(), sparse.cuda()).cpu()
+    got = card(image.cuda(), sparse.cuda()).cpu()
+    diff = (got - want).abs()
+    out = dict(res=[FRAME_H, FRAME_W], params=n_params, ms=ms,
+               peak_mem_gib=peak, vs_cpu=dict(
+                   res=list(CMP_SMALL),
+                   logit_rel_norm_err=((got_logits - want_logits).norm()
+                                       / want_logits.norm()).item(),
+                   logit_std=want_logits.std().item(),
+                   flow_max_abs_err=diff.max().item(),
+                   flow_mean_abs_err=diff.mean().item(),
+                   flow_std=want.std().item(), tol=CMP_TOL))
+    log("cmp", **out)
+    v = out["vs_cpu"]
+    if not (v["logit_rel_norm_err"] <= CMP_TOL["logit_rel_norm"]
+            and v["flow_max_abs_err"] <= CMP_TOL["flow_max_abs"]
+            and v["flow_mean_abs_err"] <= CMP_TOL["flow_mean_abs"]):
+        raise AssertionError(f"CMP on the card disagrees with the CPU: {v}")
+    return out, card
+
+
+def check_frames(label, images, shape):
+    if tuple(images.shape) != shape:
+        raise AssertionError(f"{label}: shape {tuple(images.shape)}")
+    if not np.isfinite(images).all() or np.abs(images).max() > 1.0:
+        raise AssertionError(f"{label}: values outside [-1, 1]")
+
+
+def launches_times(n: int) -> dict:
+    """The fused VAE's launches in `n` decodes."""
+    return {k: n * v for k, v in FUSED_VAE_LAUNCHES.items()}
+
+
+def build_tiled_exact(fused, gen):
+    """bench.py's 1080p point on `fused` (the exact pipeline with the fused
+    VAE): 30 UniPC steps, CFG 3.5, ControlNet scale 1.35, FreeU, tiles of
+    7 a call, uint8 conditioning.  Returns (go, cond, flow): go() decodes
+    one 1080p frame, the same noise each call."""
+    rng = np.random.default_rng(21)
+    cond = rng.integers(0, 256, (1, FRAME_H, FRAME_W, 6), dtype=np.uint8)
+    flow = rng.standard_normal((1, FRAME_H, FRAME_W, 4),
+                               dtype=np.float32) * 4
+    ctx = fused.unet.cfg.cross_attention_dim
+    text = (torch.randn((1, 77, ctx), device="cuda", generator=gen)
+            * 0.02).bfloat16()
+    noise = torch.Generator(device="cuda")
+
+    def go():
+        noise.manual_seed(22)
+        return sample_tiled(fused, text, torch.zeros_like(text), cond, flow,
+                            tile=(TILE, TILE), overlap=OVERLAP,
+                            feather=FEATHER, tile_batch=TILED_EXACT_BATCH,
+                            generator=noise)
+
+    return go, cond, flow
+
+
+def tiled_exact(fused, gen) -> dict:
+    """One 1080p frame through `sample_tiled` at bench.py's 1080p point
+    (`build_tiled_exact`), twice; the host's crop and merge timed apart."""
+    go, cond, flow = build_tiled_exact(fused, gen)
+    coords = tile_grid(FRAME_H, FRAME_W, (TILE, TILE), OVERLAP)
+    if len(coords) != N_TILES:
+        raise AssertionError(f"tiled_exact: {len(coords)} tiles")
+    torch.cuda.reset_peak_memory_stats()
+    images, first_s, launches = counted(go)
+    check_frames("tiled_exact", images, (1, FRAME_H, FRAME_W, 3))
+    chunks = -(-N_TILES // TILED_EXACT_BATCH)
+    check_launches("tiled_exact", launches, {
+        "attention": None, "splat_sum": None, "silu_conv3x3": 0,
+        **launches_times(chunks), **NO_TRAIN_KERNELS})
+    _, second_s = timed(go)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    # the host's share, timed apart on the same data: the crops (before
+    # the upload) and the merge (after the fetch)
+    t = time.perf_counter()
+    _crop_batch(cond, coords, TILE, TILE)
+    _crop_batch(flow, coords, TILE, TILE)
+    crop_s = time.perf_counter() - t
+    tiles = _crop_batch(images, coords, TILE, TILE)
+    t = time.perf_counter()
+    merge_tiles([tile[:y2 - y1, :x2 - x1] for tile, (y1, y2, x1, x2)
+                 in zip(tiles, coords)], coords, (FRAME_H, FRAME_W),
+                feather=FEATHER, as_uint8=False)
+    merge_s = time.perf_counter() - t
+    out = dict(frames=1, res=[FRAME_H, FRAME_W], tiles=len(coords),
+               tile_batch=TILED_EXACT_BATCH, steps=STEPS, first_s=first_s,
+               second_s=second_s, s_per_frame=second_s,
+               host_s=dict(crop=crop_s, merge=merge_s), peak_mem_gib=peak,
+               launches=launches,
+               image_mean_abs=float(np.abs(images).mean()))
+    log("tiled_exact", **out)
+    return out
+
+
+def synthetic_clip(seed: int):
+    """CODEC_FRAMES 1080p frames and their known flows: a textured
+    background that moves (3, 2) px a frame and a 240 px square that moves
+    (-5, 4), wrapping round.  Returns (frames [N, H, W, 3] uint8, forward
+    flows {t: anchor 0 -> t}, backward flows {t: anchor 8 -> t}), each
+    flow [H, W, 2] (u, v) on the anchor's pixels."""
+    rng = np.random.default_rng(seed)
+    H, W = FRAME_H, FRAME_W
+    coarse = rng.uniform(30, 220, (H // 40 + 1, W // 40 + 1, 3))
+    background = np.repeat(np.repeat(coarse, 40, 0), 40, 1)[:H, :W]
+    background += rng.normal(0, 6, (H, W, 3))
+    bg_v, obj_v = np.array([3, 2]), np.array([-5, 4])
+    obj0, size = (400, 700), 240
+    color = rng.uniform(0, 255, 3)
+
+    def obj_mask(t):
+        yy, xx = np.ogrid[:H, :W]
+        y0, x0 = obj0[0] + obj_v[1] * t, obj0[1] + obj_v[0] * t
+        return ((yy - y0) % H < size) & ((xx - x0) % W < size)
+
+    frames = []
+    for t in range(CODEC_FRAMES):
+        f = np.roll(background, (bg_v[1] * t, bg_v[0] * t), (0, 1)).copy()
+        f[obj_mask(t)] = color
+        frames.append(np.clip(f, 0, 255).astype(np.uint8))
+
+    def flow(anchor, t):
+        field = np.empty((H, W, 2), np.float32)
+        field[:] = bg_v * (t - anchor)
+        field[obj_mask(anchor)] = obj_v * (t - anchor)
+        return field
+
+    inter = [i for i in range(CODEC_FRAMES) if i % CODEC_GOP]
+    return (np.stack(frames), {t: flow(0, t) for t in inter},
+            {t: flow(CODEC_GOP, t) for t in inter})
+
+
+def build_codec(fused, cmp_model, gen, workdir: str):
+    """A synthetic 1080p GOP-8 through the codec's sparse mode: its flow
+    bitstreams written under `workdir` (the port's watershed + grid
+    sampler), the CMP densifying each on the card, and
+    `decode_inter_frames` with `sample_tiled` over the distilled K = 4
+    pipeline on `fused`'s models, one frame's 15 tiles a call.  Returns a
+    namespace: go() decodes the GOP, the same noise each call, and
+    refills `stage_s` and `calls` (the densifier's and the sampler's
+    seconds and calls); `frames` the clip, `anchors` its decoded anchors,
+    `enc` the encoded video, `nbytes` the flow bitstreams' bytes,
+    `encode_s` the seconds to write them."""
+    frames, flows_fwd, flows_bwd = synthetic_clip(31)
+    schedule = gop_schedule(CODEC_FRAMES, CODEC_GOP)
+    dpipe = DistilledPipeline.from_pipeline(
+        fused, DistillConfig(num_student_steps=DISTILL_STEPS))
+    ctx = fused.unet.cfg.cross_attention_dim
+    text = (torch.randn((CODEC_INTER, 77, ctx), device="cuda", generator=gen)
+            * 0.02).bfloat16()
+    noise = torch.Generator(device="cuda")
+    densify = make_cmp_densifier(cmp_model, "cuda")
+    stage_s = dict(densify=0.0, sample=0.0)
+    calls = dict(densify=0, sample=0)
+
+    def densify_fn(*args):
+        (out, s) = timed(lambda: densify(*args))
+        stage_s["densify"] += s
+        calls["densify"] += 1
+        return out
+
+    def sample_fn(cond, flow):
+        (out, s) = timed(lambda: sample_tiled(
+            dpipe, text[:cond.shape[0]], None, cond, flow,
+            tile=(TILE, TILE), overlap=OVERLAP, feather=FEATHER,
+            tile_batch=CODEC_TILE_BATCH, generator=noise))
+        stage_s["sample"] += s
+        calls["sample"] += 1
+        return out
+
+    anchors = np.zeros_like(frames)
+    anchors[[0, CODEC_GOP]] = frames[[0, CODEC_GOP]]
+    t = time.perf_counter()
+    nbytes = encode_flows(workdir, schedule, flows_fwd, flows_bwd, "sparse")
+    encode_s = time.perf_counter() - t
+    enc = EncodedVideo(path=workdir, meta=dict(
+        num_frames=CODEC_FRAMES, height=FRAME_H, width=FRAME_W,
+        gop_size=CODEC_GOP, flow_rate_mode="sparse"))
+
+    def go():
+        noise.manual_seed(32)
+        for k in stage_s:
+            stage_s[k], calls[k] = 0.0, 0
+        return decode_inter_frames(anchors, enc, sample_fn, densify_fn,
+                                   max_batch=CODEC_INTER,
+                                   transfer_dtype=torch.bfloat16,
+                                   device="cuda")
+
+    return types.SimpleNamespace(go=go, frames=frames, anchors=anchors,
+                                 enc=enc, nbytes=nbytes, encode_s=encode_s,
+                                 stage_s=stage_s, calls=calls)
+
+
+def _standin_sampler(cond, flow):
+    """Elementwise, exact in fp32 (products by powers of 2): the same
+    bits on any device."""
+    return cond[..., :3].float() * 2.0 - 1.0 + flow[..., :1].float() * 0.25
+
+
+def codec(fused, cmp_model, gen) -> dict:
+    """The codec's GOP (`build_codec`) decoded twice: seconds and inter
+    frames/s of the second call, its stage seconds, flow bytes and bpp,
+    peak memory and launches; asserts uint8 frames of the clip's shape,
+    the anchors unchanged, 14 densifier calls and one sampler call, and
+    that a sampler returning a tensor on the card decodes as on the
+    CPU."""
+    with tempfile.TemporaryDirectory() as d:
+        c = build_codec(fused, cmp_model, gen, d)
+        torch.cuda.reset_peak_memory_stats()
+        out, first_s, launches = counted(c.go)
+        first_calls = dict(c.calls)
+        _, second_s = timed(c.go)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        # the branch for a sampler that returns a tensor on the card (the
+        # uint8 conversion and the pinned copy queued behind each chunk,
+        # chunks of 3, 3 and 1 padded to 3) against the CPU's, bit for bit
+        on_card, on_cpu = (decode_inter_frames(
+            c.anchors, c.enc, _standin_sampler, max_batch=3, device=dev)
+            for dev in ("cuda", "cpu"))
+        if not np.array_equal(on_card, on_cpu):
+            raise AssertionError("codec: decode_inter_frames' device branch "
+                                 "differs from the CPU's")
+    frames, nbytes = c.frames, c.nbytes
+    total_bytes = sum(sum(d.values()) for d in nbytes.values())
+    points = {k: [(n - 18) // 6 for n in d.values()]
+              for k, d in nbytes.items()}
+    res = dict(frames=CODEC_FRAMES, inter_frames=CODEC_INTER,
+               res=[FRAME_H, FRAME_W], tiles_a_frame=N_TILES,
+               tile_batch=CODEC_TILE_BATCH, steps=DISTILL_STEPS,
+               flow_bytes=nbytes, flow_points=points,
+               flow_bpp=total_bytes * 8 / (CODEC_FRAMES * FRAME_H * FRAME_W),
+               encode_flows_s=c.encode_s, first_s=first_s,
+               second_s=second_s, inter_frames_per_s=CODEC_INTER / second_s,
+               stages_s=dict(c.stage_s), calls=first_calls,
+               peak_mem_gib=peak, launches=launches)
+    log("codec", **res)
+    if out.dtype != np.uint8 or out.shape != frames.shape:
+        raise AssertionError(f"codec: {out.dtype} {out.shape}")
+    if not (np.array_equal(out[0], frames[0])
+            and np.array_equal(out[CODEC_GOP], frames[CODEC_GOP])):
+        raise AssertionError("codec: an anchor changed")
+    if first_calls != dict(densify=2 * CODEC_INTER, sample=1):
+        raise AssertionError(f"codec: calls {first_calls}")
+    check_launches("codec", launches, {
+        "attention": None, "splat_sum": None, "silu_conv3x3": 0,
+        **launches_times(CODEC_INTER * N_TILES // CODEC_TILE_BATCH),
+        **NO_TRAIN_KERNELS})
+    return res
+
+
+def tiled_reference():
+    """A tiny pipeline tiled over a 112 x 168 frame (tiles of 64 with
+    overlap 16: 3 x 4 tiles, the last row and column padded past their
+    width): the card (bf16, kernels) against the CPU (fp32, plain
+    versions) on the same weights and noise, exact and distilled, with
+    the fused VAE."""
+    vae_cfg = VAEConfig(base_channels=8, channel_mults=(1, 1, 2, 2),
+                        layers_per_block=1)
+    sampler = SamplerConfig(num_inference_steps=3)
+    pipes = [DualFlowPipeline.create(
+        UNetConfig.tiny(), ControlNetConfig.tiny(), vae_cfg, sampler,
+        dtype=dtype, device=device, fused_conv=True)
+        for dtype, device in ((torch.float32, "cpu"),
+                              (torch.bfloat16, "cuda"))]
+    for c, g in ((pipes[0].unet, pipes[1].unet),
+                 (pipes[0].controlnet, pipes[1].controlnet),
+                 (pipes[0].vae, pipes[1].vae)):
+        fill_params(c, torch.Generator().manual_seed(7))
+        g.load_state_dict(c.state_dict())
+    H, W, tile, overlap = 112, 168, 64, 16
+    n = len(tile_grid(H, W, (tile, tile), overlap))
+    g = torch.Generator().manual_seed(8)
+    cond = torch.randint(0, 256, (1, H, W, 6), generator=g,
+                         dtype=torch.uint8).numpy()
+    flow = (torch.randn((1, H, W, 4), generator=g) * 4).numpy()
+    text = (torch.randn((1, 77, 32), generator=g) * 0.02).numpy()
+    latents = torch.randn((n, tile // 8, tile // 8, 4), generator=g)
+    noises = [torch.randn(latents.shape, generator=g)]
+    tol = dict(max_abs=0.25, mean_abs=0.02)  # reference_check's
+    for mode in ("exact", "distilled"):
+        if mode == "distilled":
+            pipes = [DistilledPipeline.from_pipeline(
+                p, DistillConfig(num_student_steps=2)) for p in pipes]
+
+        def run_tiled(pipe):
+            return sample_tiled(pipe, text, np.zeros_like(text), cond, flow,
+                                tile=(tile, tile), overlap=overlap,
+                                feather=overlap, tile_batch=5,
+                                latents=latents,
+                                noises=noises if mode == "distilled"
+                                else None)
+
+        want = run_tiled(pipes[0])
+        got, _, launches = counted(lambda: run_tiled(pipes[1]))
+        check_launches(f"tiled_reference ({mode})", launches, {
+            name: None for name in ("attention", "splat_sum",
+                                    "gn_silu_conv3x3", "conv3x3_head",
+                                    "upsample_conv3x3")})
+        check_frames(f"tiled_reference ({mode})", got, (1, H, W, 3))
+        diff = np.abs(got - want)
+        out = dict(mode=mode, res=[H, W], tiles=n,
+                   max_abs_err=float(diff.max()),
+                   mean_abs_err=float(diff.mean()), tol=tol,
+                   want_mean_abs=float(np.abs(want).mean()),
+                   launches=launches)
+        log("tiled_reference", **out)
+        if not (out["max_abs_err"] <= tol["max_abs"]
+                and out["mean_abs_err"] <= tol["mean_abs"]):
+            raise AssertionError(f"tiled tiny decode on the card disagrees "
+                                 f"with the CPU: {out}")
 
 
 def attention_bwd_bound(BH, Lq, Lk, D):
@@ -1039,12 +1489,19 @@ def main() -> int:
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     rows = check_attention(gen) + check_splat(gen) + check_conv(gen)
+    rows += check_tiled_kernels(gen)
     dec, pipe, x, final = decode(gen)
     fused_out, fused = decode_fusedconv(pipe, x, final)
     distilled = decode_distilled(fused, x, gen)
-    del pipe, fused, final
+    del pipe, final
+    torch.cuda.empty_cache()
+    _, cmp_model = cmp_phase()
+    tiled = tiled_exact(fused, gen)
+    codec_out = codec(fused, cmp_model, gen)
+    del fused, cmp_model
     torch.cuda.empty_cache()
     reference_check()
+    tiled_reference()
 
     rows += (check_attention_train(gen) + check_downsample(gen)
              + check_gn_conv(gen, ENCODER_GN_SHAPES)
@@ -1056,6 +1513,8 @@ def main() -> int:
     paths = {"decode": dec["launches"],
              "decode_fusedconv": fused_out["launches"],
              "decode_distilled": distilled["launches"],
+             "tiled_exact": tiled["launches"],
+             "codec": codec_out["launches"],
              "train": trained["launches"]}
     cu = "diffcodec_tpu_torch/csrc/"
     flash = "jax/experimental/pallas/ops/tpu/flash_attention.py"

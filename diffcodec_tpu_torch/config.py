@@ -1,8 +1,9 @@
 """Typed configuration of the port: the model and sampler configs of
-`diffcodec_tpu/config.py` (:16-120), its `TrainConfig` (:122-161) and its
-`DistillConfig` (:164-190), copied so the port imports nothing of the JAX
-package.  Frozen dataclasses, hashable, with the same defaults (SD-1.5
-widths) and the same `tiny()` test sizes."""
+`diffcodec_tpu/config.py` (:16-120), its `TrainConfig` (:122-161), its
+`DistillConfig` (:164-190) and its `CodecConfig` (:194-202), copied so the
+port imports nothing of the JAX package.  Frozen dataclasses, hashable,
+with the same defaults (SD-1.5 widths) and the same `tiny()` test
+sizes."""
 
 from __future__ import annotations
 
@@ -152,3 +153,17 @@ class DistillConfig:
     freeu_s2: float = 0.2
     freeu_b1: float = 1.2
     freeu_b2: float = 1.4
+
+
+@dataclasses.dataclass(frozen=True)
+class CodecConfig:
+    """GOP and flow-rate configuration of the codec (`codec/runner.py`):
+    every `gop_size`-th frame is an anchor; inter frames carry no flow
+    ('none'), CMP-decodable point lists ('sparse') or dense fields
+    ('dense'); 1080p frames decode as overlapping tiles."""
+    gop_size: int = 8
+    flow_rate_mode: str = "sparse"  # 'none' | 'sparse' | 'dense'
+    tile_size: Tuple[int, int] = (512, 512)
+    tile_overlap: int = 64
+    frame_height: int = 1080
+    frame_width: int = 1920

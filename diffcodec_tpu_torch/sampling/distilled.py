@@ -31,7 +31,6 @@ from diffcodec_tpu_torch.sampling.schedulers import NoiseSchedule
 from diffcodec_tpu_torch.train.distill import boundary_scalings, ddim_grid
 
 
-
 def _linspace_f32(stop: int, num: int) -> np.ndarray:
     """`jnp.linspace(0, stop, num)` as XLA computes it: in float32, point i
     is float32(i) * step with step = float32(stop) * float32(1 / (num - 1))
@@ -52,6 +51,9 @@ class DistilledPipeline:
     vae: AutoencoderKL
     schedule: NoiseSchedule
     config: DistillConfig = DistillConfig()
+    # no CFG batch, so sample() takes no uncond embeddings;
+    # `sampling.tiled.sample_tiled` drops that operand
+    takes_uncond = False
 
     @classmethod
     def create(cls, *args, config: DistillConfig = DistillConfig(),

@@ -4,8 +4,10 @@ The port's modules carry the HF diffusers / reference attribute names, so a
 module's `state_dict` keys are the torch names of the name maps below,
 copied from `diffcodec_tpu/models/hf_import.py` (`unet_name_map` :145,
 `vae_name_map` :182, `controlnet_name_map` :268,
-`feature_extractor_name_map` :321) together with the inverse layout
-transforms (:477-487, :531-543).  Each entry is (torch name, flax path,
+`feature_extractor_name_map` :321) and from `diffcodec_tpu/models/cmp.py`
+(`cmp_name_map` :338, `cmp_batch_stats_map` :441, DiffCodec's resnet50 +
+skip configuration) together with the inverse layout transforms (:477-487,
+:531-543).  Each entry is (torch name, flax path,
 kind), kind one of:
   conv_kernel    flax HWIO <-> torch OIHW
   linear_kernel  flax [in, out] <-> torch [out, in]
@@ -13,7 +15,8 @@ kind), kind one of:
 
 `load_flax_params(module, params, name_map)` turns a flax tree (nested dicts
 of numpy arrays, with or without the {'params': ...} wrapper) into the
-module's state dict and loads it with `strict=True`.
+module's state dict and loads it with `strict=True`; `load_cmp_params`
+does the same for the CMP's parameters and BatchNorm running statistics.
 """
 
 from __future__ import annotations
@@ -312,3 +315,106 @@ def load_pipeline_params(pipe, params: Mapping) -> None:
     load_flax_params(pipe.controlnet, params["controlnet"],
                      controlnet_name_map(pipe.controlnet.cfg))
     load_flax_params(pipe.vae, params["vae"], vae_name_map(pipe.vae.cfg))
+
+
+def _cmp_bn(t: str, f: Tuple[str, ...]) -> List[Entry]:
+    return _norm(t, f + ("bn",))
+
+
+def _cmp_conv(t: str, f: Tuple[str, ...], bias: bool = True) -> List[Entry]:
+    """A ConvBNRelu's conv: flax nests it under 'conv'."""
+    if bias:
+        return _conv(t, f + ("conv",))
+    return [(t + ".weight", f + ("conv", "kernel"), "conv_kernel")]
+
+
+def _cmp_resnet_blocks():
+    """(torch prefix, flax path) of every bottleneck of the ResNet-50."""
+    for li, blocks in ((1, 3), (2, 4), (3, 6), (4, 3)):
+        for b in range(blocks):
+            yield (f"image_encoder.layer{li}.{b}", b,
+                   ("image_encoder", f"layer{li}_{b}"))
+
+
+def _cmp_decoder_convs():
+    """(torch prefix of the conv, of its BatchNorm, flax path) of every
+    ConvBNRelu of the skip decoder: the branches' Sequentials hold conv,
+    BatchNorm and ReLU three times, after a leading MaxPool in the pooled
+    ones; the fusion and skip convs are ConvBNRelus of their own."""
+    fd = "flow_decoder"
+    for name, base in (("decoder1", 0), ("decoder2", 1), ("decoder4", 1),
+                       ("decoder8", 1)):
+        for i in range(3):
+            yield (f"{fd}.{name}.{base + 3 * i}",
+                   f"{fd}.{name}.{base + 3 * i + 1}", (fd, f"{name}_{i}"))
+    for name in ("fusion8", "skipconv4", "fusion4", "skipconv2", "fusion2"):
+        yield f"{fd}.{name}.0", f"{fd}.{name}.1", (fd, name)
+
+
+def cmp_name_map() -> List[Entry]:
+    """The JAX package's `cmp_name_map()` for DiffCodec's CMP (resnet50
+    backbone, skip decoder): torch checkpoint names -> flax paths of the
+    parameters.  The running statistics are in `cmp_batch_stats_map`."""
+    ie = ("image_encoder",)
+    out: List[Entry] = [
+        ("image_encoder.conv1.weight", ie + ("conv1", "kernel"),
+         "conv_kernel")]
+    out += _norm("image_encoder.bn1", ie + ("bn1",))
+    for t, b, f in _cmp_resnet_blocks():
+        for c in ("conv1", "conv2", "conv3"):
+            out += _cmp_conv(f"{t}.{c}", f + (c,), bias=False)
+            out += _cmp_bn(f"{t}.bn{c[-1]}", f + (c,))
+        if b == 0:
+            out += _cmp_conv(f"{t}.downsample.0", f + ("downsample",),
+                             bias=False)
+            out += _cmp_bn(f"{t}.downsample.1", f + ("downsample",))
+    out += _conv("image_encoder.conv5", ie + ("conv5",))
+    # ShallowNet's Sequential: conv 0 / BatchNorm 1, conv 4 / BatchNorm 5
+    for conv, bn, name in ((0, 1, "conv1"), (4, 5, "conv2")):
+        out += _cmp_conv(f"flow_encoder.features.{conv}",
+                         ("flow_encoder", name))
+        out += _cmp_bn(f"flow_encoder.features.{bn}", ("flow_encoder", name))
+    for t_conv, t_bn, f in _cmp_decoder_convs():
+        out += _cmp_conv(t_conv, f)
+        out += _cmp_bn(t_bn, f)
+    out += _conv("flow_decoder.head", ("flow_decoder", "head"))
+    return out
+
+
+def cmp_batch_stats_map() -> List[Entry]:
+    """BatchNorm running_mean / running_var -> the flax 'batch_stats'
+    collection, for the same CMP as `cmp_name_map`."""
+    out: List[Entry] = []
+
+    def bn(t, f):
+        out.extend([(f"{t}.running_mean", f + ("bn", "mean"), "raw"),
+                    (f"{t}.running_var", f + ("bn", "var"), "raw")])
+
+    out += [("image_encoder.bn1.running_mean",
+             ("image_encoder", "bn1", "mean"), "raw"),
+            ("image_encoder.bn1.running_var",
+             ("image_encoder", "bn1", "var"), "raw")]
+    for t, b, f in _cmp_resnet_blocks():
+        for c in ("conv1", "conv2", "conv3"):
+            bn(f"{t}.bn{c[-1]}", f + (c,))
+        if b == 0:
+            bn(f"{t}.downsample.1", f + ("downsample",))
+    bn("flow_encoder.features.1", ("flow_encoder", "conv1"))
+    bn("flow_encoder.features.5", ("flow_encoder", "conv2"))
+    for _, t_bn, f in _cmp_decoder_convs():
+        bn(t_bn, f)
+    return out
+
+
+def load_cmp_params(module: torch.nn.Module, variables: Mapping) -> None:
+    """Load a flax CMP's variables ({'params', 'batch_stats'}) into the
+    port's `models.cmp.CMP`, strictly.  BatchNorm's `num_batches_tracked`
+    (a training counter flax does not keep) is set to 0."""
+    sd = export_state_dict(variables["params"], cmp_name_map())
+    sd.update(export_state_dict(variables["batch_stats"],
+                                cmp_batch_stats_map()))
+    sd = {k: torch.from_numpy(v) for k, v in sd.items()}
+    for k in [k for k in sd if k.endswith(".running_mean")]:
+        sd[k[:-len("running_mean")] + "num_batches_tracked"] = torch.zeros(
+            (), dtype=torch.long)
+    module.load_state_dict(sd, strict=True)

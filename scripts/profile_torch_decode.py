@@ -1,17 +1,23 @@
 #!/usr/bin/env python3
 """Where the PyTorch port's decode spends its time on the card.
 
-    python3 scripts/profile_torch_decode.py [--steps N] [--out PATH]
+    python3 scripts/profile_torch_decode.py [--point P] [--steps N]
+                                            [--out PATH]
 
-Builds the decode of `chip_smoke.py` through its `build_decode` (SD-1.5
-full width, 7 frames at 512 x 512, CFG, FreeU, bf16, seeded random
-weights), runs it once to warm up, then runs it again under
-`torch.profiler` and reports, for the profiled decode: its wall time, the device time summed over kernels (one stream, so
-the sum is the busy time) and the idle share, and the device time by kernel
-group (attention kernel, splat kernel, convolutions, matrix products,
+Builds one of `chip_smoke.py`'s decodes with its builders (SD-1.5 full
+width, bf16, seeded random weights): `decode` (default; `build_decode`, 7
+frames at 512 x 512, 30 UniPC steps with CFG and FreeU), `tiled_exact`
+(`build_tiled_exact`: one 1080p frame in 15 tiles, 7 a call, the same
+exact pipeline with the fused VAE) or `codec` (`build_codec`: a synthetic
+1080p GOP-8 through the sparse mode, 14 CMP calls and the distilled K = 4
+pipeline over 105 tiles, 15 a call); runs it once to warm up, then again
+under `torch.profiler`, and reports for the profiled run: its wall time,
+the device time summed over kernels (one stream, so the sum is the busy
+time) and the idle share, and the device time by kernel group (attention
+kernel, splat kernel, conv kernels, convolutions, matrix products,
 normalisation, elementwise, other) and by kernel name.  Needs one CUDA
-device.  The full result (top kernels included) goes to --out, by
-default chiprun_out/profile_torch_decode.json.
+device.  The full result (top kernels included) goes to --out, by default
+chiprun_out/profile_torch_<point>.json.
 """
 
 from __future__ import annotations
@@ -19,8 +25,10 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import dataclasses
 import subprocess
 import sys
+import tempfile
 import time
 
 import torch
@@ -29,14 +37,15 @@ from torch.profiler import ProfilerActivity, profile
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
 
-from chip_smoke import (FRAMES, RES, STEPS, build_decode,  # noqa: E402
-                        run)
+from chip_smoke import (FRAMES, RES, STEPS, build_cmp,  # noqa: E402
+                        build_codec, build_decode, build_tiled_exact,
+                        fused_vae_of, run)
 
 # substrings of CUDA kernel names -> group (first match wins)
 GROUPS = [
     ("attention kernel", ("attention_fwd_kernel",)),
-    ("splat kernel", ("splat_sum_kernel",)),
-    ("conv3x3 kernel", ("conv3x3_kernel",)),
+    ("splat kernel", ("splat_sum_kernel", "splat_small_kernel")),
+    ("conv3x3 kernels", ("conv3x3_hopper", "conv3x3_head")),
     ("convolution", ("conv", "implicit", "xmma_fprop", "cudnn", "sm90_xmma",
                      "nchwToNhwc", "nhwcToNchw")),
     ("matrix product", ("gemm", "cutlass", "cublas", "nvjet", "sm90_")),
@@ -56,26 +65,41 @@ def group_of(name: str) -> str:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--point", choices=("decode", "tiled_exact", "codec"),
+                    default="decode")
     ap.add_argument("--steps", type=int, default=STEPS)
-    ap.add_argument("--out", default="chiprun_out/profile_torch_decode.json")
+    ap.add_argument("--out", default=None)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_torch_decode: needs a CUDA device", file=sys.stderr)
         return 1
+    out_path = args.out or f"chiprun_out/profile_torch_{args.point}.json"
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()
-    pipe, x = build_decode(torch.Generator(device="cuda").manual_seed(0),
-                           args.steps)
-    run(pipe, x)
-    torch.cuda.synchronize()
-
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t = time.perf_counter()
-        run(pipe, x)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    pipe, x = build_decode(gen, args.steps)
+    with tempfile.TemporaryDirectory() as workdir:
+        if args.point == "decode":
+            go = lambda: run(pipe, x)  # noqa: E731
+            shape = dict(frames=FRAMES, res=RES)
+        else:
+            fused = dataclasses.replace(pipe, vae=fused_vae_of(pipe.vae))
+            if args.point == "tiled_exact":
+                go = build_tiled_exact(fused, gen)[0]
+                shape = dict(frames=1, res=[1080, 1920])
+            else:
+                go = build_codec(fused, build_cmp()[1], gen, workdir).go
+                shape = dict(frames=9, res=[1080, 1920])
+        go()
         torch.cuda.synchronize()
-        wall_s = time.perf_counter() - t
+
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t = time.perf_counter()
+            go()
+            torch.cuda.synchronize()
+            wall_s = time.perf_counter() - t
 
     kernels = {}
     for e in prof.events():
@@ -91,7 +115,7 @@ def main() -> int:
         g[1] += s
     top = sorted(kernels.items(), key=lambda kv: -kv[1][1])[:25]
     result = dict(
-        device=smi, steps=args.steps, frames=FRAMES, res=RES,
+        device=smi, point=args.point, steps=args.steps, **shape,
         wall_s=wall_s, device_busy_s=busy_s,
         idle_share=max(0.0, 1.0 - busy_s / wall_s),
         launches=sum(v[0] for v in kernels.values()),
@@ -100,11 +124,12 @@ def main() -> int:
                                         key=lambda kv: -kv[1][1])},
         top_kernels=[dict(name=name[:120], launches=n, seconds=s)
                      for name, (n, s) in top])
-    os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
-    with open(args.out, "w") as f:
+    os.makedirs(os.path.dirname(out_path) or ".", exist_ok=True)
+    with open(out_path, "w") as f:
         json.dump(result, f, indent=1)
     print(json.dumps({k: result[k] for k in
-                      ("device", "wall_s", "device_busy_s", "idle_share",
+                      ("device", "point", "wall_s", "device_busy_s",
+                       "idle_share",
                        "launches", "groups")}), flush=True)
     for row in result["top_kernels"][:15]:
         print(json.dumps(row), flush=True)

@@ -3,7 +3,8 @@
 The card's machine has PyTorch, numpy, scipy and einops but no jax, flax,
 optax, PIL, safetensors, transformers or triton, and the port must not
 lean on the JAX package.  A subprocess installs an import hook that
-refuses those modules, then imports every module of `diffcodec_tpu_torch`,
+refuses those modules, then imports every module of `diffcodec_tpu_torch`
+(the codec's among them: its JPEG reads import PIL inside functions),
 `chip_smoke` and the port's scripts, `scripts/profile_torch_decode.py`,
 `scripts/conv_kernel_breakdown.py`, `scripts/conv_kernel_ab.py`,
 `scripts/attention_bwd_ab.py`, `scripts/attention_fwd_ab.py` and
@@ -51,7 +52,7 @@ import attention_fwd_ab
 import splat_kernel_ab
 loaded = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
 assert not loaded, loaded
-print("imported", len(names), "modules")
+print("imported", len(names), "modules:", " ".join(names))
 """
 
 
@@ -64,6 +65,11 @@ def test_port_and_chip_smoke_import_without_jax():
     assert proc.returncode == 0, proc.stderr
     n = int(re.search(r"imported (\d+) modules", proc.stdout).group(1))
     assert n >= 15  # the package, its subpackages and every module
+    # the codec's decode path, whose JPEG reads import PIL inside functions
+    for name in ("codec.runner", "codec.bits", "codec.gop",
+                 "codec.sparse_flow", "models.cmp", "sampling.tiled",
+                 "ops.tiling"):
+        assert f"diffcodec_tpu_torch.{name}" in proc.stdout.split(), name
 
 
 def test_kernel_sources_include_no_torch_headers():
