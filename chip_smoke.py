@@ -78,6 +78,41 @@ Phases, each printed as one JSON line with the elapsed seconds `t`:
              the CPU (fp32, plain versions) on the same weights, batch and
              draws: loss, global gradient norm and the cosine of the
              ControlNet's gradients
+  kernel     (residual shapes) the splat's small-channel kernel at the
+             residue transform's full-frame shapes: [8, 512, 512, 4] (RGB
+             and its metric) and [8, 512, 512, 3] (a flow and its metric),
+             and at the residual DDPM's [16, 256, 256, 4] and 3
+  train_residual
+             the residual second stage's training path: eight captions
+             through `HashTokenizer` and the full-width CLIP text encoder
+             (bf16), `make_residue_batch` on the card (both anchors warped
+             and occlusion-fused, 4 splats at 512 px), then
+             `ControlNetTrainer.train_step` with `ResControlNet` at SD-1.5
+             width (the encode target the residual, the warped prediction
+             to the ControlNet), batch 8 at 512 px, the fused VAE encoder,
+             AdamW lr 1e-5 clipped at 1.0, bf16 over fp32 masters;
+             TRAIN_STEPS iterations (text, residue batch, step), one
+             counted: samples/s from the median iteration, stage seconds
+             of one iteration synchronised in turn (text encode, residue
+             batch, encode, forward, backward, update), peak memory,
+             launches (the train step's as in `train`, 8 splats; the
+             residue batch's 4 splats and nothing else; none in the text
+             encoder), finite losses, masters moved, frozen UNet, VAE and
+             text encoder unmoved, non-zero gradients in the warp extractor
+             and upstream of the residue extractor's splats
+  residual_reference
+             one residual step at a tiny config on the card (bf16, kernels,
+             its residue batch made on the card) against the CPU (fp32,
+             plain versions): the warped prediction, loss, gradient norm
+             and cosine
+  residual_ddpm
+             the residual pixel DDPM (`UNet2DModel()`, fp32) at
+             `train_residual.py`'s defaults: 256 px, batch 16, the residue
+             batch made each step, eps-MSE at a timestep per sample in
+             [0, 500), AdamW 4e-4; DDPM_STEPS steps: samples/s from the
+             median step, peak memory, finite losses, launches (4 splats a
+             step); one `ddpm_step` from the UNet's output on the card
+             against the same step on the CPU
 Then a {"kernels": [...]} line, the `nvidia-smi` name and power limit, and
 last {"ok": true, "device": {...}}.  Any failure raises and exits non-zero.
 """
@@ -105,9 +140,10 @@ from diffcodec_tpu_torch.codec.runner import (EncodedVideo,
                                               decode_inter_frames,
                                               encode_flows,
                                               make_cmp_densifier)
-from diffcodec_tpu_torch.config import (ControlNetConfig, DistillConfig,
-                                        SamplerConfig, SchedulerConfig,
-                                        TrainConfig, UNetConfig, VAEConfig)
+from diffcodec_tpu_torch.config import (CLIPTextConfig, ControlNetConfig,
+                                        DistillConfig, SamplerConfig,
+                                        SchedulerConfig, TrainConfig,
+                                        UNetConfig, VAEConfig)
 from diffcodec_tpu_torch.ops import conv
 from diffcodec_tpu_torch.ops.attention import (attention, attention_backward,
                                                attention_bwd,
@@ -115,17 +151,26 @@ from diffcodec_tpu_torch.ops.attention import (attention, attention_backward,
                                                attention_reference)
 from diffcodec_tpu_torch.ops.softsplat import splat_sum, splat_sum_reference
 from diffcodec_tpu_torch.ops.tiling import merge_tiles
+from diffcodec_tpu_torch.models.clip_text import CLIPTextEncoder
 from diffcodec_tpu_torch.models.cmp import CMP
-from diffcodec_tpu_torch.models.controlnet import DualFlowControlNet
+from diffcodec_tpu_torch.models.controlnet import (DualFlowControlNet,
+                                                   ResControlNet)
+from diffcodec_tpu_torch.models.extractors import BiDirResidueExtractor
+from diffcodec_tpu_torch.models.unet2d import UNet2DModel
 from diffcodec_tpu_torch.models.unet2d_condition import UNet2DConditionModel
 from diffcodec_tpu_torch.models.vae import AutoencoderKL, decode_from_latents
 from diffcodec_tpu_torch.sampling.distilled import DistilledPipeline
 from diffcodec_tpu_torch.sampling.pipeline import DualFlowPipeline
-from diffcodec_tpu_torch.sampling.schedulers import NoiseSchedule
+from diffcodec_tpu_torch.sampling.schedulers import NoiseSchedule, ddpm_step
 from diffcodec_tpu_torch.sampling.tiled import (_crop_batch, sample_tiled,
                                                 tile_grid)
+from diffcodec_tpu_torch.train.residue import (ddpm_optimizer,
+                                               ddpm_schedule,
+                                               ddpm_train_step,
+                                               make_residue_batch)
 from diffcodec_tpu_torch.train.trainer import (ControlNetTrainer, Optimizer,
                                                TrainState)
+from diffcodec_tpu_torch.utils.tokenizer import HashTokenizer
 
 T0 = time.perf_counter()
 # NVIDIA H100 SXM data sheet: dense bf16 tensor-core rate, fp32 rate
@@ -251,6 +296,34 @@ CODEC_INTER = CODEC_FRAMES - 2
 # pixel, tenths at a few sharp pixels
 CMP_SMALL = (64, 96)
 CMP_TOL = dict(logit_rel_norm=2e-2, flow_max_abs=0.5, flow_mean_abs=0.05)
+# the residual path: the residue transform's splats at 512 px (RGB + its
+# metric, a flow + its metric; splat_small_kernel, C < 16) at B = 8
+RESIDUE_SPLAT_SHAPES = [(512, 4), (512, 3)]
+# make_residue_batch: two warps and two occlusion checks, nothing else
+RESIDUE_BATCH_LAUNCHES = {"splat_sum": 4, "attention": 0, "attention_bwd": 0,
+                          "gn_silu_conv3x3": 0, "conv3x3_head": 0,
+                          "silu_conv3x3": 0, "upsample_conv3x3": 0,
+                          "downsample_conv3x3": 0}
+# the residue extractor: an occlusion splat and a feature splat at each of
+# the 4 scales, both directions batched
+RESIDUE_EXTRACTOR_SPLATS = 8
+CAPTIONS = ["a man riding a horse along the beach at sunset",
+            "two children playing football in a park",
+            "a red car driving through a busy city street at night",
+            "close-up of a cat's face, shallow depth of field",
+            "waves crashing against rocks under a cloudy sky",
+            "a crowded market with fruit stalls",
+            "an aerial view of a river winding through a forest",
+            ""]
+# the residual DDPM at train_residual.py's defaults: 256 px, batch 16,
+# 500 squaredcos steps, AdamW 4e-4 (fp32)
+DDPM_RES, DDPM_BATCH, DDPM_STEPS = 256, 16, 5
+# residual_reference: the card's residue batch (fp32 splats, atomics in a
+# varying order) against the CPU's: a few ulps of values in [-1, 1]
+RESIDUE_TOL = 1e-4
+# one ddpm_step on the card against the CPU on the same fp32 inputs: a
+# few fp32 ulps of values of order 1
+DDPM_STEP_TOL = dict(atol=1e-5, rtol=1e-5)
 
 
 def compare(label: str, got, want, atol: float, rtol: float) -> float:
@@ -349,11 +422,11 @@ def check_attention(gen, BH: int = BATCH * HEADS) -> list:
     return rows
 
 
-def check_splat(gen, batch: int = BATCH) -> list:
-    """The splat at the extractor's shapes for `batch` splats (2 flow
-    directions per sample)."""
+def check_splat(gen, batch: int = BATCH, shapes=SPLAT_SHAPES) -> list:
+    """The splat at (R, C) `shapes` (default: the extractor's) for `batch`
+    splats (2 flow directions per sample in the extractor)."""
     rows = []
-    for R, C in SPLAT_SHAPES:
+    for R, C in shapes:
         vals = torch.randn(batch, R, R, C, device="cuda", generator=gen)
         flow = torch.randn(batch, R, R, 2, device="cuda", generator=gen) * 3
         flow[0, 1, :4, 0] = float("nan")        # dropped pixels
@@ -374,6 +447,7 @@ def check_splat(gen, batch: int = BATCH) -> list:
                    library_ms=None, bound_ms=b_ms, bound_by=b_by)
         log("kernel", **row)
         rows.append(row)
+        del vals, flow
     return rows
 
 
@@ -1266,10 +1340,12 @@ def make_trainer(unet, controlnet, vae, cfg: TrainConfig, dtype):
     return trainer, state
 
 
-def train_models(unet_cfg, cn_cfg, vae_cfg, device):
-    """fp32 UNet, ControlNet and fused-conv VAE on `device`."""
+def train_models(unet_cfg, cn_cfg, vae_cfg, device,
+                 controlnet_cls=DualFlowControlNet):
+    """fp32 UNet, ControlNet (`controlnet_cls`) and fused-conv VAE on
+    `device`."""
     with torch.device(device):
-        return (UNet2DConditionModel(unet_cfg), DualFlowControlNet(cn_cfg),
+        return (UNet2DConditionModel(unet_cfg), controlnet_cls(cn_cfg),
                 AutoencoderKL(vae_cfg, fused_conv=True))
 
 
@@ -1291,6 +1367,11 @@ def fingerprint(*modules) -> torch.Tensor:
                         for p in m.parameters()])
 
 
+def _warpers(controlnet):
+    fe = controlnet.feature_extractor
+    return fe.warpers if isinstance(fe, BiDirResidueExtractor) else fe.wrapper
+
+
 @torch.no_grad()
 def positive_confidence(controlnet):
     """Set each level's confidence head (the last bias of `metric_net`, one
@@ -1299,17 +1380,48 @@ def positive_confidence(controlnet):
     for half the levels, where `soft_fuse` clamps it to 0 and the level
     passes no gradient back to the extractor at all, whatever the kernels
     do.  A trained extractor's confidences are positive."""
-    for warper in controlnet.feature_extractor.wrapper:
+    for warper in _warpers(controlnet):
         warper.metric_net[2].bias.fill_(1.0)
 
 
 def upstream_of_splats(controlnet):
     """The feature extractor's parameters that feed the splats: the
-    pre-extractors, the per-scale extractors and the metric nets."""
+    pre-extractors, the per-scale extractors and the metric nets (and the
+    residue extractor's flow refiners)."""
+    if isinstance(controlnet.feature_extractor, BiDirResidueExtractor):
+        prefixes = ("prev_pre", "next_pre", "prev_pyramids",
+                    "next_pyramids", "flow_refiners", "warpers.")
+    else:
+        prefixes = ("first_pre", "last_pre", "extractors_", "wrapper.")
     return {n: p for n, p in
             controlnet.feature_extractor.named_parameters()
-            if n.startswith(("first_pre", "last_pre", "extractors_",
-                             "wrapper."))}
+            if n.startswith(prefixes)}
+
+
+def zero_grads(params) -> list:
+    """Names of the parameters in {name: parameter} with no or an all-zero
+    gradient."""
+    return [n for n, p in params.items()
+            if p.grad is None or not bool(p.grad.abs().sum() > 0)]
+
+
+def attention_needing_grad(trainer, launches, text_embeds) -> int:
+    """The attention launches of a counted step that need a gradient: all
+    but those of the frozen UNet's down path and mid block, which do not
+    depend on the ControlNet (its mid residual is added after the mid
+    block; JAX's VJP drops them too)."""
+    unet = trainer.unet
+    B = text_embeds.shape[0]
+
+    def independent_of_controlnet():
+        t = torch.zeros(B, dtype=torch.long, device="cuda")
+        h, _ = unet.encode(torch.zeros(B, RES // 8, RES // 8, 4,
+                                       device="cuda"), t, text_embeds)
+        unet.mid_block(h, unet.time_emb(t, B), text_embeds.to(unet.dtype))
+
+    with torch.no_grad():
+        _, _, frozen = counted(independent_of_controlnet)
+    return launches["attention"] - frozen["attention"]
 
 
 def train(gen) -> dict:
@@ -1350,27 +1462,11 @@ def train(gen) -> dict:
                                                          moments=moments))
     _, backward_s = timed(loss.backward)
     upstream = upstream_of_splats(trainer.controlnet)
-    dead = [n for n, p in upstream.items()
-            if p.grad is None or not bool(p.grad.abs().sum() > 0)]
+    dead = zero_grads(upstream)
     _, update_s = timed(lambda: trainer.update(state))
     losses.append(loss.item())
-
-    # the frozen UNet's down path and mid block do not depend on the
-    # ControlNet (its mid residual is added after the mid block), so their
-    # attention calls need no gradient (JAX's VJP drops them too)
-    unet = trainer.unet
-
-    def independent_of_controlnet():
-        t = torch.zeros(TRAIN_BATCH, dtype=torch.long, device="cuda")
-        h, _ = unet.encode(torch.zeros(TRAIN_BATCH, RES // 8, RES // 8, 4,
-                                       device="cuda"), t,
-                           batch["text_embeds"])
-        unet.mid_block(h, unet.time_emb(t, TRAIN_BATCH),
-                       batch["text_embeds"].to(unet.dtype))
-
-    with torch.no_grad():
-        _, _, frozen_launches = counted(independent_of_controlnet)
-    with_grad = launches["attention"] - frozen_launches["attention"]
+    with_grad = attention_needing_grad(trainer, launches,
+                                       batch["text_embeds"])
     changed = [n for n, p in state.params.items()
                if not torch.equal(p, masters0[n])]
     out = dict(batch=TRAIN_BATCH, res=RES, steps=TRAIN_STEPS,
@@ -1453,6 +1549,290 @@ def train_reference():
                              f"with the CPU: {out}")
 
 
+def residual_raw_batch(gen, B, res, device):
+    """A synthetic ControlNet batch as the dataset gives it, fp32: the
+    ground truth uniform in [-1, 1], the anchors uniform in [0, 1]
+    (`make_residue_batch` maps them to [-1, 1]), flow ~ 4 N(0, 1)
+    pixels."""
+    def rand(*shape):
+        return torch.rand(shape, device=device, generator=gen)
+    return dict(image=rand(B, res, res, 3) * 2 - 1,
+                cond=rand(B, res, res, 6),
+                flow=torch.randn((B, res, res, 4), device=device,
+                                 generator=gen) * 4)
+
+
+def build_train_residual(gen) -> types.SimpleNamespace:
+    """The residual training path on the card with seeded random weights:
+    the trainer and its state over `ResControlNet`, the bf16 CLIP text
+    encoder, a raw batch, and its stages as closures: `embed` (captions ->
+    text_embeds), `prepare` (the residue batch) and `iteration` (both,
+    then one train step; returns the loss)."""
+    unet_cfg, cfg = UNetConfig(), TrainConfig()
+    models = train_models(unet_cfg, ControlNetConfig(unet=unet_cfg),
+                          VAEConfig(), "cuda", ResControlNet)
+    with torch.device("cuda"):
+        clip = CLIPTextEncoder(CLIPTextConfig())
+    for m in models + (clip,):
+        fill_params(m, gen)
+    positive_confidence(models[1])
+    clip = clip.to(torch.bfloat16).eval().requires_grad_(False)
+    tokenizer = HashTokenizer(context_length=clip.cfg.max_length)
+    trainer, state = make_trainer(*models, cfg, torch.bfloat16)
+    raw = residual_raw_batch(gen, TRAIN_BATCH, RES, "cuda")
+    captions = CAPTIONS[:TRAIN_BATCH]
+
+    @torch.no_grad()
+    def embed():
+        return clip(torch.from_numpy(tokenizer(captions)))
+
+    def prepare():
+        return make_residue_batch(raw)
+
+    def iteration():
+        batch = prepare()
+        batch["text_embeds"] = embed()
+        return trainer.train_step(state, batch, gen)[1]["loss"].item()
+
+    return types.SimpleNamespace(trainer=trainer, state=state, clip=clip,
+                                 embed=embed, prepare=prepare,
+                                 iteration=iteration)
+
+
+def train_residual(gen) -> dict:
+    """The residual second stage's training path at the operating point,
+    from captions: TRAIN_STEPS iterations of text encode, residue batch
+    and train step, one counted; then one iteration timed stage by
+    stage."""
+    path = build_train_residual(gen)
+    trainer, state, clip = path.trainer, path.state, path.clip
+    embed, prepare = path.embed, path.prepare
+    log("train_residual_setup", batch=TRAIN_BATCH, res=RES,
+        trainable=sum(p.numel() for p in state.params.values()),
+        frozen=sum(p.numel() for m in (trainer.unet, trainer.vae, clip)
+                   for p in m.parameters()),
+        text_encoder=sum(p.numel() for p in clip.parameters()))
+    masters0 = {n: p.clone() for n, p in state.params.items()}
+    frozen0 = fingerprint(trainer.unet, trainer.vae, clip)
+    torch.cuda.reset_peak_memory_stats()
+    step_s, losses, parts = [], [], None
+    for i in range(TRAIN_STEPS):
+        if i == 1:
+            text, text_s, text_n = counted(embed)
+            batch, prep_s, prep_n = counted(prepare)
+            batch["text_embeds"] = text
+            loss, s, step_n = counted(lambda: trainer.train_step(
+                state, batch, gen)[1]["loss"].item())
+            parts = dict(text_encode=text_n, residue_batch=prep_n,
+                         train_step=step_n)
+            s += text_s + prep_s
+        else:
+            loss, s = timed(path.iteration)
+        step_s.append(s)
+        losses.append(loss)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+
+    # one more iteration, synchronised stage by stage
+    text, text_s = timed(embed)
+    batch, prep_s = timed(prepare)
+    batch["text_embeds"] = text
+    moments, encode_s = timed(lambda: trainer.moments(batch))
+    (loss, _), forward_s = timed(lambda: trainer.loss_fn(batch, gen,
+                                                         moments=moments))
+    _, backward_s = timed(loss.backward)
+    cn = trainer.controlnet
+    dead = zero_grads(upstream_of_splats(cn))
+    dead_warp = zero_grads(dict(cn.warp_extractor.named_parameters()))
+    _, update_s = timed(lambda: trainer.update(state))
+    losses.append(loss.item())
+
+    launches = {k: sum(n[k] for n in parts.values())
+                for k in parts["train_step"]}
+    with_grad = attention_needing_grad(trainer, parts["train_step"],
+                                       batch["text_embeds"])
+    changed = [n for n, p in state.params.items()
+               if not torch.equal(p, masters0[n])]
+    warped = batch["warped"]
+    out = dict(batch=TRAIN_BATCH, res=RES, steps=TRAIN_STEPS,
+               step_s=step_s,
+               samples_per_s=TRAIN_BATCH / statistics.median(step_s[1:]),
+               stages_s=dict(text_encode=text_s, residue_batch=prep_s,
+                             encode=encode_s, forward=forward_s,
+                             backward=backward_s, update=update_s),
+               peak_mem_gib=peak, losses=losses, launches=launches,
+               launches_by_stage=parts,
+               attention_launches_needing_grad=with_grad,
+               masters_changed=f"{len(changed)}/{len(state.params)}",
+               upstream_of_splats_with_zero_grad=dead,
+               warp_extractor_with_zero_grad=dead_warp,
+               text_embeds=dict(shape=list(text.shape),
+                                std=text.float().std().item()),
+               warped=dict(min=warped.min().item(), max=warped.max().item(),
+                           residual_mean_abs=batch["residual"].abs().mean()
+                           .item()))
+    log("train_residual", **out)
+    if not all(map(math.isfinite, losses)):
+        raise AssertionError(f"train_residual: non-finite loss {losses}")
+    if not torch.isfinite(text).all() or tuple(text.shape) != (
+            TRAIN_BATCH, clip.cfg.max_length,
+            trainer.unet.cfg.cross_attention_dim):
+        raise AssertionError("train_residual: text embeddings "
+                             f"{tuple(text.shape)}, finite "
+                             f"{bool(torch.isfinite(text).all())}")
+    if not (torch.isfinite(warped).all() and warped.abs().max() <= 1.0):
+        raise AssertionError("train_residual: warped prediction outside "
+                             "[-1, 1] or not finite")
+    check_launches("train_residual (text encode)", parts["text_encode"],
+                   {k: 0 for k in parts["text_encode"]})
+    check_launches("train_residual (residue batch)", parts["residue_batch"],
+                   RESIDUE_BATCH_LAUNCHES)
+    check_launches("train_residual (train step)", parts["train_step"], {
+        **ENCODER_LAUNCHES, "splat_sum": RESIDUE_EXTRACTOR_SPLATS,
+        "upsample_conv3x3": 0, "conv3x3_head": 0, "silu_conv3x3": 0,
+        "attention_bwd": with_grad})
+    if with_grad <= 0:
+        raise AssertionError("train_residual: no attention call needed a "
+                             "gradient")
+    if len(changed) < 0.95 * len(state.params):
+        raise AssertionError(f"train_residual: only "
+                             f"{out['masters_changed']} master tensors "
+                             "changed")
+    if not torch.equal(fingerprint(trainer.unet, trainer.vae, clip),
+                       frozen0):
+        raise AssertionError("train_residual: a frozen parameter changed")
+    if dead or dead_warp:
+        raise AssertionError(f"train_residual: parameters without gradient "
+                             f"upstream of the splats {dead} or in the "
+                             f"warp extractor {dead_warp}")
+    return out
+
+
+def residual_reference():
+    """One residual step at a tiny config, its residue batch made on each
+    device: the card (bf16, kernels) against the CPU (fp32, plain
+    versions) on the same weights, raw batch and draws."""
+    cfgs = (UNetConfig.tiny(), ControlNetConfig.tiny(),
+            VAEConfig(base_channels=8, channel_mults=(1, 1, 2, 2),
+                      layers_per_block=1))
+    cpu_models = train_models(*cfgs, "cpu", ResControlNet)
+    card_models = train_models(*cfgs, "cuda", ResControlNet)
+    for c, g in zip(cpu_models, card_models):
+        fill_params(c, torch.Generator().manual_seed(9))
+        if isinstance(c, ResControlNet):
+            positive_confidence(c)
+        g.load_state_dict(c.state_dict())
+    cfg = TrainConfig()
+    cpu, _ = make_trainer(*cpu_models, cfg, torch.float32)
+    card, _ = make_trainer(*card_models, cfg, torch.bfloat16)
+    g = torch.Generator().manual_seed(10)
+    raw = residual_raw_batch(g, 2, 64, "cpu")
+    text = torch.randn((2, 77, 32), generator=g) * 0.02
+    draws = dict(noise=torch.randn(2, 8, 8, 4, generator=g),
+                 timesteps=torch.randint(0, 1000, (2,), generator=g),
+                 latent_eps=torch.randn(2, 8, 8, 4, generator=g))
+
+    def grads(trainer, raw, text, draws):
+        batch = make_residue_batch(raw)
+        batch["text_embeds"] = text
+        loss, _ = trainer.loss_fn(batch, **draws)
+        loss.backward()
+        gr = trainer.gradients()
+        return (batch["warped"].cpu(), loss.item(),
+                torch.cat([gr[n].flatten().cpu() for n in sorted(gr)]))
+
+    want_warped, want_loss, want = grads(cpu, raw, text, draws)
+    (got_warped, got_loss, got), _, launches = counted(lambda: grads(
+        card, {k: v.cuda() for k, v in raw.items()},
+        text.cuda().bfloat16(), {k: v.cuda() for k, v in draws.items()}))
+    out = dict(warped_max_abs_err=(got_warped - want_warped).abs().max()
+               .item(),
+               loss=got_loss, loss_cpu=want_loss,
+               loss_rel_err=abs(got_loss - want_loss) / abs(want_loss),
+               grad_norm=got.norm().item(), grad_norm_cpu=want.norm().item(),
+               grad_norm_rel_err=abs(got.norm().item() - want.norm().item())
+               / want.norm().item(),
+               grad_cosine=F.cosine_similarity(got, want, dim=0).item(),
+               tol=dict(TRAIN_REF_TOL, warped_max_abs=RESIDUE_TOL),
+               launches=launches)
+    log("residual_reference", **out)
+    # the residue batch's 4 splats and 2 a level of the tiny extractor
+    check_launches("residual_reference", launches, {
+        "attention": None, "attention_bwd": None, "gn_silu_conv3x3": None,
+        "downsample_conv3x3": None,
+        "splat_sum": 4 + 2 * len(cfgs[1].inject_channels)})
+    if not (out["warped_max_abs_err"] <= RESIDUE_TOL
+            and out["loss_rel_err"] <= TRAIN_REF_TOL["loss_rel"]
+            and out["grad_norm_rel_err"] <= TRAIN_REF_TOL["grad_norm_rel"]
+            and out["grad_cosine"] >= TRAIN_REF_TOL["grad_cosine"]):
+        raise AssertionError(f"tiny residual step on the card disagrees "
+                             f"with the CPU: {out}")
+
+
+def build_residual_ddpm(gen):
+    """The residual DDPM on the card with seeded random weights:
+    (unet, schedule, raw batch, step), `step()` one training step
+    (residue batch, then the AdamW step; returns the loss)."""
+    with torch.device("cuda"):
+        unet = UNet2DModel()
+    fill_params(unet, gen)
+    schedule, tx = ddpm_schedule(), ddpm_optimizer()
+    opt_state = tx.init(dict(unet.named_parameters()))
+    raw = residual_raw_batch(gen, DDPM_BATCH, DDPM_RES, "cuda")
+
+    def step():
+        residual = make_residue_batch(raw)["residual"]
+        return ddpm_train_step(unet, schedule, tx, opt_state, residual,
+                               gen).item()
+
+    return unet, schedule, raw, step
+
+
+def residual_ddpm(gen) -> dict:
+    """The residual pixel DDPM at train_residual.py's defaults: DDPM_STEPS
+    steps (residue batch, then the AdamW step), one counted; then one
+    ddpm_step from the UNet's output, on the card and on the CPU."""
+    unet, schedule, raw, step = build_residual_ddpm(gen)
+    log("residual_ddpm_setup", batch=DDPM_BATCH, res=DDPM_RES,
+        params=sum(p.numel() for p in unet.parameters()))
+    p0 = fingerprint(unet)
+
+    torch.cuda.reset_peak_memory_stats()
+    step_s, losses, launches = [], [], None
+    for i in range(DDPM_STEPS):
+        if i == 1:
+            loss, s, launches = counted(step)
+        else:
+            loss, s = timed(step)
+        step_s.append(s)
+        losses.append(loss)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+
+    # one ancestral step from the UNet's output, card against CPU
+    t = 249
+    residual = make_residue_batch(raw)["residual"]
+    noise = torch.randn(residual.shape, device="cuda", generator=gen)
+    x_t = schedule.add_noise(residual, noise, t)
+    with torch.no_grad():
+        eps = unet(x_t, t)
+    z = torch.randn(residual.shape, device="cuda", generator=gen)
+    got = ddpm_step(schedule, eps, t, t - 1, x_t, z)
+    want = ddpm_step(schedule, eps.cpu(), t, t - 1, x_t.cpu(), z.cpu())
+    err = compare("ddpm_step", got.cpu(), want, **DDPM_STEP_TOL)
+    out = dict(batch=DDPM_BATCH, res=DDPM_RES, steps=DDPM_STEPS,
+               step_s=step_s,
+               samples_per_s=DDPM_BATCH / statistics.median(step_s[1:]),
+               peak_mem_gib=peak, losses=losses, launches=launches,
+               ddpm_step=dict(t=t, max_abs_err=err, tol=DDPM_STEP_TOL,
+                              eps_std=eps.std().item()))
+    log("residual_ddpm", **out)
+    if not all(map(math.isfinite, losses)):
+        raise AssertionError(f"residual_ddpm: non-finite loss {losses}")
+    if torch.equal(fingerprint(unet), p0):
+        raise AssertionError("residual_ddpm: the parameters did not move")
+    check_launches("residual_ddpm", launches, RESIDUE_BATCH_LAUNCHES)
+    return out
+
+
 def summary(rows, paths, name, source, replaces, main_path, **extra):
     """One kernel's entry of the `kernels` line: its heaviest shape's
     numbers (the largest bound), its worst error over every shape (each
@@ -1510,12 +1890,23 @@ def main() -> int:
     torch.cuda.empty_cache()
     train_reference()
 
+    rows += (check_splat(gen, TRAIN_BATCH, RESIDUE_SPLAT_SHAPES)
+             + check_splat(gen, DDPM_BATCH,
+                           [(DDPM_RES, c) for _, c in RESIDUE_SPLAT_SHAPES]))
+    torch.cuda.empty_cache()
+    residual = train_residual(gen)
+    torch.cuda.empty_cache()
+    residual_reference()
+    ddpm = residual_ddpm(gen)
+
     paths = {"decode": dec["launches"],
              "decode_fusedconv": fused_out["launches"],
              "decode_distilled": distilled["launches"],
              "tiled_exact": tiled["launches"],
              "codec": codec_out["launches"],
-             "train": trained["launches"]}
+             "train": trained["launches"],
+             "train_residual": residual["launches"],
+             "residual_ddpm": ddpm["launches"]}
     cu = "diffcodec_tpu_torch/csrc/"
     flash = "jax/experimental/pallas/ops/tpu/flash_attention.py"
     kernels = [
@@ -1541,7 +1932,9 @@ def main() -> int:
                      "corner's row in v4 reductions (red.global.add.v4.f32) "
                      "over its 16-byte-aligned body and scalar ones over "
                      "its unaligned head and tail; splat_small_kernel "
-                     "(C < 16): PR 4's scalar reductions"),
+                     "(C < 16, the occlusion splats and the residue "
+                     "transform's at [8, 512, 512, 4] and [8, 512, 512, 3]):"
+                     " one scalar reduction a channel and corner"),
         summary(rows, paths, "gn_silu_conv3x3", cu + "conv3x3.cu",
                 "diffcodec_tpu/ops/conv_pallas.py:211", "decode_fusedconv",
                 note="conv3x3_hopper where O > 8 (its launches include the "

@@ -1,6 +1,7 @@
 """Typed configuration of the port: the model and sampler configs of
-`diffcodec_tpu/config.py` (:16-120), its `TrainConfig` (:122-161), its
-`DistillConfig` (:164-190) and its `CodecConfig` (:194-202), copied so the
+`diffcodec_tpu/config.py` (:16-120, `CLIPTextConfig` :68-83), its
+`TrainConfig` (:122-161), its `DistillConfig` (:164-190) and its
+`CodecConfig` (:194-202), copied so the
 port imports nothing of the JAX package.  Frozen dataclasses, hashable,
 with the same defaults (SD-1.5 widths) and the same `tiny()` test
 sizes."""
@@ -61,6 +62,25 @@ class ControlNetConfig:
     @classmethod
     def tiny(cls):
         return cls(unet=UNetConfig.tiny(), inject_channels=(32, 64, 64))
+
+
+@dataclasses.dataclass(frozen=True)
+class CLIPTextConfig:
+    """CLIP ViT-L/14 text encoder."""
+    vocab_size: int = 49408
+    hidden_dim: int = 768
+    layers: int = 12
+    heads: int = 12
+    max_length: int = 77
+
+    @classmethod
+    def tiny(cls):
+        # keep the REAL vocab: the production BPE tokenizer emits ids up
+        # to 49407, and an embedding lookup past the table's end fails (in
+        # the JAX package it fills NaN) -- a tiny vocab breaks any pipeline
+        # that pairs this config with the real tokenizer
+        return cls(vocab_size=49408, hidden_dim=32, layers=2, heads=2,
+                   max_length=16)
 
 
 @dataclasses.dataclass(frozen=True)

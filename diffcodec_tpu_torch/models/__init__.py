@@ -1,2 +1,3 @@
-"""The SD-1.5 models of the decode path: UNet, DualFlowControlNet with its
-feature extractor, VAE decoder."""
+"""The SD-1.5 model family: UNet, DualFlowControlNet and ResControlNet with
+their extractors, VAE, CLIP text encoder, the residual DDPM's UNet2DModel
+and the CMP densifier."""

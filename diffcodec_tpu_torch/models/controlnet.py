@@ -1,7 +1,9 @@
-"""DualFlowControlNet, NHWC.
+"""DualFlowControlNet and ResControlNet, NHWC.
 
 Counterpart: `diffcodec_tpu/models/controlnet.py` (`ControlNetTrunk`,
-`DualFlowControlNet`, :42-139).  A ControlNet is the UNet's down path
+`DualFlowControlNet`, :42-139; `ResControlNet`, :142-175, the residual
+second stage, whose pyramid adds the warp extractor's features of the
+pre-warped prediction to the residue extractor's: P + W at each scale).  A ControlNet is the UNet's down path
 (conv_in, down blocks, mid block) with zero-conv residual heads, plus FDN
 injection of the warped conditioning pyramid after conv_in and after every
 down block.  Wiring kept from the reference:
@@ -21,7 +23,9 @@ import torch
 import torch.nn as nn
 
 from diffcodec_tpu_torch.config import ControlNetConfig
-from diffcodec_tpu_torch.models.extractors import FDN, BiDirFeatureExtractor
+from diffcodec_tpu_torch.models.extractors import (FDN, BiDirFeatureExtractor,
+                                                  BiDirResidueExtractor,
+                                                  WarpExtractor)
 from diffcodec_tpu_torch.models.layers import conv1x1
 from diffcodec_tpu_torch.models.unet2d_condition import UNetTrunk
 
@@ -94,5 +98,38 @@ class DualFlowControlNet(ControlNetTrunk):
     def forward(self, sample, timesteps, encoder_hidden_states,
                 controlnet_cond, flow_cond, conditioning_scale=1.0):
         pyramid = self.extract_pyramid(controlnet_cond, flow_cond)
+        return self.backbone(sample, timesteps, encoder_hidden_states,
+                             pyramid, conditioning_scale)
+
+
+class ResControlNet(ControlNetTrunk):
+    """Residual ControlNet: the trunk, conditioned on the anchors, the
+    flows and the warped prediction."""
+
+    def __init__(self, cfg: ControlNetConfig = ControlNetConfig()):
+        super().__init__(cfg)
+        self.feature_extractor = BiDirResidueExtractor(cfg.inject_channels)
+        self.warp_extractor = WarpExtractor(cfg.inject_channels)
+
+    def extract_pyramid(self, controlnet_cond, flow_cond, warp_cond):
+        """cond [B,H,W,6] (prev, next), flow [B,H,W,4] (forward, backward),
+        warp_cond [B,H,W,3] (the fused pre-warped prediction) -> P + W at
+        each scale."""
+        P = self.feature_extractor(controlnet_cond[..., 0:3],
+                                   controlnet_cond[..., 3:6],
+                                   flow_cond[..., 0:2], flow_cond[..., 2:4])
+        W = self.warp_extractor(warp_cond)
+        return [p + w for p, w in zip(P, W)]
+
+    def backbone(self, sample, timesteps, encoder_hidden_states, pyramid,
+                 conditioning_scale=1.0):
+        return ControlNetTrunk.forward(self, sample, timesteps,
+                                       encoder_hidden_states, pyramid,
+                                       conditioning_scale)
+
+    def forward(self, sample, timesteps, encoder_hidden_states,
+                controlnet_cond, flow_cond, warp_cond,
+                conditioning_scale=1.0):
+        pyramid = self.extract_pyramid(controlnet_cond, flow_cond, warp_cond)
         return self.backbone(sample, timesteps, encoder_hidden_states,
                              pyramid, conditioning_scale)

@@ -14,6 +14,7 @@ Numerics kept from the JAX package:
     `ops.attention.attention`, the CUDA kernel on the card;
     `AttentionBlock2D` (the VAE's single head, D = 512) stays a plain
     matmul + softmax, as XLA computed it outside any Pallas kernel;
+  * `ConvBlock` (the warp extractor's) stays on cuDNN;
   * `ResnetBlock2D`, `Upsample2D` and `Downsample2D` take `fused_conv`:
     off, GroupNorm, SiLU and the upsampling are separate passes around a
     cuDNN conv (the JAX package with `DIFFCODEC_FUSED_SILU_CONV` unset);
@@ -115,11 +116,11 @@ class Conv2d(nn.Conv2d):
 
     def forward(self, x):
         return conv2d_nhwc(x, self.weight, self.bias, stride=self.stride[0],
-                           padding=self.padding[0])
+                           padding=self.padding[0], groups=self.groups)
 
 
-def conv3x3(cin: int, cout: int, stride: int = 1) -> Conv2d:
-    return Conv2d(cin, cout, 3, stride=stride, padding=1)
+def conv3x3(cin: int, cout: int, stride: int = 1, groups: int = 1) -> Conv2d:
+    return Conv2d(cin, cout, 3, stride=stride, padding=1, groups=groups)
 
 
 def conv1x1(cin: int, cout: int) -> Conv2d:
@@ -318,3 +319,18 @@ class AttentionBlock2D(nn.Module):
         probs = torch.softmax(logits * C ** -0.5, dim=-1).to(v.dtype)
         out = self.to_out[0](torch.matmul(probs, v))
         return x + out.reshape(B, H, W, C)
+
+
+class ConvBlock(nn.Module):
+    """conv3x3 (with stride) - SiLU - conv3x3 - SiLU (the JAX package's
+    `ConvBlock`, `layers.py:621-637`).  cuDNN convs: JAX's fused SiluConv
+    gate (H * W >= 256^2, bf16) refuses the warp extractor's stages, which
+    run at 128 px and below from a 512 px input."""
+
+    def __init__(self, cin: int, cout: int, stride: int = 1):
+        super().__init__()
+        self.block = nn.Sequential(conv3x3(cin, cout, stride), nn.SiLU(),
+                                   conv3x3(cout, cout), nn.SiLU())
+
+    def forward(self, x):
+        return self.block(x.to(self.block[0].weight.dtype))

@@ -53,13 +53,15 @@ from diffcodec_tpu_torch import _kernels
 
 def conv2d_nhwc(x: torch.Tensor, weight: torch.Tensor,
                 bias: Optional[torch.Tensor], stride: int = 1,
-                padding: int = 1) -> torch.Tensor:
+                padding: int = 1, groups: int = 1) -> torch.Tensor:
     """NHWC conv with an OIHW weight and symmetric zero padding; a 1x1
-    conv without stride is a plain matrix product over channels."""
-    if weight.shape[2:] == (1, 1) and stride == 1 and padding == 0:
+    conv without stride or groups is a plain matrix product over
+    channels."""
+    if (weight.shape[2:] == (1, 1) and stride == 1 and padding == 0
+            and groups == 1):
         return F.linear(x, weight[:, :, 0, 0], bias)
     y = F.conv2d(x.permute(0, 3, 1, 2), weight, bias, stride=stride,
-                 padding=padding)
+                 padding=padding, groups=groups)
     return y.permute(0, 2, 3, 1)
 
 

@@ -1,1 +1,1 @@
-"""UniPC sampling and the decode pipeline."""
+"""UniPC sampling and the decode pipelines; the residual DDPM's step."""

@@ -2,7 +2,7 @@
 decode.
 
 Counterpart: `diffcodec_tpu/sampling/pipeline.py` (`DualFlowPipeline`
-:35-217).  Kept: CFG as a doubled batch through the ControlNet and the
+:35-217, `encode_prompt` :46-65).  Kept: CFG as a doubled batch through the ControlNet and the
 UNet, guess mode (zero residuals for the unconditional half), the
 ControlNet keep schedule, the ControlNet and UNet-encoder interval caches,
 the conditioning pyramid computed once per decode, and the final clip to
@@ -35,6 +35,24 @@ class DualFlowPipeline:
     vae: AutoencoderKL
     schedule: NoiseSchedule
     sampler: SamplerConfig = SamplerConfig()
+
+    @staticmethod
+    @torch.no_grad()
+    def encode_prompt(text_encoder, tokenizer, prompts,
+                      negative_prompts=None):
+        """Tokenize and encode the prompts and their negatives (default
+        "") for CFG.  prompts / negative_prompts: a string or a list of
+        them.  Returns (text_embeds, uncond_embeds), [B, L, D] tensors on
+        the encoder's device in its dtype."""
+        if isinstance(prompts, str):
+            prompts = [prompts]
+        if negative_prompts is None:
+            negative_prompts = [""] * len(prompts)
+        elif isinstance(negative_prompts, str):
+            negative_prompts = [negative_prompts] * len(prompts)
+        ids = torch.from_numpy(tokenizer(list(prompts)))
+        neg_ids = torch.from_numpy(tokenizer(list(negative_prompts)))
+        return text_encoder(ids), text_encoder(neg_ids)
 
     @classmethod
     def create(cls, unet_cfg: UNetConfig = UNetConfig(),

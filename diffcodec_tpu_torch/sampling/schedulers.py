@@ -1,6 +1,8 @@
-"""Noise schedule and the UniPC sampler, with its tables on the host.
+"""Noise schedule, the UniPC sampler with its tables on the host, and the
+residual DDPM's ancestral step.
 
-Counterpart: `diffcodec_tpu/sampling/schedulers.py` (:53-317).  UniPC
+Counterpart: `diffcodec_tpu/sampling/schedulers.py` (:53-317; `ddpm_step`
+:104-130).  UniPC
 matches diffusers' `UniPCMultistepScheduler` defaults (solver order 2, bh2,
 data prediction, lower-order final step, corrector on, 'linspace' grid).
 Every per-step coefficient is computed on the host in float64 and rounded
@@ -87,6 +89,36 @@ class NoiseSchedule:
         if self.cfg.prediction_type == "v_prediction":
             return sa * sample - so * model_output
         raise ValueError(self.cfg.prediction_type)
+
+
+def ddpm_step(schedule: NoiseSchedule, model_output: torch.Tensor,
+              timestep: int, prev_timestep: int, sample: torch.Tensor,
+              noise: torch.Tensor = None,
+              clip_sample: bool = True) -> torch.Tensor:
+    """One ancestral DDPM step x_t -> x_{t-1} (epsilon parameterisation),
+    fp32.  prev_timestep < 0 is the final step, which adds no noise
+    (`noise` may then be None).  The coefficients are the JAX package's
+    float32 arithmetic, computed on the host in its order."""
+    f32 = np.float32
+    table = schedule.alphas_cumprod
+    abar_t = table[int(timestep)]
+    final = int(prev_timestep) < 0
+    abar_prev = f32(1.0) if final else table[int(prev_timestep)]
+    alpha_t = abar_t / abar_prev
+    beta_t = f32(1.0) - alpha_t
+    x0 = schedule.pred_original_sample(sample, model_output, int(timestep))
+    if clip_sample:
+        x0 = x0.clamp(-1.0, 1.0)
+    one_m_abar_t = f32(1.0) - abar_t
+    one_m_abar_prev = f32(1.0) - abar_prev
+    coef_x0 = np.sqrt(abar_prev) * beta_t / one_m_abar_t
+    coef_xt = np.sqrt(alpha_t) * one_m_abar_prev / one_m_abar_t
+    mean = float(coef_x0) * x0 + float(coef_xt) * sample.float()
+    if final:
+        return mean
+    var = beta_t * one_m_abar_prev / one_m_abar_t
+    sigma = np.sqrt(max(var, f32(1e-20)))
+    return mean + float(sigma) * noise.float()
 
 
 def unipc_timesteps(num_train_timesteps: int,

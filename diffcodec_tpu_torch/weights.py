@@ -3,11 +3,16 @@
 The port's modules carry the HF diffusers / reference attribute names, so a
 module's `state_dict` keys are the torch names of the name maps below,
 copied from `diffcodec_tpu/models/hf_import.py` (`unet_name_map` :145,
-`vae_name_map` :182, `controlnet_name_map` :268,
-`feature_extractor_name_map` :321) and from `diffcodec_tpu/models/cmp.py`
+`vae_name_map` :182, `clip_text_name_map` :242, `controlnet_name_map` :268,
+`feature_extractor_name_map` :321, `residue_extractor_name_map` :351,
+`warp_extractor_name_map` :383, `rescontrolnet_name_map` :404) and from
+`diffcodec_tpu/models/cmp.py`
 (`cmp_name_map` :338, `cmp_batch_stats_map` :441, DiffCodec's resnet50 +
 skip configuration) together with the inverse layout transforms (:477-487,
-:531-543).  Each entry is (torch name, flax path,
+:531-543), and `unet2d_name_map` for the residual DDPM's
+`diffcodec_tpu/models/unet2d.py::UNet2DModel`, which the JAX package has no
+map for (its torch names are diffusers' `UNet2DModel`, the layout of the
+reference's residual checkpoint).  Each entry is (torch name, flax path,
 kind), kind one of:
   conv_kernel    flax HWIO <-> torch OIHW
   linear_kernel  flax [in, out] <-> torch [out, in]
@@ -15,8 +20,9 @@ kind), kind one of:
 
 `load_flax_params(module, params, name_map)` turns a flax tree (nested dicts
 of numpy arrays, with or without the {'params': ...} wrapper) into the
-module's state dict and loads it with `strict=True`; `load_cmp_params`
-does the same for the CMP's parameters and BatchNorm running statistics.
+module's state dict and loads it with `strict=True`; `load_clip_text_params`
+does so for the CLIP text encoder, `load_cmp_params` for the CMP's
+parameters and BatchNorm running statistics.
 """
 
 from __future__ import annotations
@@ -26,7 +32,8 @@ from typing import Dict, List, Mapping, Sequence, Tuple
 import numpy as np
 import torch
 
-from diffcodec_tpu_torch.config import ControlNetConfig, UNetConfig, VAEConfig
+from diffcodec_tpu_torch.config import (CLIPTextConfig, ControlNetConfig,
+                                        UNetConfig, VAEConfig)
 
 Entry = Tuple[str, Tuple[str, ...], str]
 
@@ -277,6 +284,137 @@ def feature_extractor_name_map(inject_channels: Sequence[int],
     return out
 
 
+def residue_extractor_name_map(inject_channels: Sequence[int],
+                               torch_prefix: str = "",
+                               flax_prefix: Tuple[str, ...] = ()
+                               ) -> List[Entry]:
+    """Bi_Dir_ResidueExtractor names -> the JAX BiDirResidueExtractor.  The
+    reference's flow_feature_encoders are declared but never used; neither
+    model has them."""
+    out: List[Entry] = []
+    fe, tp = tuple(flax_prefix), torch_prefix
+    for side in ("prev", "next"):
+        for k, torch_idx in enumerate((0, 2, 4)):
+            out += _conv(f"{tp}{side}_pre.{torch_idx}",
+                         fe + (f"{side}_pre_{k}",))
+    for idx in range(len(inject_channels)):
+        out += _conv(f"{tp}prev_pyramids.{idx}.0",
+                     fe + (f"prev_pyramid_{idx}",))
+        out += _conv(f"{tp}next_pyramids.{idx}.0",
+                     fe + (f"next_pyramid_{idx}",))
+        out += _conv(f"{tp}flow_refiners.{idx}",
+                     fe + (f"flow_refiner_{idx}",))
+        out += _conv(f"{tp}warpers.{idx}.metric_net.0",
+                     fe + (f"warper_{idx}", "metric_0"))
+        out += _conv(f"{tp}warpers.{idx}.metric_net.2",
+                     fe + (f"warper_{idx}", "metric_2"))
+        out += _conv(f"{tp}zero_convs.{idx}",
+                     fe + (f"zero_conv_{idx}", "conv"))
+    return out
+
+
+def warp_extractor_name_map(inject_channels: Sequence[int],
+                            torch_prefix: str = "",
+                            flax_prefix: Tuple[str, ...] = ()
+                            ) -> List[Entry]:
+    """WarpExtractor names (enc1..enc5 ConvBlocks and the zero convs) ->
+    the JAX WarpExtractor."""
+    out: List[Entry] = []
+    fe, tp = tuple(flax_prefix), torch_prefix
+    names = [("enc1", ("enc1",))] + [
+        (f"enc{i + 2}", (f"enc_{i + 2}",))
+        for i in range(len(inject_channels))]
+    for tname, fname in names:
+        out += _conv(f"{tp}{tname}.block.0", fe + fname + ("conv1",))
+        out += _conv(f"{tp}{tname}.block.2", fe + fname + ("conv2",))
+    for idx in range(len(inject_channels)):
+        out += _conv(f"{tp}zero_convs.{idx}",
+                     fe + (f"zero_conv_{idx}", "conv"))
+    return out
+
+
+def rescontrolnet_name_map(cfg: ControlNetConfig) -> List[Entry]:
+    """ResControlNet: the DualFlow map's trunk, heads and FDNs, with the
+    residue and warp extractors in place of the feature extractor."""
+    out = [e for e in controlnet_name_map(cfg)
+           if not e[0].startswith("feature_extractor.")]
+    out += residue_extractor_name_map(
+        cfg.inject_channels, torch_prefix="feature_extractor.",
+        flax_prefix=("feature_extractor",))
+    out += warp_extractor_name_map(
+        cfg.inject_channels, torch_prefix="warp_extractor.",
+        flax_prefix=("warp_extractor",))
+    return out
+
+
+def clip_text_name_map(cfg: CLIPTextConfig) -> List[Entry]:
+    """HF CLIPTextModel names -> the JAX CLIPTextEncoder."""
+    p = "text_model"
+    out: List[Entry] = [
+        (f"{p}.embeddings.token_embedding.weight",
+         ("token_embedding", "embedding"), "raw"),
+        (f"{p}.embeddings.position_embedding.weight",
+         ("position_embedding",), "raw"),
+    ]
+    for i in range(cfg.layers):
+        t = f"{p}.encoder.layers.{i}"
+        f = (f"layers_{i}",)
+        out += _norm(f"{t}.layer_norm1", f + ("layer_norm1",))
+        for proj in ("q_proj", "k_proj", "v_proj", "out_proj"):
+            out += _linear(f"{t}.self_attn.{proj}", f + ("self_attn", proj))
+        out += _norm(f"{t}.layer_norm2", f + ("layer_norm2",))
+        out += _linear(f"{t}.mlp.fc1", f + ("fc1",))
+        out += _linear(f"{t}.mlp.fc2", f + ("fc2",))
+    out += _norm(f"{p}.final_layer_norm", ("final_layer_norm",))
+    return out
+
+
+def unet2d_name_map(block_out_channels: Sequence[int] = (64, 128, 128, 256),
+                    layers_per_block: int = 2,
+                    attn_blocks: Sequence[bool] = (False, False, True, True)
+                    ) -> List[Entry]:
+    """diffusers UNet2DModel names -> the JAX `UNet2DModel` (the residual
+    DDPM): flax's `down_{i}_res_{j}`, `down_{i}_attn_{j}`,
+    `down_{i}_downsample`, `mid_res_{0,1}`, `mid_attn`, `up_{i}_res_{j}`,
+    `up_{i}_attn_{j}`, `up_{i}_upsample`, `conv_norm_out`, `conv_out`."""
+    out = _conv("conv_in", ("conv_in",))
+    out += _linear("time_embedding.linear_1", ("time_embedding", "linear_1"))
+    out += _linear("time_embedding.linear_2", ("time_embedding", "linear_2"))
+    chans = list(block_out_channels)
+    prev = chans[0]
+    for i, ch in enumerate(chans):
+        for j in range(layers_per_block):
+            f, t = (f"down_{i}_res_{j}",), f"down_blocks.{i}.resnets.{j}"
+            out += _resnet_map(t, f)
+            if (prev if j == 0 else ch) != ch:
+                out += _shortcut_map(t, f)
+            if attn_blocks[i]:
+                out += _vae_attn_map(f"down_blocks.{i}.attentions.{j}",
+                                     (f"down_{i}_attn_{j}",))
+        if i < len(chans) - 1:
+            out += _conv(f"down_blocks.{i}.downsamplers.0.conv",
+                         (f"down_{i}_downsample", "conv"))
+        prev = ch
+    out += _resnet_map("mid_block.resnets.0", ("mid_res_0",))
+    out += _vae_attn_map("mid_block.attentions.0", ("mid_attn",))
+    out += _resnet_map("mid_block.resnets.1", ("mid_res_1",))
+    rev_attn = list(reversed(attn_blocks))
+    for i, ch in enumerate(reversed(chans)):
+        for j in range(layers_per_block + 1):
+            f, t = (f"up_{i}_res_{j}",), f"up_blocks.{i}.resnets.{j}"
+            # the skip is concatenated: always a shortcut
+            out += _resnet_map(t, f) + _shortcut_map(t, f)
+            if rev_attn[i]:
+                out += _vae_attn_map(f"up_blocks.{i}.attentions.{j}",
+                                     (f"up_{i}_attn_{j}",))
+        if i < len(chans) - 1:
+            out += _conv(f"up_blocks.{i}.upsamplers.0.conv",
+                         (f"up_{i}_upsample", "conv"))
+    out += _gn("conv_norm_out", ("conv_norm_out",))
+    out += _conv("conv_out", ("conv_out",))
+    return out
+
+
 def _inverse_transform(kind: str, value: np.ndarray) -> np.ndarray:
     value = np.asarray(value)
     if kind == "conv_kernel":
@@ -307,6 +445,12 @@ def load_flax_params(module: torch.nn.Module, params: Mapping,
     sd = {k: torch.from_numpy(v)
           for k, v in export_state_dict(params, name_map).items()}
     module.load_state_dict(sd, strict=True)
+
+
+def load_clip_text_params(module: torch.nn.Module, params: Mapping) -> None:
+    """Load a JAX CLIPTextEncoder's parameters into the port's
+    `models.clip_text.CLIPTextEncoder` (strict)."""
+    load_flax_params(module, params, clip_text_name_map(module.cfg))
 
 
 def load_pipeline_params(pipe, params: Mapping) -> None:

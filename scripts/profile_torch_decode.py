@@ -1,20 +1,26 @@
 #!/usr/bin/env python3
-"""Where the PyTorch port's decode spends its time on the card.
+"""Where the PyTorch port's decode (or a training step) spends its time
+on the card.
 
     python3 scripts/profile_torch_decode.py [--point P] [--steps N]
                                             [--out PATH]
 
-Builds one of `chip_smoke.py`'s decodes with its builders (SD-1.5 full
-width, bf16, seeded random weights): `decode` (default; `build_decode`, 7
-frames at 512 x 512, 30 UniPC steps with CFG and FreeU), `tiled_exact`
-(`build_tiled_exact`: one 1080p frame in 15 tiles, 7 a call, the same
-exact pipeline with the fused VAE) or `codec` (`build_codec`: a synthetic
-1080p GOP-8 through the sparse mode, 14 CMP calls and the distilled K = 4
-pipeline over 105 tiles, 15 a call); runs it once to warm up, then again
-under `torch.profiler`, and reports for the profiled run: its wall time,
+Builds one of `chip_smoke.py`'s points with its `build_*` functions
+(SD-1.5 full width, seeded random weights): `decode` (default;
+`build_decode`, 7 frames at 512 x 512, 30 UniPC steps with CFG and
+FreeU, bf16),
+`tiled_exact` (`build_tiled_exact`: one 1080p frame in 15 tiles, 7 a call,
+the same exact pipeline with the fused VAE), `codec` (`build_codec`: a
+synthetic 1080p GOP-8 through the sparse mode, 14 CMP calls and the
+distilled K = 4 pipeline over 105 tiles, 15 a call), `train_residual`
+(`build_train_residual`: one iteration of the residual ControlNet's
+training from captions, batch 8 at 512 px, bf16) or `residual_ddpm`
+(`build_residual_ddpm`: one step of the residual pixel DDPM, batch 16 at
+256 px, fp32); runs it twice to warm up, then again under
+`torch.profiler`, and reports for the profiled run: its wall time,
 the device time summed over kernels (one stream, so the sum is the busy
 time) and the idle share, and the device time by kernel group (attention
-kernel, splat kernel, conv kernels, convolutions, matrix products,
+kernels, splat kernel, conv kernels, convolutions, matrix products,
 normalisation, elementwise, other) and by kernel name.  Needs one CUDA
 device.  The full result (top kernels included) goes to --out, by default
 chiprun_out/profile_torch_<point>.json.
@@ -37,13 +43,15 @@ from torch.profiler import ProfilerActivity, profile
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
 
-from chip_smoke import (FRAMES, RES, STEPS, build_cmp,  # noqa: E402
-                        build_codec, build_decode, build_tiled_exact,
+from chip_smoke import (DDPM_BATCH, DDPM_RES, FRAMES,  # noqa: E402
+                        RES, STEPS, TRAIN_BATCH, build_cmp, build_codec,
+                        build_decode, build_residual_ddpm,
+                        build_tiled_exact, build_train_residual,
                         fused_vae_of, run)
 
 # substrings of CUDA kernel names -> group (first match wins)
 GROUPS = [
-    ("attention kernel", ("attention_fwd_kernel",)),
+    ("attention kernels", ("attention_fwd_kernel", "attention_bwd_kernel")),
     ("splat kernel", ("splat_sum_kernel", "splat_small_kernel")),
     ("conv3x3 kernels", ("conv3x3_hopper", "conv3x3_head")),
     ("convolution", ("conv", "implicit", "xmma_fprop", "cudnn", "sm90_xmma",
@@ -63,9 +71,29 @@ def group_of(name: str) -> str:
     return "other"
 
 
+def build_point(point: str, steps: int, gen, workdir: str):
+    """(the call to profile, its frames and resolution)."""
+    if point == "train_residual":
+        return (build_train_residual(gen).iteration,
+                dict(frames=TRAIN_BATCH, res=RES))
+    if point == "residual_ddpm":
+        return build_residual_ddpm(gen)[3], dict(frames=DDPM_BATCH,
+                                                 res=DDPM_RES)
+    pipe, x = build_decode(gen, steps)
+    if point == "decode":
+        return (lambda: run(pipe, x)), dict(frames=FRAMES, res=RES)
+    fused = dataclasses.replace(pipe, vae=fused_vae_of(pipe.vae))
+    if point == "tiled_exact":
+        return build_tiled_exact(fused, gen)[0], dict(frames=1,
+                                                      res=[1080, 1920])
+    return (build_codec(fused, build_cmp()[1], gen, workdir).go,
+            dict(frames=9, res=[1080, 1920]))
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--point", choices=("decode", "tiled_exact", "codec"),
+    ap.add_argument("--point", choices=("decode", "tiled_exact", "codec",
+                                        "train_residual", "residual_ddpm"),
                     default="decode")
     ap.add_argument("--steps", type=int, default=STEPS)
     ap.add_argument("--out", default=None)
@@ -78,19 +106,9 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()
     gen = torch.Generator(device="cuda").manual_seed(0)
-    pipe, x = build_decode(gen, args.steps)
     with tempfile.TemporaryDirectory() as workdir:
-        if args.point == "decode":
-            go = lambda: run(pipe, x)  # noqa: E731
-            shape = dict(frames=FRAMES, res=RES)
-        else:
-            fused = dataclasses.replace(pipe, vae=fused_vae_of(pipe.vae))
-            if args.point == "tiled_exact":
-                go = build_tiled_exact(fused, gen)[0]
-                shape = dict(frames=1, res=[1080, 1920])
-            else:
-                go = build_codec(fused, build_cmp()[1], gen, workdir).go
-                shape = dict(frames=9, res=[1080, 1920])
+        go, shape = build_point(args.point, args.steps, gen, workdir)
+        go()
         go()
         torch.cuda.synchronize()
 

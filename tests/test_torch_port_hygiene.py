@@ -4,11 +4,13 @@ The card's machine has PyTorch, numpy, scipy and einops but no jax, flax,
 optax, PIL, safetensors, transformers or triton, and the port must not
 lean on the JAX package.  A subprocess installs an import hook that
 refuses those modules, then imports every module of `diffcodec_tpu_torch`
-(the codec's among them: its JPEG reads import PIL inside functions),
-`chip_smoke` and the port's scripts, `scripts/profile_torch_decode.py`,
-`scripts/conv_kernel_breakdown.py`, `scripts/conv_kernel_ab.py`,
-`scripts/attention_bwd_ab.py`, `scripts/attention_fwd_ab.py` and
-`scripts/splat_kernel_ab.py` (without running them).
+(the codec's among them: its JPEG reads import PIL inside functions; the
+residual stage's and the CLIP tokenizer's), `chip_smoke` and the port's
+scripts, `scripts/profile_torch_decode.py` (which also profiles the
+residual training points), `scripts/conv_kernel_breakdown.py`,
+`scripts/conv_kernel_ab.py`, `scripts/attention_bwd_ab.py`,
+`scripts/attention_fwd_ab.py` and `scripts/splat_kernel_ab.py` (without
+running them).
 """
 
 import os
@@ -65,10 +67,12 @@ def test_port_and_chip_smoke_import_without_jax():
     assert proc.returncode == 0, proc.stderr
     n = int(re.search(r"imported (\d+) modules", proc.stdout).group(1))
     assert n >= 15  # the package, its subpackages and every module
-    # the codec's decode path, whose JPEG reads import PIL inside functions
+    # the codec's decode path, whose JPEG reads import PIL inside
+    # functions, and the residual second stage with its text encoder
     for name in ("codec.runner", "codec.bits", "codec.gop",
                  "codec.sparse_flow", "models.cmp", "sampling.tiled",
-                 "ops.tiling"):
+                 "ops.tiling", "utils", "utils.tokenizer",
+                 "models.clip_text", "models.unet2d", "train.residue"):
         assert f"diffcodec_tpu_torch.{name}" in proc.stdout.split(), name
 
 
