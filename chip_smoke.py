@@ -45,6 +45,26 @@ Phases, each printed as one JSON line with the elapsed seconds `t`:
              tiles a call; seconds and inter frames/s of the second call,
              stage seconds, peak memory, launches; uint8 [9, 1080, 1920, 3]
              with the anchors unchanged asserted
+  checkpoint the weights-readiness path: the full-width UNet,
+             DualFlowControlNet, VAE and a seeded CLIP text tower (bf16)
+             written as a diffusers root by `models.weights.
+             synthesize_sd_checkpoint_dir` into a temporary directory and
+             loaded by `load_sd_checkpoint_dir` into fresh modules on the
+             card: bytes, seconds and GB/s each way, every tensor
+             bit-identical; the distilled K = 4 512 px decode with the
+             loaded weights (launches asserted) against the same decode
+             from the originals; then LPIPS, I3D, the FID-64 prefix and
+             the CMP through `synthesize_aux_checkpoints` /
+             `load_aux_checkpoints`: bit-identical tensors, the forwards'
+             difference reported
+  eval       the codec phase's decoded 1080p GOP scored against its
+             synthetic originals on the card: PSNR, MS-SSIM, LPIPS, the
+             FID-64 features and the I3D features, seconds of each; held
+             against the port's CPU path (PSNR and MS-SSIM on the full
+             frames, the networks on a 256 x 256 crop), each within a
+             limit that the same metric computed in bf16 (reported beside
+             it) exceeds; BD-rates of the published UVG curves
+             (`eval.anchors_data`) on the host
   reference  the same pipeline at a tiny config on the card (bf16, kernels)
              against the CPU (fp32, plain versions) on the same weights,
              with the VAE unfused and fused
@@ -77,7 +97,9 @@ Phases, each printed as one JSON line with the elapsed seconds `t`:
              one step at a tiny config on the card (bf16, kernels) against
              the CPU (fp32, plain versions) on the same weights, batch and
              draws: loss, global gradient norm and the cosine of the
-             ControlNet's gradients
+             ControlNet's gradients; again with the LPIPS term (the
+             full-width AlexNet LPIPS) and the edge term, the term beside
+             its value with the LPIPS network in bf16
   kernel     (residual shapes) the splat's small-channel kernel at the
              residue transform's full-frame shapes: [8, 512, 512, 4] (RGB
              and its metric) and [8, 512, 512, 3] (a flow and its metric),
@@ -123,6 +145,7 @@ import copy
 import dataclasses
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -140,6 +163,12 @@ from diffcodec_tpu_torch.codec.runner import (EncodedVideo,
                                               decode_inter_frames,
                                               encode_flows,
                                               make_cmp_densifier)
+from diffcodec_tpu_torch.eval import metrics as eval_metrics
+from diffcodec_tpu_torch.eval.anchors_data import uvg_rd_curves
+from diffcodec_tpu_torch.eval.frechet import make_i3d_feature_fn
+from diffcodec_tpu_torch.eval.inception import (InceptionFID64,
+                                                make_fid64_feature_fn)
+from diffcodec_tpu_torch.eval.plots import bd_rate_table
 from diffcodec_tpu_torch.config import (CLIPTextConfig, ControlNetConfig,
                                         DistillConfig, SamplerConfig,
                                         SchedulerConfig, TrainConfig,
@@ -155,7 +184,9 @@ from diffcodec_tpu_torch.models.clip_text import CLIPTextEncoder
 from diffcodec_tpu_torch.models.cmp import CMP
 from diffcodec_tpu_torch.models.controlnet import (DualFlowControlNet,
                                                    ResControlNet)
+from diffcodec_tpu_torch.models import weights as checkpoints
 from diffcodec_tpu_torch.models.extractors import BiDirResidueExtractor
+from diffcodec_tpu_torch.models.i3d import InceptionI3D
 from diffcodec_tpu_torch.models.unet2d import UNet2DModel
 from diffcodec_tpu_torch.models.unet2d_condition import UNet2DConditionModel
 from diffcodec_tpu_torch.models.vae import AutoencoderKL, decode_from_latents
@@ -163,7 +194,8 @@ from diffcodec_tpu_torch.sampling.distilled import DistilledPipeline
 from diffcodec_tpu_torch.sampling.pipeline import DualFlowPipeline
 from diffcodec_tpu_torch.sampling.schedulers import NoiseSchedule, ddpm_step
 from diffcodec_tpu_torch.sampling.tiled import (_crop_batch, sample_tiled,
-                                                tile_grid)
+                                                tile_grid, unit_from_uint8)
+from diffcodec_tpu_torch.train.lpips import LPIPS, make_lpips_fn
 from diffcodec_tpu_torch.train.residue import (ddpm_optimizer,
                                                ddpm_schedule,
                                                ddpm_train_step,
@@ -273,8 +305,12 @@ GRAD_ULP = 2.0 ** -5
 # train_reference: bf16 through the tiny ControlNet, UNet and encoder,
 # forward and backward, against fp32 on the CPU.  The loss is a mean over
 # all latents (bf16 error averages out); the gradients carry bf16's 2^-8
-# relative rounding through a dozen layers
-TRAIN_REF_TOL = dict(loss_rel=0.02, grad_norm_rel=0.05, grad_cosine=0.98)
+# relative rounding through a dozen layers.  The LPIPS term: the network
+# runs in fp32 (TF32 convs) on the bf16 decode, 4.2e-4 off the CPU's on
+# the H100; the same term with the LPIPS network under bf16 autocast (the
+# line's `loss_lpips_bf16`) must not pass its limit
+TRAIN_REF_TOL = dict(loss_rel=0.02, grad_norm_rel=0.05, grad_cosine=0.98,
+                     lpips_rel=1.5e-3)
 # the 1080p tiled decode (UVG's and HEVC class B's frame size): 512 px
 # tiles overlapping by 64 and feathered over 64, 3 x 5 = 15 tiles a frame
 FRAME_H, FRAME_W = 1080, 1920
@@ -298,6 +334,27 @@ CMP_SMALL = (64, 96)
 CMP_TOL = dict(logit_rel_norm=2e-2, flow_max_abs=0.5, flow_mean_abs=0.05)
 # the residual path: the residue transform's splats at 512 px (RGB + its
 # metric, a flow + its metric; splat_small_kernel, C < 16) at B = 8
+# checkpoint: the distilled decode from reloaded weights against the same
+# decode from the modules that wrote them, on images in [-1, 1].  Equal
+# weights give equal networks (the tensors are compared bit for bit); what
+# differs is the order of the splat's fp32 atomics, ~1e-7 relative in the
+# pyramid, which 4 bf16 steps of random-weight networks carry to ~0.04 max
+# and ~0.004 mean: two decodes of the original differ as much (the line's
+# `repeat_*`), so no decode is bit-reproducible.  The bf16 reference
+# phase's limits hold it.
+CKPT_DECODE_TOL = dict(max_abs=0.25, mean_abs=0.02)
+# eval: the card's metrics against the CPU's on the same frames: fp32 sums
+# in another order for PSNR (dB) and MS-SSIM, 3.8e-6 dB and 4.0e-7 on the
+# H100; the metric networks' convs are TF32 on the card (cuDNN's default,
+# 10-bit mantissa) against fp32 on the CPU, as in the CMP check: relative
+# norm of the difference, 6e-6 (LPIPS), 1.7e-4 (FID-64), 3.1e-4 (I3D).
+# Each limit lies between that reading and what the same metric computed
+# in bf16 reads (the line's `bf16_*`: PSNR with its mean squared error in
+# bf16, MS-SSIM and the networks under bf16 autocast), so a metric that
+# lost its fp32 fails here
+EVAL_TOL = dict(psnr_abs=1e-4, ms_ssim_abs=1e-5, lpips_rel_norm=1e-4,
+                inception_rel_norm=5e-4, i3d_rel_norm=1e-3)
+EVAL_CROP = 256
 RESIDUE_SPLAT_SHAPES = [(512, 4), (512, 3)]
 # make_residue_batch: two warps and two occlusion checks, nothing else
 RESIDUE_BATCH_LAUNCHES = {"splat_sum": 4, "attention": 0, "attention_bwd": 0,
@@ -840,16 +897,10 @@ def fill_cmp(model: CMP, gen: torch.Generator):
     scaled to N(0, 1.3 / fan_in) so the bin logits keep a spread of a few
     units through the 60 layers (`tests/test_torch_port_cmp.py`), and
     BatchNorm running means ~ N(0, 0.1^2), variances in [0.5, 1.5]."""
-    fill_params(model, gen)
+    fill_metric_net(model, gen)
     for m in model.modules():
         if isinstance(m, torch.nn.Conv2d):
             m.weight.mul_(1.3 ** 0.5)
-        elif isinstance(m, torch.nn.BatchNorm2d):
-            shape, dev = m.running_mean.shape, m.running_mean.device
-            m.running_mean.copy_(0.1 * torch.randn(shape, device=dev,
-                                                   generator=gen))
-            m.running_var.copy_(0.5 + torch.rand(shape, device=dev,
-                                                 generator=gen))
 
 
 def sparse_input(gen, H, W, device, points=150):
@@ -1095,13 +1146,13 @@ def _standin_sampler(cond, flow):
     return cond[..., :3].float() * 2.0 - 1.0 + flow[..., :1].float() * 0.25
 
 
-def codec(fused, cmp_model, gen) -> dict:
+def codec(fused, cmp_model, gen) -> tuple:
     """The codec's GOP (`build_codec`) decoded twice: seconds and inter
     frames/s of the second call, its stage seconds, flow bytes and bpp,
     peak memory and launches; asserts uint8 frames of the clip's shape,
     the anchors unchanged, 14 densifier calls and one sampler call, and
     that a sampler returning a tensor on the card decodes as on the
-    CPU."""
+    CPU.  Returns (its line, the decoded GOP, the clip's frames)."""
     with tempfile.TemporaryDirectory() as d:
         c = build_codec(fused, cmp_model, gen, d)
         torch.cuda.reset_peak_memory_stats()
@@ -1143,7 +1194,287 @@ def codec(fused, cmp_model, gen) -> dict:
         "attention": None, "splat_sum": None, "silu_conv3x3": 0,
         **launches_times(CODEC_INTER * N_TILES // CODEC_TILE_BATCH),
         **NO_TRAIN_KERNELS})
-    return res
+    return res, out, frames
+
+
+def bits_differ(a: torch.nn.Module, b: torch.nn.Module, names) -> list:
+    """The names whose tensors differ between a and b in dtype, shape or
+    any bit."""
+    sa, sb = a.state_dict(), b.state_dict()
+    return [n for n in names if not (
+        sa[n].dtype == sb[n].dtype and sa[n].shape == sb[n].shape
+        and torch.equal(sa[n].reshape(-1).view(torch.uint8),
+                        sb[n].reshape(-1).view(torch.uint8)))]
+
+
+@torch.no_grad()
+def fill_metric_net(model: torch.nn.Module, gen: torch.Generator):
+    """`fill_params`, BatchNorm running means ~ N(0, 0.1^2) and variances
+    in [0.5, 1.5], and LPIPS' lins made non-negative (as trained ones
+    are: a distance weighs each layer's differences up)."""
+    fill_params(model, gen)
+    if isinstance(model, LPIPS):
+        for k in range(5):
+            getattr(model, f"lin{k}").model[1].weight.abs_()
+    for m in model.modules():
+        if isinstance(m, torch.nn.modules.batchnorm._BatchNorm):
+            shape, dev = m.running_mean.shape, m.running_mean.device
+            m.running_mean.copy_(0.1 * torch.randn(shape, device=dev,
+                                                   generator=gen))
+            m.running_var.copy_(0.5 + torch.rand(shape, device=dev,
+                                                 generator=gen))
+
+
+def aux_inputs(gen):
+    """{name: forward arguments} of each metric network (and the CMP) on
+    the card."""
+    def u(*shape):
+        return torch.rand(shape, device="cuda", generator=gen) * 2 - 1
+    return {"lpips": (u(2, 64, 64, 3), u(2, 64, 64, 3)),
+            "inception": (u(2, 299, 299, 3),),
+            "i3d": (u(1, 16, 64, 64, 3),),
+            "cmp": sparse_input(gen, 64, 96, "cuda")}
+
+
+@torch.no_grad()
+def checkpoint(fused, x, cmp_model, gen) -> tuple:
+    """The weights-readiness path at full width: the fused pipeline's
+    UNet, DualFlowControlNet and VAE and a seeded CLIP text tower (bf16)
+    written as a diffusers root by `synthesize_sd_checkpoint_dir`, loaded
+    by `load_sd_checkpoint_dir` into fresh modules on the card; every
+    tensor bit-identical, and the distilled K = 4 decode with the loaded
+    weights (launches counted) against the same decode from the
+    originals.  Then LPIPS, I3D, the FID-64 prefix and the CMP through
+    `synthesize_aux_checkpoints` / `load_aux_checkpoints`: bit-identical
+    tensors and forwards.  Returns (its line, the loaded metric
+    networks)."""
+    with torch.device("cuda"):
+        text = CLIPTextEncoder(CLIPTextConfig()).to(torch.bfloat16).eval()
+    fill_params(text, gen)
+    sd = {"unet": fused.unet, "controlnet": fused.controlnet,
+          "vae": fused.vae, "text": text}
+    unet_cfg = fused.unet.cfg
+    with tempfile.TemporaryDirectory() as d:
+        written, write_s = timed(
+            lambda: checkpoints.synthesize_sd_checkpoint_dir(d, sd))
+        fresh = DualFlowPipeline.create(
+            unet_cfg, fused.controlnet.cfg, fused.vae.cfg, fused.sampler,
+            dtype=torch.bfloat16, device="cuda", fused_conv=True)
+        with torch.device("cuda"):
+            fresh_text = CLIPTextEncoder(CLIPTextConfig()).to(
+                torch.bfloat16).eval()
+        loaded = {"unet": fresh.unet, "controlnet": fresh.controlnet,
+                  "vae": fresh.vae, "text": fresh_text}
+        report, load_s = timed(
+            lambda: checkpoints.load_sd_checkpoint_dir(d, loaded))
+        read = sum(os.path.getsize(r["path"]) for r in report.values())
+    differ = {k: bits_differ(sd[k], loaded[k],
+                             checkpoints.module_names(k, sd[k]))
+              for k in sd}
+    n_tensors = sum(len(checkpoints.module_names(k, m))
+                    for k, m in sd.items())
+    n_params = sum(p.numel() for m in sd.values() for p in m.parameters())
+    del text, fresh_text, loaded
+    torch.cuda.empty_cache()
+
+    def distilled(pipe):
+        g = torch.Generator(device="cuda").manual_seed(41)
+        return DistilledPipeline.from_pipeline(
+            pipe, DistillConfig(num_student_steps=DISTILL_STEPS)).sample(
+                x["latents"], x["text"], x["cond"], x["flow"], generator=g)
+
+    want = distilled(fused)
+    got, _, launches = counted(lambda: distilled(fresh))
+    again = distilled(fused)
+    check_images("checkpoint", got)
+    check_launches("checkpoint", launches,
+                   {"attention": None, "splat_sum": None, "silu_conv3x3": 0,
+                    **FUSED_VAE_LAUNCHES, **NO_TRAIN_KERNELS})
+    diff = (got.float() - want.float()).abs()
+    diff = dict(max=diff.max().item(), mean=diff.mean().item())
+    repeat = (again.float() - want.float()).abs()
+    repeat = dict(max=repeat.max().item(), mean=repeat.mean().item())
+    del fresh, got, want, again
+    torch.cuda.empty_cache()
+
+    # the metric networks and the CMP
+    with torch.device("cuda"):
+        aux = {"lpips": LPIPS(), "i3d": InceptionI3D(),
+               "inception": InceptionFID64()}
+    for m in aux.values():
+        fill_metric_net(m, gen)
+    aux = {k: m.eval() for k, m in aux.items()}
+    aux["cmp"] = cmp_model
+    with tempfile.TemporaryDirectory() as d:
+        aux_written, aux_write_s = timed(
+            lambda: checkpoints.synthesize_aux_checkpoints(d, modules=aux))
+        aux_loaded, aux_load_s = timed(
+            lambda: checkpoints.load_aux_checkpoints(d, device="cuda"))
+    inputs = aux_inputs(gen)
+    aux_differ, aux_out_err = {}, {}
+    for name, m in aux.items():
+        aux_differ[name] = bits_differ(m, aux_loaded[name],
+                                       checkpoints.module_names(name, m))
+        a, b = m(*inputs[name]), aux_loaded[name](*inputs[name])
+        aux_out_err[name] = (a - b).abs().max().item()
+    out = dict(
+        sd=dict(params=n_params, tensors=n_tensors, dtype="bfloat16",
+                bytes_written=written, write_s=write_s,
+                write_gb_per_s=written / write_s / 1e9, bytes_read=read,
+                load_s=load_s, load_gb_per_s=read / load_s / 1e9,
+                unused={k: r["unused"] for k, r in report.items()},
+                tensors_differing={k: len(v) for k, v in differ.items()}),
+        decode=dict(steps=DISTILL_STEPS, max_abs_err=diff["max"],
+                    mean_abs_err=diff["mean"],
+                    repeat_max_abs_err=repeat["max"],
+                    repeat_mean_abs_err=repeat["mean"],
+                    tol=CKPT_DECODE_TOL,
+                    launches=launches),
+        aux=dict(bytes_written=aux_written, write_s=aux_write_s,
+                 load_s=aux_load_s,
+                 tensors_differing={k: len(v) for k, v in
+                                    aux_differ.items()},
+                 forward_max_abs_diff=aux_out_err))
+    log("checkpoint", **out)
+    bad = {k: v[:3] for k, v in {**differ, **aux_differ}.items() if v}
+    if bad:
+        raise AssertionError(f"checkpoint: reloaded tensors differ: {bad}")
+    if any(r["unused"] for r in report.values()):
+        raise AssertionError(f"checkpoint: unused names {out['sd']}")
+    d = out["decode"]
+    if not (d["max_abs_err"] <= CKPT_DECODE_TOL["max_abs"]
+            and d["mean_abs_err"] <= CKPT_DECODE_TOL["mean_abs"]):
+        raise AssertionError(f"checkpoint: reloaded decode disagrees: {d}")
+    return out, aux_loaded
+
+
+def rel_norm(got, want) -> float:
+    got, want = torch.as_tensor(got).float(), torch.as_tensor(want).float()
+    return ((got - want).norm() / want.norm()).item()
+
+
+def psnr_bf16(a, b) -> torch.Tensor:
+    """PSNR with its mean squared error held in bf16: what a metric path
+    that lost its fp32 reads (EVAL_TOL's probe)."""
+    mse = ((a.bfloat16() - b.bfloat16()) ** 2).mean(dim=(-3, -2, -1))
+    return 20.0 * np.log10(255.0) - 10.0 * torch.log10(mse.float())
+
+
+class BF16Autocast(torch.nn.Module):
+    """A module run under bf16 autocast, fp32 out: the LPIPS term as a
+    lower-precision network would give it (TRAIN_REF_TOL's probe)."""
+
+    def __init__(self, inner):
+        super().__init__()
+        self.inner = inner
+
+    def forward(self, *args):
+        with torch.autocast("cuda", dtype=torch.bfloat16):
+            return self.inner(*args).float()
+
+
+@torch.no_grad()
+def evaluate(decoded: np.ndarray, frames: np.ndarray, aux) -> dict:
+    """The codec's 1080p GOP scored against its synthetic originals on the
+    card: PSNR, MS-SSIM, LPIPS, the FID-64 features and the I3D features
+    of the clip, seconds of each (the second of two calls); held against
+    the port's CPU path (PSNR and MS-SSIM on the full frames, the networks
+    on a EVAL_CROP crop of both), beside the same metrics in bf16 that
+    EVAL_TOL must refuse; BD-rates of `anchors_data`'s UVG curves on the
+    host."""
+    orig = torch.from_numpy(frames).cuda()
+    pred = torch.from_numpy(decoded).cuda()
+    half = torch.full((), 127.5, device="cuda")
+    lpips_fn = make_lpips_fn(aux["lpips"], device="cuda")
+    fid_fn = make_fid64_feature_fn(aux["inception"], device="cuda")
+    fvd_fn = make_i3d_feature_fn(aux["i3d"], device="cuda")
+    runs = {
+        "psnr": lambda: eval_metrics.psnr(orig, pred),
+        "ms_ssim": lambda: eval_metrics.ms_ssim(orig, pred),
+        "lpips": lambda: lpips_fn(pred / half - 1.0, orig / half - 1.0),
+        "fid64_features": lambda: fid_fn(torch.cat([orig, pred])),
+        "i3d_features": lambda: fvd_fn(unit_from_uint8(
+            torch.stack([orig, pred]), torch.float32)),
+    }
+    card, seconds, first_s = {}, {}, {}
+    torch.cuda.reset_peak_memory_stats()
+    for name, fn in runs.items():
+        _, first_s[name] = timed(fn)
+        card[name], seconds[name] = timed(fn)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+
+    # the CPU: PSNR and MS-SSIM on the full frames, the networks on a crop
+    o_cpu, p_cpu = torch.from_numpy(frames), torch.from_numpy(decoded)
+    cpu_psnr = eval_metrics.psnr(o_cpu, p_cpu)
+    cpu_ms_ssim = eval_metrics.ms_ssim(o_cpu, p_cpu)
+    # what the limits must tell apart: the same metrics in bf16
+    bf16_psnr = psnr_bf16(orig, pred).cpu()
+    with torch.autocast("cuda", dtype=torch.bfloat16):
+        bf16_ms_ssim = eval_metrics.ms_ssim(orig, pred).float().cpu()
+    y0, x0 = (FRAME_H - EVAL_CROP) // 2, (FRAME_W - EVAL_CROP) // 2
+    crop = (slice(None), slice(y0, y0 + EVAL_CROP),
+            slice(x0, x0 + EVAL_CROP))
+    oc, pc = frames[crop], decoded[crop]
+    nets = {}
+    for name, dev_fn in (
+            ("lpips", lambda m, dev: make_lpips_fn(m, device=dev)(
+                torch.from_numpy(pc).to(dev).float() / 127.5 - 1.0,
+                torch.from_numpy(oc).to(dev).float() / 127.5 - 1.0)),
+            ("inception", lambda m, dev: make_fid64_feature_fn(
+                m, device=dev)(np.concatenate([oc, pc]))),
+            ("i3d", lambda m, dev: make_i3d_feature_fn(m, device=dev)(
+                np.stack([oc, pc]).astype(np.float32) / 255.0))):
+        cpu_model = copy.deepcopy(aux[name]).cpu()
+        want = torch.as_tensor(dev_fn(cpu_model, "cpu"))
+        got = torch.as_tensor(dev_fn(aux[name], "cuda")).cpu()
+        with torch.autocast("cuda", dtype=torch.bfloat16):
+            low = torch.as_tensor(dev_fn(aux[name], "cuda")).cpu()
+        nets[name] = dict(rel_norm_err=rel_norm(got, want),
+                          bf16_rel_norm_err=rel_norm(low, want),
+                          want_norm=want.float().norm().item())
+
+    finite = torch.isfinite(cpu_psnr)
+    psnr_card = card["psnr"].cpu()
+    anchors, ours = uvg_rd_curves(8)
+    table, bd_s = timed(lambda: bd_rate_table(anchors, ours))
+    out = dict(
+        frames=list(frames.shape), seconds=seconds, first_s=first_s,
+        peak_mem_gib=peak,
+        card=dict(psnr=psnr_card.tolist(),
+                  ms_ssim=card["ms_ssim"].cpu().tolist(),
+                  lpips=card["lpips"].cpu().tolist(),
+                  fid64_features=list(card["fid64_features"].shape),
+                  i3d_features=list(card["i3d_features"].shape)),
+        vs_cpu=dict(
+            psnr_max_abs_err=(psnr_card[finite] - cpu_psnr[finite]).abs()
+            .max().item(),
+            psnr_inf_same=bool(torch.equal(torch.isinf(psnr_card),
+                                           torch.isinf(cpu_psnr))),
+            ms_ssim_max_abs_err=(card["ms_ssim"].cpu() - cpu_ms_ssim).abs()
+            .max().item(),
+            bf16_psnr_max_abs_err=(bf16_psnr[finite] - cpu_psnr[finite])
+            .abs().max().item(),
+            bf16_ms_ssim_max_abs_err=(bf16_ms_ssim - cpu_ms_ssim).abs()
+            .max().item(), crop=EVAL_CROP, nets=nets, tol=EVAL_TOL),
+        bd_rate_uvg_gop8={k: v for k, v in table.items()}, bd_rate_s=bd_s)
+    log("eval", **out)
+    v = out["vs_cpu"]
+    if not (v["psnr_inf_same"] and v["psnr_max_abs_err"]
+            <= EVAL_TOL["psnr_abs"]
+            and v["ms_ssim_max_abs_err"] <= EVAL_TOL["ms_ssim_abs"]
+            and all(n["rel_norm_err"] <= EVAL_TOL[name + "_rel_norm"]
+                    for name, n in nets.items())):
+        raise AssertionError(f"eval: the card disagrees with the CPU: {v}")
+    if not (out["card"]["fid64_features"] == [2 * CODEC_FRAMES, 64]
+            and out["card"]["i3d_features"] == [2, 400]
+            and np.isfinite(card["fid64_features"]).all()
+            and np.isfinite(card["i3d_features"]).all()
+            and bool(torch.isfinite(card["lpips"]).all())):
+        raise AssertionError(f"eval: features {out['card']}")
+    if not any(np.isfinite(x) for row in table.values()
+               for x in row.values()):
+        raise AssertionError(f"eval: no finite BD-rate: {table}")
+    return out
 
 
 def tiled_reference():
@@ -1327,16 +1658,19 @@ def check_downsample(gen) -> list:
     return rows
 
 
-def make_trainer(unet, controlnet, vae, cfg: TrainConfig, dtype):
+def make_trainer(unet, controlnet, vae, cfg: TrainConfig, dtype,
+                 lpips=None):
     """(trainer, state) over fp32 models: the ControlNet's fp32 masters in
     the TrainState, the models cast to `dtype` (the ControlNet as the
-    working copy, the UNet and the VAE frozen)."""
+    working copy, the UNet and the VAE frozen; `lpips`, the perceptual
+    term's network, stays fp32 and frozen)."""
     state = TrainState.create(dict(controlnet.named_parameters()),
                               Optimizer(cfg))
     trainer = ControlNetTrainer(
         unet=unet.to(dtype).eval(), controlnet=controlnet.to(dtype),
         vae=vae.to(dtype).eval(),
-        schedule=NoiseSchedule.create(SchedulerConfig()), config=cfg)
+        schedule=NoiseSchedule.create(SchedulerConfig()), config=cfg,
+        lpips=lpips)
     return trainer, state
 
 
@@ -1499,54 +1833,83 @@ def train(gen) -> dict:
 
 def train_reference():
     """One step's loss and ControlNet gradients at a tiny config: the card
-    (bf16, kernels) against the CPU (fp32, plain versions)."""
+    (bf16, kernels) against the CPU (fp32, plain versions), with the MSE
+    and edge terms, then with the LPIPS term too (the full-width AlexNet
+    LPIPS, seeded, fp32 on both sides; TF32 convs on the card)."""
     cfgs = (UNetConfig.tiny(), ControlNetConfig.tiny(),
             VAEConfig(base_channels=8, channel_mults=(1, 1, 2, 2),
                       layers_per_block=1))
-    cpu_models = train_models(*cfgs, "cpu")
-    card_models = train_models(*cfgs, "cuda")
-    for c, g in zip(cpu_models, card_models):
-        fill_params(c, torch.Generator().manual_seed(7))
-        if isinstance(c, DualFlowControlNet):
-            positive_confidence(c)
-        g.load_state_dict(c.state_dict())
-    cfg = TrainConfig()
-    cpu, _ = make_trainer(*cpu_models, cfg, torch.float32)
-    card, _ = make_trainer(*card_models, cfg, torch.bfloat16)
-    g = torch.Generator().manual_seed(8)
-    batch = train_batch(g, 2, 64, 32, "cpu", torch.float32)
-    draws = dict(noise=torch.randn(2, 8, 8, 4, generator=g),
-                 timesteps=torch.randint(0, 1000, (2,), generator=g),
-                 latent_eps=torch.randn(2, 8, 8, 4, generator=g))
+    lpips_cpu = LPIPS().eval()
+    fill_metric_net(lpips_cpu, torch.Generator().manual_seed(9))
+    for label, cfg, lp in (
+            ("mse", TrainConfig(), None),
+            ("lpips", TrainConfig(lpips_weight=1.0, edge_weight=0.5),
+             lpips_cpu)):
+        cpu_models = train_models(*cfgs, "cpu")
+        card_models = train_models(*cfgs, "cuda")
+        for c, g in zip(cpu_models, card_models):
+            fill_params(c, torch.Generator().manual_seed(7))
+            if isinstance(c, DualFlowControlNet):
+                positive_confidence(c)
+            g.load_state_dict(c.state_dict())
+        cpu, _ = make_trainer(*cpu_models, cfg, torch.float32, lp)
+        card, _ = make_trainer(*card_models, cfg, torch.bfloat16,
+                               lp and copy.deepcopy(lp).cuda())
+        g = torch.Generator().manual_seed(8)
+        batch = train_batch(g, 2, 64, 32, "cpu", torch.float32)
+        draws = dict(noise=torch.randn(2, 8, 8, 4, generator=g),
+                     timesteps=torch.randint(0, 1000, (2,), generator=g),
+                     latent_eps=torch.randn(2, 8, 8, 4, generator=g))
 
-    def grads(trainer, batch, draws):
-        loss, _ = trainer.loss_fn(batch, **draws)
-        loss.backward()
-        gr = trainer.gradients()
-        return loss.item(), torch.cat([gr[n].flatten().cpu() for n in
-                                       sorted(gr)])
+        def grads(trainer, batch, draws):
+            loss, metrics = trainer.loss_fn(batch, **draws)
+            loss.backward()
+            gr = trainer.gradients()
+            return (loss.item(), metrics.get("loss_lpips"),
+                    torch.cat([gr[n].flatten().cpu() for n in sorted(gr)]))
 
-    want_loss, want = grads(cpu, batch, draws)
-    card_batch = {k: v.cuda() if k == "flow" else v.cuda().bfloat16()
-                  for k, v in batch.items()}
-    (got_loss, got), _, launches = counted(lambda: grads(
-        card, card_batch, {k: v.cuda() for k, v in draws.items()}))
-    out = dict(loss=got_loss, loss_cpu=want_loss,
-               loss_rel_err=abs(got_loss - want_loss) / abs(want_loss),
-               grad_norm=got.norm().item(), grad_norm_cpu=want.norm().item(),
-               grad_norm_rel_err=abs(got.norm().item() - want.norm().item())
-               / want.norm().item(),
-               grad_cosine=F.cosine_similarity(got, want, dim=0).item(),
-               tol=TRAIN_REF_TOL, launches=launches)
-    log("train_reference", **out)
-    check_launches("train_reference", launches, {
-        name: None for name in ("attention", "attention_bwd", "splat_sum",
-                                "gn_silu_conv3x3", "downsample_conv3x3")})
-    if not (out["loss_rel_err"] <= TRAIN_REF_TOL["loss_rel"]
-            and out["grad_norm_rel_err"] <= TRAIN_REF_TOL["grad_norm_rel"]
-            and out["grad_cosine"] >= TRAIN_REF_TOL["grad_cosine"]):
-        raise AssertionError(f"tiny training step on the card disagrees "
-                             f"with the CPU: {out}")
+        want_loss, want_lp, want = grads(cpu, batch, draws)
+        card_batch = {k: v.cuda() if k == "flow" else v.cuda().bfloat16()
+                      for k, v in batch.items()}
+        (got_loss, got_lp, got), _, launches = counted(lambda: grads(
+            card, card_batch, {k: v.cuda() for k, v in draws.items()}))
+        out = dict(terms=label, loss=got_loss, loss_cpu=want_loss,
+                   loss_rel_err=abs(got_loss - want_loss) / abs(want_loss),
+                   grad_norm=got.norm().item(),
+                   grad_norm_cpu=want.norm().item(),
+                   grad_norm_rel_err=abs(got.norm().item()
+                                         - want.norm().item())
+                   / want.norm().item(),
+                   grad_cosine=F.cosine_similarity(got, want, dim=0).item(),
+                   tol=TRAIN_REF_TOL, launches=launches)
+        if lp is not None:
+            # the term with its network in bf16: what the limit must refuse
+            card.lpips = BF16Autocast(card.lpips)
+            with torch.no_grad():
+                low_lp = card.loss_fn(card_batch, **{
+                    k: v.cuda() for k, v in draws.items()})[1]["loss_lpips"]
+            out.update(loss_lpips=got_lp.item(), loss_lpips_cpu=want_lp.item(),
+                       loss_lpips_rel_err=abs(got_lp.item() - want_lp.item())
+                       / want_lp.item(), loss_lpips_bf16=low_lp.item(),
+                       loss_lpips_bf16_rel_err=abs(low_lp.item()
+                                                   - want_lp.item())
+                       / want_lp.item())
+        log("train_reference", **out)
+        check_launches("train_reference", launches, {
+            name: None for name in ("attention", "attention_bwd",
+                                    "splat_sum", "gn_silu_conv3x3",
+                                    "downsample_conv3x3")})
+        if lp is not None and not (
+                want_lp.item() > 0 and abs(got_lp.item() - want_lp.item())
+                <= TRAIN_REF_TOL["lpips_rel"] * want_lp.item()):
+            raise AssertionError(f"the LPIPS term on the card disagrees "
+                                 f"with the CPU: {out}")
+        if not (out["loss_rel_err"] <= TRAIN_REF_TOL["loss_rel"]
+                and out["grad_norm_rel_err"]
+                <= TRAIN_REF_TOL["grad_norm_rel"]
+                and out["grad_cosine"] >= TRAIN_REF_TOL["grad_cosine"]):
+            raise AssertionError(f"tiny training step on the card disagrees "
+                                 f"with the CPU: {out}")
 
 
 def residual_raw_batch(gen, B, res, device):
@@ -1877,8 +2240,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     _, cmp_model = cmp_phase()
     tiled = tiled_exact(fused, gen)
-    codec_out = codec(fused, cmp_model, gen)
+    codec_out, decoded, frames = codec(fused, cmp_model, gen)
+    ckpt, aux = checkpoint(fused, x, cmp_model, gen)
     del fused, cmp_model
+    torch.cuda.empty_cache()
+    evaluate(decoded, frames, aux)
+    del aux, decoded, frames
     torch.cuda.empty_cache()
     reference_check()
     tiled_reference()
@@ -1904,6 +2271,7 @@ def main() -> int:
              "decode_distilled": distilled["launches"],
              "tiled_exact": tiled["launches"],
              "codec": codec_out["launches"],
+             "checkpoint": ckpt["decode"]["launches"],
              "train": trained["launches"],
              "train_residual": residual["launches"],
              "residual_ddpm": ddpm["launches"]}

@@ -186,7 +186,8 @@ class ControlNetTrainer:
     optionally 'latent_moments' [B, H/8, W/8, 8] (the encoder's mean and
     logvar, `train/latent_cache.py`) in place of the encode, and, for the
     residual variant, 'residual' (the target image) and 'warped' (passed on
-    to the ControlNet).  Making the trainer freezes the UNet and the VAE
+    to the ControlNet).  Making the trainer freezes the UNet, the VAE and
+    `lpips` (`train.lpips.LPIPS`, the perceptual term's network)
     (`requires_grad_(False)`)."""
     unet: torch.nn.Module
     controlnet: torch.nn.Module
@@ -198,6 +199,8 @@ class ControlNetTrainer:
     def __post_init__(self):
         self.unet.requires_grad_(False)
         self.vae.requires_grad_(False)
+        if self.lpips is not None:
+            self.lpips.requires_grad_(False)
 
     @torch.no_grad()
     def moments(self, batch) -> tuple:

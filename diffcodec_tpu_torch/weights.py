@@ -8,21 +8,27 @@ copied from `diffcodec_tpu/models/hf_import.py` (`unet_name_map` :145,
 `warp_extractor_name_map` :383, `rescontrolnet_name_map` :404) and from
 `diffcodec_tpu/models/cmp.py`
 (`cmp_name_map` :338, `cmp_batch_stats_map` :441, DiffCodec's resnet50 +
-skip configuration) together with the inverse layout transforms (:477-487,
-:531-543), and `unet2d_name_map` for the residual DDPM's
+skip configuration), the metric networks' (`lpips_alex_name_map`,
+`hf_import.py:422`; `inception64_name_map` and `_batch_stats_map`,
+`diffcodec_tpu/eval/inception.py:62-78`; `i3d_name_map` and
+`_batch_stats_map`, `diffcodec_tpu/models/i3d.py:115-161`) together with
+the inverse layout transforms (:477-487, :531-543), and `unet2d_name_map`
+for the residual DDPM's
 `diffcodec_tpu/models/unet2d.py::UNet2DModel`, which the JAX package has no
 map for (its torch names are diffusers' `UNet2DModel`, the layout of the
 reference's residual checkpoint).  Each entry is (torch name, flax path,
 kind), kind one of:
   conv_kernel    flax HWIO <-> torch OIHW
+  conv3d_kernel  flax THWIO <-> torch OITHW
   linear_kernel  flax [in, out] <-> torch [out, in]
   bias / raw     copied as they are
 
 `load_flax_params(module, params, name_map)` turns a flax tree (nested dicts
 of numpy arrays, with or without the {'params': ...} wrapper) into the
 module's state dict and loads it with `strict=True`; `load_clip_text_params`
-does so for the CLIP text encoder, `load_cmp_params` for the CMP's
-parameters and BatchNorm running statistics.
+does so for the CLIP text encoder; `load_flax_variables` for a network with
+BatchNorm running statistics (the CMP through `load_cmp_params`, the
+Inception prefix, I3D).
 """
 
 from __future__ import annotations
@@ -419,6 +425,8 @@ def _inverse_transform(kind: str, value: np.ndarray) -> np.ndarray:
     value = np.asarray(value)
     if kind == "conv_kernel":
         return value.transpose(3, 2, 0, 1)  # HWIO -> OIHW
+    if kind == "conv3d_kernel":
+        return value.transpose(4, 3, 0, 1, 2)  # THWIO -> OITHW
     if kind == "linear_kernel":
         return value.T
     return value
@@ -550,15 +558,94 @@ def cmp_batch_stats_map() -> List[Entry]:
     return out
 
 
-def load_cmp_params(module: torch.nn.Module, variables: Mapping) -> None:
-    """Load a flax CMP's variables ({'params', 'batch_stats'}) into the
-    port's `models.cmp.CMP`, strictly.  BatchNorm's `num_batches_tracked`
-    (a training counter flax does not keep) is set to 0."""
-    sd = export_state_dict(variables["params"], cmp_name_map())
-    sd.update(export_state_dict(variables["batch_stats"],
-                                cmp_batch_stats_map()))
+def load_flax_variables(module: torch.nn.Module, variables: Mapping,
+                        params_map: List[Entry],
+                        stats_map: List[Entry]) -> None:
+    """Load flax variables ({'params', 'batch_stats'}) into a module with
+    BatchNorm layers, strictly.  BatchNorm's `num_batches_tracked` (a
+    training counter flax does not keep) is set to 0."""
+    sd = export_state_dict(variables["params"], params_map)
+    sd.update(export_state_dict(variables["batch_stats"], stats_map))
     sd = {k: torch.from_numpy(v) for k, v in sd.items()}
     for k in [k for k in sd if k.endswith(".running_mean")]:
         sd[k[:-len("running_mean")] + "num_batches_tracked"] = torch.zeros(
             (), dtype=torch.long)
     module.load_state_dict(sd, strict=True)
+
+
+def load_cmp_params(module: torch.nn.Module, variables: Mapping) -> None:
+    """Load a flax CMP's variables into the port's `models.cmp.CMP`."""
+    load_flax_variables(module, variables, cmp_name_map(),
+                        cmp_batch_stats_map())
+
+
+def lpips_alex_name_map() -> List[Entry]:
+    """torch `lpips.LPIPS(net='alex')` names -> the JAX LPIPS: the AlexNet
+    convs at net.slice{1..5}.<index>, the 1x1 lins at lin{k}.model.1."""
+    out: List[Entry] = []
+    for t, f in (("net.slice1.0", "conv1"), ("net.slice2.3", "conv2"),
+                 ("net.slice3.6", "conv3"), ("net.slice4.8", "conv4"),
+                 ("net.slice5.10", "conv5")):
+        out += _conv(t, ("net", f))
+    for k in range(5):
+        out.append((f"lin{k}.model.1.weight", (f"lin{k}", "kernel"),
+                    "conv_kernel"))
+    return out
+
+
+_INCEPTION64_CONVS = ("Conv2d_1a_3x3", "Conv2d_2a_3x3", "Conv2d_2b_3x3")
+
+
+def inception64_name_map() -> List[Entry]:
+    """InceptionV3's FID-64 prefix (torchvision / pytorch-fid names)."""
+    out: List[Entry] = []
+    for name in _INCEPTION64_CONVS:
+        out.append((f"{name}.conv.weight", (name, "conv", "kernel"),
+                    "conv_kernel"))
+        out += _norm(f"{name}.bn", (name, "bn"))
+    return out
+
+
+def inception64_batch_stats_map() -> List[Entry]:
+    out: List[Entry] = []
+    for name in _INCEPTION64_CONVS:
+        out.append((f"{name}.bn.running_mean", (name, "bn", "mean"), "raw"))
+        out.append((f"{name}.bn.running_var", (name, "bn", "var"), "raw"))
+    return out
+
+
+# I3D's Unit3D blocks: the stem, then each inception block's six branches
+_I3D_BLOCKS = ("Mixed_3b", "Mixed_3c", "Mixed_4b", "Mixed_4c", "Mixed_4d",
+               "Mixed_4e", "Mixed_4f", "Mixed_5b", "Mixed_5c")
+_I3D_BRANCHES = ("b0", "b1a", "b1b", "b2a", "b2b", "b3b")
+
+
+def _i3d_units():
+    for name in ("Conv3d_1a_7x7", "Conv3d_2b_1x1", "Conv3d_2c_3x3"):
+        yield name, (name,)
+    for block in _I3D_BLOCKS:
+        for branch in _I3D_BRANCHES:
+            yield f"{block}.{branch}", (block, branch)
+
+
+def i3d_name_map() -> List[Entry]:
+    """The vendored torch InceptionI3d's names (`<unit>.conv3d.weight`,
+    `<unit>.bn.{weight,bias}`; the logits conv with a bias, no BatchNorm)
+    -> the JAX InceptionI3D."""
+    out: List[Entry] = []
+    for t, f in _i3d_units():
+        out.append((f"{t}.conv3d.weight", f + ("conv3d", "kernel"),
+                    "conv3d_kernel"))
+        out += _norm(f"{t}.bn", f + ("bn",))
+    out += [("logits.conv3d.weight", ("logits", "conv3d", "kernel"),
+             "conv3d_kernel"),
+            ("logits.conv3d.bias", ("logits", "conv3d", "bias"), "raw")]
+    return out
+
+
+def i3d_batch_stats_map() -> List[Entry]:
+    out: List[Entry] = []
+    for t, f in _i3d_units():
+        out.append((f"{t}.bn.running_mean", f + ("bn", "mean"), "raw"))
+        out.append((f"{t}.bn.running_var", f + ("bn", "var"), "raw"))
+    return out

@@ -1,11 +1,13 @@
 """The port imports on a machine without JAX.
 
 The card's machine has PyTorch, numpy, scipy and einops but no jax, flax,
-optax, PIL, safetensors, transformers or triton, and the port must not
-lean on the JAX package.  A subprocess installs an import hook that
+optax, PIL, safetensors, matplotlib, transformers or triton, and the port
+must not lean on the JAX package.  A subprocess installs an import hook that
 refuses those modules, then imports every module of `diffcodec_tpu_torch`
 (the codec's among them: its JPEG reads import PIL inside functions; the
-residual stage's and the CLIP tokenizer's), `chip_smoke` and the port's
+residual stage's and the CLIP tokenizer's; the checkpoint loaders, the
+evaluation layer, whose plots import matplotlib inside functions, and the
+CLIs), `chip_smoke` and the port's
 scripts, `scripts/profile_torch_decode.py` (which also profiles the
 residual training points), `scripts/conv_kernel_breakdown.py`,
 `scripts/conv_kernel_ab.py`, `scripts/attention_bwd_ab.py`,
@@ -22,7 +24,7 @@ import sys
 REPO = pathlib.Path(__file__).resolve().parent.parent
 PKG = REPO / "diffcodec_tpu_torch"
 BLOCKED = ("jax", "jaxlib", "flax", "optax", "PIL", "safetensors",
-           "transformers", "triton", "diffcodec_tpu")
+           "matplotlib", "transformers", "triton", "diffcodec_tpu")
 
 _CHILD = r"""
 import importlib, importlib.abc, pkgutil, sys
@@ -72,7 +74,13 @@ def test_port_and_chip_smoke_import_without_jax():
     for name in ("codec.runner", "codec.bits", "codec.gop",
                  "codec.sparse_flow", "models.cmp", "sampling.tiled",
                  "ops.tiling", "utils", "utils.tokenizer",
-                 "models.clip_text", "models.unet2d", "train.residue"):
+                 "models.clip_text", "models.unet2d", "train.residue",
+                 "utils.safetensors_io", "utils.flo_io", "models.weights",
+                 "models.i3d", "train.lpips", "codec.anchors",
+                 "eval.metrics", "eval.inception", "eval.frechet",
+                 "eval.codec_eval", "eval.bd_rate", "eval.anchors_data",
+                 "eval.plots", "eval.visual_study", "eval.freq_analysis",
+                 "cli.run_codec", "cli.rd_sweep"):
         assert f"diffcodec_tpu_torch.{name}" in proc.stdout.split(), name
 
 

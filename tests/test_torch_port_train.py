@@ -8,6 +8,8 @@ port's weight bridge), the same batch (numpy seeds) and JAX's own draws
     `loss_fn`, without and with the edge term, and with remat;
   * one `train_step` with AdamW, with bf16 moments, and an accumulation of
     two micro-steps, against JAX's optimizer applied to JAX's gradients;
+  * the loss and gradients with the LPIPS term (the port's `LPIPS`
+    against JAX's, one set of converted weights);
   * the four learning-rate schedules, a checkpoint round trip with
     rotation, latent caches written by one package and read by the other;
   * the backward of the kernel wrappers (attention with a masked key tail,
@@ -15,6 +17,7 @@ port's weight bridge), the same batch (numpy seeds) and JAX's own draws
   * the per-sample-timestep noise schedule and the Sobel edge loss.
 """
 
+import dataclasses
 import functools
 
 import jax
@@ -33,6 +36,7 @@ from diffcodec_tpu.ops import softsplat as jsplat
 from diffcodec_tpu.ops import sobel as jsobel
 from diffcodec_tpu.sampling.schedulers import NoiseSchedule as JSchedule
 from diffcodec_tpu.train import latent_cache as jcache
+from diffcodec_tpu.train import lpips as jlpips
 from diffcodec_tpu.train import trainer as jtrainer
 
 from diffcodec_tpu_torch import config as tcfg
@@ -47,6 +51,7 @@ from diffcodec_tpu_torch.ops.sobel import sobel_edge_loss, sobel_magnitude
 from diffcodec_tpu_torch.sampling.schedulers import NoiseSchedule
 from diffcodec_tpu_torch.train import checkpoint as tckpt
 from diffcodec_tpu_torch.train import latent_cache as tcache
+from diffcodec_tpu_torch.train import lpips as tlpips
 from diffcodec_tpu_torch.train import trainer as ttrainer
 
 # fp32 through the encoder, the ControlNet and the UNet, forward and
@@ -199,6 +204,40 @@ def test_loss_fn_and_gradients_match_jax(setup, variant):
     # the frozen models get no gradient
     assert all(p.grad is None for m in (tr.unet, tr.vae)
                for p in m.parameters())
+
+
+def test_loss_fn_with_lpips_matches_jax(setup):
+    """`pixel_losses` through the port's LPIPS against JAX's, both fed one
+    set of seeded AlexNet and lin weights (the JAX bridge's
+    `lpips_alex_name_map`): the loss and every ControlNet gradient."""
+    cfg_kw = dict(lpips_weight=0.5, edge_weight=0.25)
+    z = jnp.zeros((1, RES, RES, 3))
+    lp_params = _randomize(jax.eval_shape(jlpips.LPIPS().init,
+                                          jax.random.PRNGKey(0), z, z), 9)
+    jtr = dataclasses.replace(_jax_trainer(jcfg.TrainConfig(**cfg_kw)),
+                              lpips=jlpips.LPIPS())
+    jp = setup["jparams"]
+    rng = jax.random.PRNGKey(8)
+    (want_loss, want_metrics), want_grads = jax.jit(jax.value_and_grad(
+        jtr.loss_fn, has_aux=True))(
+            jp["controlnet"], {"unet": jp["unet"], "vae": jp["vae"],
+                               "lpips": lp_params},
+            {k: jnp.asarray(v) for k, v in setup["batch"].items()}, rng)
+    lp = tlpips.LPIPS()
+    weights.load_flax_params(lp, lp_params, weights.lpips_alex_name_map())
+    tr = _port_trainer(jp, tcfg.TrainConfig(**cfg_kw))
+    tr = dataclasses.replace(tr, lpips=lp)
+    batch = {k: _t(v) for k, v in setup["batch"].items()}
+    loss, metrics = tr.loss_fn(batch, **_draws(rng))
+    loss.backward()
+    assert abs(float(want_metrics["loss_lpips"])) > 1e-4
+    np.testing.assert_allclose(metrics["loss_lpips"].item(),
+                               float(want_metrics["loss_lpips"]),
+                               rtol=LOSS_RTOL * 10)
+    assert abs(loss.item() - float(want_loss)) <= LOSS_RTOL * abs(
+        float(want_loss))
+    _assert_grads_close(tr.gradients(), _torch_layout(want_grads))
+    assert all(p.grad is None for p in lp.parameters())
 
 
 def _jax_params_after(setup, cfg_kw, n_steps):
