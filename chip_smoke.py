@@ -135,6 +135,44 @@ Phases, each printed as one JSON line with the elapsed seconds `t`:
              median step, peak memory, finite losses, launches (4 splats a
              step); one `ddpm_step` from the UNet's output on the card
              against the same step on the CPU
+  kernel     (distillation shapes) attention at BH = 32 (the CFG teacher
+             at batch 4, no lse) and BH = 16 (the student, with lse, and
+             the backward), the splat at B = 8 and 4 (the teacher's and
+             the student's pyramids), the encoder's GN+SiLU+conv and
+             stride-2 convs at B = 2
+  distill    `ConsistencyDistiller.train_step` at SD-1.5 width at
+             `train_distill.py`'s defaults: batch 2 at 512 x 512, 77
+             tokens, text and zero uncond embeddings, 50 teacher steps,
+             CFG 3.5, ControlNet scale 1.35, Huber (c = 0.001), FreeU, EMA
+             0.995, AdamW lr 1e-6 clipped at 1.0, no weight decay, bf16
+             working copies of the teacher, the student and the EMA target
+             over fp32 masters, seeded random weights, the student warm-
+             started from the teacher; TRAIN_STEPS steps on a synthetic
+             batch, one counted, then one synchronised stage by stage
+             (encode, teacher, student forward, target, backward, update,
+             EMA, copy-back): samples/s from the median step, peak
+             memory, launches asserted (DISTILL_LAUNCHES), finite losses,
+             masters moved, teacher and VAE unmoved bit for bit, one EMA
+             tensor against 0.005 new + 0.995 old in fp64, non-zero
+             gradients in the student UNet, its ControlNet and upstream of
+             the splats
+  distill_decode
+             the `distill` phase's EMA masters put into a fresh fused-conv
+             pipeline by `train.distill.load_student`, then the K = 4
+             512 px decode of 7 frames (launches as `decode_distilled`)
+  distill_reference
+             one distillation step at a tiny config on the card (bf16,
+             kernels) against the CPU (fp32, plain versions) on the same
+             weights, batch and draws: loss, gradient norm, the gradient
+             cosine per network (held to the same step in bf16 on the CPU,
+             run beside it), the EMA's move against the rule and against
+             the CPU's; then `cli.train_distill`'s loop on the card from a
+             tiny diffusers root on a synthetic batch (2 steps at lr 1e-3,
+             a checkpoint each), and `run_codec`'s decode options with
+             `--distilled_checkpoint`: the restored UNet and ControlNet
+             are the bf16 EMA of checkpoint-2 (not the masters, not the
+             teacher), and their K = 2 decode matches `DistilledPipeline`
+             on the in-memory EMA while the masters' does not
 Then a {"kernels": [...]} line, the `nvidia-smi` name and power limit, and
 last {"ok": true, "device": {...}}.  Any failure raises and exits non-zero.
 """
@@ -195,6 +233,9 @@ from diffcodec_tpu_torch.sampling.pipeline import DualFlowPipeline
 from diffcodec_tpu_torch.sampling.schedulers import NoiseSchedule, ddpm_step
 from diffcodec_tpu_torch.sampling.tiled import (_crop_batch, sample_tiled,
                                                 tile_grid, unit_from_uint8)
+from diffcodec_tpu_torch.train.checkpoint import list_checkpoints
+from diffcodec_tpu_torch.train.distill import (ConsistencyDistiller,
+                                               denoiser, load_student)
 from diffcodec_tpu_torch.train.lpips import LPIPS, make_lpips_fn
 from diffcodec_tpu_torch.train.residue import (ddpm_optimizer,
                                                ddpm_schedule,
@@ -381,6 +422,47 @@ RESIDUE_TOL = 1e-4
 # one ddpm_step on the card against the CPU on the same fp32 inputs: a
 # few fp32 ulps of values of order 1
 DDPM_STEP_TOL = dict(atol=1e-5, rtol=1e-5)
+# consistency distillation at train_distill.py's defaults: batch 2 at 512
+# px, AdamW lr 1e-6 with no weight decay, clipped at 1.0; the CFG teacher
+# runs at 2B, the student and the EMA target at B
+DISTILL_BATCH = 2
+DISTILL_TRAIN = TrainConfig(learning_rate=1e-6, adam_weight_decay=0.0,
+                            max_grad_norm=1.0)
+# a step's launches: 46 attention calls a network (the UNet's 32, the
+# ControlNet's 14) in the teacher, the student and the target, a backward
+# for each of the student's (its UNet trains too); 8 splats a pyramid
+# (occlusion and features at 4 scales), one pyramid a network; the fused
+# encoder's convs
+DISTILL_LAUNCHES = {"attention": 3 * 46, "attention_bwd": 46,
+                    "splat_sum": 3 * 8, **ENCODER_LAUNCHES,
+                    "upsample_conv3x3": 0, "conv3x3_head": 0,
+                    "silu_conv3x3": 0}
+# distill_reference: lr 1e-3, so that the EMA's move (0.005 of the
+# masters', ~5e-6) stands ~1000x above the fp32 rounding of the weights
+# it moves (at lr 1e-4 the rounding read 6e-3 of it on the CPU).
+# bf16 through the tiny teacher (CFG), student and target against fp32 on
+# the CPU: the loss chains the teacher's eps, its DDIM step and two x0
+# predictions that divide by sqrt(abar_t), so it carries bf16's rounding
+# further than the ControlNet step's loss (TRAIN_REF_TOL).  The gradient
+# cosine per network against the fp32 CPU's is held to the same step in
+# bf16 on the CPU through the plain versions, run beside it: the kernels
+# (fp32 accumulators) must round no worse than the plain bf16 path, less
+# a margin for two independent roundings.  The UNet's gradients carry more
+# bf16 rounding than the ControlNet's: the card read 0.976 and 0.989 on
+# the H100, the plain bf16 step 0.952 and 0.971.  The EMA's move on the card against
+# 0.005 x the masters' move (fp32 on the card: rounding only), and its
+# direction against the CPU's: Adam's first step is ~lr sign(g), so the
+# moves agree where the two gradients' signs do
+# distill_cli: the decode from the CLI's restored EMA against the same
+# weights filled in memory, the same draws: only the splat's fp32 atomics
+# can part them (the card read 0.0 at lr 1e-6).  The masters' decode,
+# logged beside it, must lie outside
+DISTILL_CLI_DECODE_TOL = dict(max_abs=1e-2, mean_abs=1e-4)
+DISTILL_REF_TRAIN = TrainConfig(learning_rate=1e-3, adam_weight_decay=0.0,
+                                max_grad_norm=1.0)
+DISTILL_REF_TOL = dict(loss_rel=0.05, grad_norm_rel=0.05,
+                       grad_cosine_below_bf16=0.01, ema_rule_rel=1e-2,
+                       ema_cosine=0.5)
 
 
 def compare(label: str, got, want, atol: float, rtol: float) -> float:
@@ -1550,14 +1632,14 @@ def attention_bwd_bound(BH, Lq, Lk, D):
                  PEAK_BF16_FLOPS)
 
 
-def check_attention_train(gen) -> list:
-    """The attention kernels at every shape of a batch-8 training step:
-    the forward with its log-sum-exp, and the backward kernel against
-    autograd of the plain version (dQ, dK and dV)."""
+def check_attention_train(gen, BH: int = TRAIN_BH) -> list:
+    """The attention kernels at every shape of a training step at BH
+    (default: batch 8): the forward with its log-sum-exp, and the backward
+    kernel against autograd of the plain version (dQ, dK and dV)."""
     rows = []
     sdpa = F.scaled_dot_product_attention
     for Lq, Lk, D in ATTN_SHAPES:
-        BH, scale = TRAIN_BH, D ** -0.5
+        scale = D ** -0.5
         shape = [BH, Lq, Lk, D]
         q, k, v, dout = (torch.randn(BH, L, D, device="cuda", generator=gen)
                          .bfloat16() for L in (Lq, Lk, Lk, Lq))
@@ -1630,11 +1712,12 @@ def check_attention_train(gen) -> list:
     return rows
 
 
-def check_downsample(gen) -> list:
-    """The stride-2 conv at the encoder's shapes, with both paddings;
-    cuDNN's stride-2 conv of the input already padded beside it."""
+def check_downsample(gen, shapes=DOWN_SHAPES) -> list:
+    """The stride-2 conv at the encoder's (B, H, W, C, O) `shapes`, with
+    both paddings; cuDNN's stride-2 conv of the input already padded
+    beside it."""
     rows = []
-    for B, H, W, C, O in DOWN_SHAPES:
+    for B, H, W, C, O in shapes:
         for asymmetric_pad in (True, False):
             a = _conv_inputs(gen, B, H, W, C, O)
             x, w, b = a["x"], a["weight"], a["bias"]
@@ -2196,6 +2279,430 @@ def residual_ddpm(gen) -> dict:
     return out
 
 
+def distill_models(unet_cfg, cn_cfg, vae_cfg, device, gen):
+    """The teacher's fp32 UNet and ControlNet and the fused-conv VAE on
+    `device`, seeded random weights, the extractor's confidences positive
+    (see `positive_confidence`)."""
+    models = train_models(unet_cfg, cn_cfg, vae_cfg, device)
+    for m in models:
+        fill_params(m, gen)
+    positive_confidence(models[1])
+    return models
+
+
+def make_distiller(models, cfg: TrainConfig, dtype):
+    """(distiller, state): the student and the EMA warm-started from the
+    teacher `models` (UNet, ControlNet, VAE), at the distillation
+    script's DistillConfig defaults."""
+    return ConsistencyDistiller.create(
+        *models, NoiseSchedule.create(SchedulerConfig()), DistillConfig(),
+        Optimizer(cfg), dtype)
+
+
+def distill_batch(gen, B, res, ctx_dim, device, dtype):
+    """`train_batch` with the CFG teacher's uncond embeddings (zeros, the
+    JAX CLIs' empty prompt without a text encoder)."""
+    batch = train_batch(gen, B, res, ctx_dim, device, dtype)
+    batch["uncond_embeds"] = torch.zeros_like(batch["text_embeds"])
+    return batch
+
+
+def check_distill_kernels(gen) -> list:
+    """Every kernel at the shapes a distillation step at batch 2 gives it
+    and no other phase covers: attention at BH = 32 (the CFG teacher, no
+    lse) and BH = 16 (the student, lse and backward), splats at B = 8
+    (the teacher's pyramid) and 4, the encoder's convs at B = 2."""
+    b = DISTILL_BATCH
+    return (check_attention(gen, 2 * b * HEADS)
+            + check_attention_train(gen, b * HEADS)
+            + check_splat(gen, 4 * b) + check_splat(gen, 2 * b)
+            + check_gn_conv(gen, [(b,) + s[1:] for s in ENCODER_GN_SHAPES])
+            + check_downsample(gen, [(b,) + s[1:] for s in DOWN_SHAPES]))
+
+
+def staged_distill_step(d, state, batch, gen) -> tuple:
+    """One distillation step synchronised stage by stage: `loss_fn` with
+    the VAE's encode, the teacher, the student's and the target's
+    consistency functions each timed apart (`timed` wrappers on the
+    instance), then the backward, the optimizer's update, the EMA and the
+    copy into the working copies (`ConsistencyDistiller.update`'s parts).
+    Returns (stage seconds, loss, dead gradients, EMA check)."""
+    stages = {}
+
+    def stage(name, fn):
+        def run(*args, **kwargs):
+            out, stages[name] = timed(lambda: fn(*args, **kwargs))
+            return out
+        return run
+
+    def consistency(net, *args):
+        name = "student_forward" if net is d.student else "target"
+        return stage(name, ConsistencyDistiller.consistency_fn)(d, net,
+                                                                *args)
+
+    d.vae.encode = stage("encode", d.vae.encode)
+    d.teacher_eps = stage("teacher", d.teacher_eps)
+    d.consistency_fn = consistency
+    try:
+        loss, _ = d.loss_fn(batch, gen)
+    finally:
+        del d.vae.encode, d.teacher_eps, d.consistency_fn
+    _, stages["backward"] = timed(loss.backward)
+    grads = d.gradients()
+    dead = {"unet": zero_grads(dict(d.student["unet"].named_parameters())),
+            "controlnet": zero_grads(dict(
+                d.student["controlnet"].named_parameters())),
+            "upstream_of_splats": zero_grads(upstream_of_splats(
+                d.student["controlnet"]))}
+    for p in d.student.parameters():
+        p.grad = None
+    name = "unet.conv_in.weight"
+    ema_old = state.ema_params[name].clone()
+    _, stages["update"] = timed(lambda: state.tx.update(
+        state.params, grads, state.opt_state))
+    del grads
+    state.step += 1
+    _, stages["ema"] = timed(lambda: d.update_ema(state))
+    _, stages["copy"] = timed(lambda: d.load_params(state))
+    # ema <- (1 - decay) new + decay old, against the same sum in fp64:
+    # the two products and the sum each round once, by at most 2^-24 of
+    # their magnitude, so within 3 x 2^-24 of the result where new and old
+    # agree in sign (max_ulps counts in units of 2^-24 |result|)
+    decay = d.config.ema_decay
+    want = ((1 - decay) * state.params[name].double()
+            + decay * ema_old.double())
+    ulps = ((state.ema_params[name].double() - want).abs()
+            / (want.abs() * 2.0 ** -24 + 1e-30)).max().item()
+    return stages, loss.item(), dead, dict(tensor=name, max_ulps=ulps,
+                                           limit_ulps=3.0)
+
+
+def distill(gen) -> tuple:
+    """The distillation path at the script's defaults at SD-1.5 width:
+    TRAIN_STEPS steps, one counted, then one step timed stage by stage.
+    Returns (the line's fields, the EMA masters)."""
+    unet_cfg = UNetConfig()
+    d, state = make_distiller(
+        distill_models(unet_cfg, ControlNetConfig(unet=unet_cfg),
+                       VAEConfig(), "cuda", gen),
+        DISTILL_TRAIN, torch.bfloat16)
+    batch = distill_batch(gen, DISTILL_BATCH, RES,
+                          unet_cfg.cross_attention_dim, "cuda",
+                          torch.bfloat16)
+    log("distill_setup", batch=DISTILL_BATCH, res=RES,
+        trainable=sum(p.numel() for p in state.params.values()),
+        frozen=sum(p.numel() for m in (d.teacher, d.vae)
+                   for p in m.parameters()),
+        memory_gib=torch.cuda.memory_allocated() / 2 ** 30)
+    masters0 = {n: p.clone() for n, p in state.params.items()}
+    frozen0 = fingerprint(d.teacher, d.vae)
+
+    torch.cuda.reset_peak_memory_stats()
+    step_s, losses, launches = [], [], None
+    for i in range(TRAIN_STEPS):
+        def step():
+            return d.train_step(state, batch, gen)[1]["loss"].item()
+        if i == 1:
+            loss, s, launches = counted(step)
+        else:
+            loss, s = timed(step)
+        step_s.append(s)
+        losses.append(loss)
+    stages, loss, dead, ema = staged_distill_step(d, state, batch, gen)
+    losses.append(loss)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    changed = [n for n, p in state.params.items()
+               if not torch.equal(p, masters0[n])]
+    n_params = {k: sum(1 for _ in d.student[k].parameters())
+                for k in ("unet", "controlnet")}
+    out = dict(batch=DISTILL_BATCH, res=RES, steps=TRAIN_STEPS + 1,
+               step_s=step_s,
+               samples_per_s=DISTILL_BATCH / statistics.median(step_s[1:]),
+               s_per_step=statistics.median(step_s[1:]), stages_s=stages,
+               peak_mem_gib=peak, losses=losses, launches=launches,
+               masters_changed=f"{len(changed)}/{len(state.params)}",
+               zero_grad_tensors={k: len(v) for k, v in dead.items()},
+               zero_grad_names={k: v[:5] for k, v in dead.items()},
+               ema_check=ema)
+    log("distill", **out)
+    if not all(map(math.isfinite, losses)):
+        raise AssertionError(f"distill: non-finite loss {losses}")
+    check_launches("distill", launches, DISTILL_LAUNCHES)
+    if len(changed) < 0.95 * len(state.params):
+        raise AssertionError(f"distill: only {out['masters_changed']} "
+                             "master tensors changed")
+    if not torch.equal(fingerprint(d.teacher, d.vae), frozen0):
+        raise AssertionError("distill: the teacher or the VAE changed")
+    if not ema["max_ulps"] <= ema["limit_ulps"]:
+        raise AssertionError(f"distill: EMA update off: {ema}")
+    for k in ("unet", "controlnet"):
+        if len(dead[k]) > 0.01 * n_params[k]:
+            raise AssertionError(f"distill: {len(dead[k])} of the student "
+                                 f"{k}'s tensors got no gradient: "
+                                 f"{dead[k][:5]}")
+    if dead["upstream_of_splats"]:
+        raise AssertionError(f"distill: no gradient upstream of the "
+                             f"splats: {dead['upstream_of_splats']}")
+    ema_params = state.ema_params
+    del d, state, batch, masters0
+    return out, ema_params
+
+
+def distill_decode(ema_params, gen) -> dict:
+    """The `distill` phase's EMA masters put into a fresh fused-conv
+    pipeline (`train.distill.load_student`), then the K = 4 512 px
+    decode of 7 frames."""
+    unet_cfg = UNetConfig()
+    pipe = DualFlowPipeline.create(
+        unet_cfg, ControlNetConfig(unet=unet_cfg), VAEConfig(),
+        SamplerConfig(), dtype=torch.bfloat16, device="cuda",
+        fused_conv=True)
+    fill_params(pipe.vae, gen)
+    load_student(pipe.unet, pipe.controlnet, ema_params)
+    loaded = torch.equal(pipe.unet.conv_in.weight,
+                         ema_params["unet.conv_in.weight"].bfloat16())
+    dpipe = DistilledPipeline.from_pipeline(
+        pipe, DistillConfig(num_student_steps=DISTILL_STEPS))
+    x = make_inputs(gen, FRAMES, RES, unet_cfg.cross_attention_dim, "cuda",
+                    torch.bfloat16)
+
+    def go():
+        return dpipe.sample(x["latents"], x["text"], x["cond"], x["flow"],
+                            generator=gen)
+
+    torch.cuda.reset_peak_memory_stats()
+    images, first_s, launches = counted(go)
+    check_images("distill_decode", images)
+    check_launches("distill_decode", launches,
+                   {"attention": None, "splat_sum": None, "silu_conv3x3": 0,
+                    **FUSED_VAE_LAUNCHES, **NO_TRAIN_KERNELS})
+    _, second_s = timed(go)
+    out = dict(frames=FRAMES, res=RES, steps=DISTILL_STEPS,
+               ema_loaded=loaded, first_s=first_s, second_s=second_s,
+               frames_per_s=FRAMES / second_s,
+               peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+               launches=launches,
+               image_mean_abs=images.float().abs().mean().item())
+    log("distill_decode", **out)
+    if not loaded:
+        raise AssertionError("distill_decode: the EMA did not reach the UNet")
+    return out
+
+
+def distill_reference():
+    """One distillation step at a tiny config, the card (bf16, kernels)
+    against the CPU (fp32, plain versions) on the same weights, batch and
+    draws; then `cli.train_distill`'s loop on the card from a tiny
+    diffusers root, its EMA restored by `run_codec`'s loader and decoded
+    in 2 steps against `DistilledPipeline` on the in-memory EMA."""
+    cfgs = (UNetConfig.tiny(), ControlNetConfig.tiny(),
+            VAEConfig(base_channels=8, channel_mults=(1, 1, 2, 2),
+                      layers_per_block=1))
+    cpu_models = distill_models(*cfgs, "cpu", torch.Generator().manual_seed(7))
+    card_models = train_models(*cfgs, "cuda")
+    bf16_models = train_models(*cfgs, "cpu")
+    for c, g, b in zip(cpu_models, card_models, bf16_models):
+        g.load_state_dict(c.state_dict())
+        b.load_state_dict(c.state_dict())
+    runs = {}
+    # the CPU in fp32 (the reference), the CPU in bf16 through the plain
+    # versions (the witness of what bf16 alone costs), the card
+    for run, device, dtype, models in (
+            ("cpu", "cpu", torch.float32, cpu_models),
+            ("cpu_bf16", "cpu", torch.bfloat16, bf16_models),
+            ("card", "cuda", torch.bfloat16, card_models)):
+        d, state = make_distiller(models, DISTILL_REF_TRAIN, dtype)
+        g = torch.Generator().manual_seed(8)
+        batch = distill_batch(g, 2, 64, 32, "cpu", torch.float32)
+        draws = dict(latent_eps=torch.randn(2, 8, 8, 4, generator=g),
+                     idx=torch.randint(0, 49, (2,), generator=g),
+                     noise=torch.randn(2, 8, 8, 4, generator=g))
+        if dtype == torch.bfloat16:
+            batch = {k: v.to(device) if k == "flow"
+                     else v.to(device, torch.bfloat16)
+                     for k, v in batch.items()}
+            draws = {k: v.to(device) for k, v in draws.items()}
+        ema0 = {n: p.clone() for n, p in state.ema_params.items()}
+        params0 = {n: p.clone() for n, p in state.params.items()}
+
+        def step():
+            loss, _ = d.loss_fn(batch, **draws)
+            loss.backward()
+            grads = {n: g_.float().flatten().cpu()
+                     for n, g_ in d.gradients().items()}
+            d.update(state)
+            return loss.item(), grads
+
+        (loss, grads), _, launches = counted(step)
+        move = {n: (state.params[n] - params0[n]).flatten().cpu()
+                for n in params0}
+        ema_move = {n: (state.ema_params[n] - ema0[n]).flatten().cpu()
+                    for n in ema0}
+        runs[run] = dict(loss=loss, grads=grads, move=move,
+                         ema_move=ema_move, launches=launches)
+    cpu, card, bf16 = runs["cpu"], runs["card"], runs["cpu_bf16"]
+
+    def cat(tree, prefix=""):
+        return torch.cat([tree[n] for n in sorted(tree)
+                          if n.startswith(prefix)])
+
+    decay = DistillConfig().ema_decay
+    ema_rule = ((cat(card["ema_move"]) - (1 - decay) * cat(card["move"]))
+                .norm() / ((1 - decay) * cat(card["move"]).norm())).item()
+    out = dict(loss=card["loss"], loss_cpu=cpu["loss"],
+               loss_rel_err=abs(card["loss"] - cpu["loss"]) / abs(cpu["loss"]),
+               grad_norm=cat(card["grads"]).norm().item(),
+               grad_norm_cpu=cat(cpu["grads"]).norm().item(),
+               grad_cosine={k: F.cosine_similarity(
+                   cat(card["grads"], k + "."), cat(cpu["grads"], k + "."),
+                   dim=0).item() for k in ("unet", "controlnet")},
+               loss_bf16_cpu=bf16["loss"],
+               grad_cosine_bf16_cpu={k: F.cosine_similarity(
+                   cat(bf16["grads"], k + "."), cat(cpu["grads"], k + "."),
+                   dim=0).item() for k in ("unet", "controlnet")},
+               ema_rule_rel_err=ema_rule,
+               ema_cosine=F.cosine_similarity(
+                   cat(card["ema_move"]), cat(cpu["ema_move"]), dim=0).item(),
+               tol=DISTILL_REF_TOL, launches=card["launches"])
+    out["grad_norm_rel_err"] = (abs(out["grad_norm"] - out["grad_norm_cpu"])
+                                / out["grad_norm_cpu"])
+    log("distill_reference", **out)
+    check_launches("distill_reference", card["launches"], {
+        name: None for name in ("attention", "attention_bwd", "splat_sum",
+                                "gn_silu_conv3x3", "downsample_conv3x3")})
+    tol = DISTILL_REF_TOL
+    if not (out["loss_rel_err"] <= tol["loss_rel"]
+            and out["grad_norm_rel_err"] <= tol["grad_norm_rel"]
+            and all(out["grad_cosine"][k] >= out["grad_cosine_bf16_cpu"][k]
+                    - tol["grad_cosine_below_bf16"]
+                    for k in out["grad_cosine"])
+            and out["ema_rule_rel_err"] <= tol["ema_rule_rel"]
+            and out["ema_cosine"] >= tol["ema_cosine"]):
+        raise AssertionError(f"tiny distillation step on the card disagrees "
+                             f"with the CPU: {out}")
+    distill_cli(cfgs)
+
+
+def distill_cli(cfgs):
+    """`cli.train_distill`'s loop (its `build_distiller` and `train`) on
+    the card at the tiny config from a diffusers root written here, on a
+    synthetic batch (no PIL on this machine): 2 steps at lr 1e-3, a
+    checkpoint a step.  Then `run_codec`'s decode options with
+    `--distilled_checkpoint` (`load_decoder`: the EMA restored from
+    checkpoint-2): its UNet and ControlNet must hold the bf16 EMA, unlike
+    the masters and the teacher, and its decode must match
+    `DistilledPipeline` over the root's VAE, the in-memory EMA and the
+    root's text encoder, on the same seeded draws, K = 2, while the same
+    decode from the masters must not."""
+    import argparse
+    import logging
+
+    from diffcodec_tpu_torch.cli import run_codec, train_distill
+
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    with tempfile.TemporaryDirectory() as tmp:
+        root, run = os.path.join(tmp, "sd"), os.path.join(tmp, "run")
+        with torch.device("cuda"):
+            modules = {"unet": UNet2DConditionModel(cfgs[0]),
+                       "controlnet": DualFlowControlNet(cfgs[1]),
+                       "vae": AutoencoderKL(cfgs[2]),
+                       "text": CLIPTextEncoder(CLIPTextConfig.tiny())}
+        for m in modules.values():
+            fill_params(m, gen)
+        positive_confidence(modules["controlnet"])
+        checkpoints.synthesize_sd_checkpoint_dir(root, modules)
+        del modules
+        args = train_distill.parse_args([
+            "--index_file", "synthetic", "--output_dir", run, "--tiny",
+            "--device", "cuda", "--sd_checkpoint_dir", root,
+            "--resolution", "64", "--max_train_steps", "2",
+            "--checkpointing_steps", "1", "--log_every", "1",
+            "--learning_rate", "1e-3"])
+        logger = logging.getLogger("chip_smoke.distill_cli")
+        d, state, text_encoder, tokenizer = train_distill.build_distiller(
+            args, logger)
+
+        @torch.no_grad()
+        def embed_text(texts):
+            return text_encoder(torch.from_numpy(tokenizer(list(texts)))
+                                .cuda())
+
+        rng = np.random.default_rng(13)
+        raw = {"image": rng.uniform(-1, 1, (2, 64, 64, 3)).astype(
+                   np.float32),
+               "cond": rng.uniform(0, 1, (2, 64, 64, 6)).astype(np.float32),
+               "flow": (rng.standard_normal((2, 64, 64, 4)) * 3).astype(
+                   np.float32),
+               "text_embeds": embed_text(["a frame", "another frame"])}
+        state, cli_s = timed(lambda: train_distill.train(
+            args, d, state, lambda: [raw], embed_text, logger))
+        saved = [s for s, _ in list_checkpoints(run)]
+
+        p = argparse.ArgumentParser()
+        run_codec.add_decode_options(p)
+        dargs = p.parse_args(["--tiny", "--sd_checkpoint_dir", root,
+                              "--distilled_checkpoint", run,
+                              "--student_steps", "2", "--seed", "5"])
+        cli_pipe, text, _ = run_codec.load_decoder(dargs, "cuda")
+        restored = dict(denoiser(cli_pipe.unet, cli_pipe.controlnet)
+                        .named_parameters())
+        teacher = dict(d.teacher.named_parameters())
+        weights = dict(
+            tensors=len(restored),
+            not_ema=sum(not torch.equal(
+                p, state.ema_params[n].to(p.dtype)) for n, p in
+                restored.items()),
+            off_masters=sum(not torch.equal(
+                p, state.params[n].to(p.dtype)) for n, p in
+                restored.items()),
+            off_teacher=sum(not torch.equal(p, teacher[n])
+                            for n, p in restored.items()))
+        from_cli = run_codec.make_sampler(cli_pipe, text, None, 5, "cuda")
+        text, _ = DualFlowPipeline.encode_prompt(text_encoder, tokenizer,
+                                                 [""], [""])
+
+        def in_memory(params):
+            pipe = DualFlowPipeline.create(*cfgs, dtype=torch.bfloat16,
+                                           device="cuda")
+            pipe.vae.load_state_dict(d.vae.state_dict())
+            load_student(pipe.unet, pipe.controlnet, params)
+            return run_codec.make_sampler(
+                DistilledPipeline.from_pipeline(pipe, DistillConfig(
+                    num_student_steps=2)), text, None, 5, "cuda")
+
+        cond = torch.from_numpy(raw["cond"]).cuda().bfloat16()
+        flow = torch.from_numpy(raw["flow"]).cuda().bfloat16()
+        got = from_cli(cond, flow).float()
+        want = in_memory(state.ema_params)(cond, flow).float()
+        again = in_memory(state.ema_params)(cond, flow).float()
+        masters = in_memory(state.params)(cond, flow).float()
+    diff = (got - want).abs()
+    out = dict(checkpoints=saved, steps=state.step, train_s=cli_s,
+               restored=weights, decode_max_abs_err=diff.max().item(),
+               decode_mean_abs_err=diff.mean().item(),
+               repeat_max_abs_err=(again - want).abs().max().item(),
+               masters_max_abs_err=(masters - want).abs().max().item(),
+               tol=DISTILL_CLI_DECODE_TOL,
+               image_mean_abs=want.abs().mean().item())
+    log("distill_cli", **out)
+    if saved != [1, 2] or state.step != 2:
+        raise AssertionError(f"distill_cli: checkpoints {saved}, step "
+                             f"{state.step}")
+    if (weights["not_ema"]
+            or weights["off_masters"] < 0.9 * weights["tensors"]
+            or weights["off_teacher"] < 0.5 * weights["tensors"]):
+        raise AssertionError(f"distill_cli: the decode options did not "
+                             f"restore the EMA: {weights}")
+    tol = DISTILL_CLI_DECODE_TOL
+    if not (out["decode_max_abs_err"] <= tol["max_abs"]
+            and out["decode_mean_abs_err"] <= tol["mean_abs"]):
+        raise AssertionError(f"distill_cli: the decode from the checkpoint "
+                             f"disagrees with the in-memory EMA's: {out}")
+    if not out["masters_max_abs_err"] > tol["max_abs"]:
+        raise AssertionError(f"distill_cli: the decode cannot tell the EMA "
+                             f"from the masters: {out}")
+
+
 def summary(rows, paths, name, source, replaces, main_path, **extra):
     """One kernel's entry of the `kernels` line: its heaviest shape's
     numbers (the largest bound), its worst error over every shape (each
@@ -2265,6 +2772,16 @@ def main() -> int:
     torch.cuda.empty_cache()
     residual_reference()
     ddpm = residual_ddpm(gen)
+    torch.cuda.empty_cache()
+
+    rows += check_distill_kernels(gen)
+    torch.cuda.empty_cache()
+    distilled_train, ema_params = distill(gen)
+    torch.cuda.empty_cache()
+    distilled_decode = distill_decode(ema_params, gen)
+    del ema_params
+    torch.cuda.empty_cache()
+    distill_reference()
 
     paths = {"decode": dec["launches"],
              "decode_fusedconv": fused_out["launches"],
@@ -2274,7 +2791,9 @@ def main() -> int:
              "checkpoint": ckpt["decode"]["launches"],
              "train": trained["launches"],
              "train_residual": residual["launches"],
-             "residual_ddpm": ddpm["launches"]}
+             "residual_ddpm": ddpm["launches"],
+             "distill": distilled_train["launches"],
+             "distill_decode": distilled_decode["launches"]}
     cu = "diffcodec_tpu_torch/csrc/"
     flash = "jax/experimental/pallas/ops/tpu/flash_attention.py"
     kernels = [

@@ -2,8 +2,8 @@
 point and write the benchmark_results-format JSONs.
 
 Counterpart: `scripts/rd_sweep.py` (the same options and files, and
-`--device`; the distilled student's `--distilled_checkpoint` waits for the
-distillation trainer).  Walks `{dataset_root}/{video}/frames` (with
+`--device`; with `--distilled_checkpoint` and `--student_steps` it sweeps
+with the K-step student of a `cli.train_distill` run).  Walks `{dataset_root}/{video}/frames` (with
 `Flow/` and `Flow_b/` .flo directories for the sparse and dense modes),
 runs the codec at GOPs x rate modes, evaluates PSNR and MS-SSIM (LPIPS,
 FID and FVD with `--aux_checkpoint_dir`, whose CMP also densifies the
@@ -34,8 +34,7 @@ import numpy as np
 
 def main(argv=None):
     from diffcodec_tpu_torch.cli.run_codec import (add_decode_options,
-                                                   build_pipeline,
-                                                   make_sampler)
+                                                   build_sampler)
 
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.
@@ -71,8 +70,7 @@ def main(argv=None):
                     if os.path.isdir(os.path.join(args.dataset_root, d)))
     if not videos:
         raise SystemExit(f"no videos under {args.dataset_root}")
-    pipe, text, uncond = build_pipeline(args, device)
-    sample_fn = make_sampler(pipe, text, uncond, args.seed, device)
+    sample_fn = build_sampler(args, device)
 
     lpips_fn = fid_fn = fvd_fn = densify_fn = None
     if args.aux_checkpoint_dir:

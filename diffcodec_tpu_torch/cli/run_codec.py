@@ -1,8 +1,7 @@
 """Encode, decode and evaluate a video with the port's codec.
 
 Counterpart: `scripts/run_codec.py` (the same subcommands and options,
-and `--device`; the distilled student's `--distilled_checkpoint` waits
-for the distillation trainer):
+and `--device`):
 
   # frames dir (+ .flo flow dirs) -> bitstream dir
   python -m diffcodec_tpu_torch.cli.run_codec encode --frames FRAMES \\
@@ -13,6 +12,12 @@ for the distillation trainer):
   # --controlnet_checkpoint (a DualFlowControlNet state dict) give them
   python -m diffcodec_tpu_torch.cli.run_codec decode --bitstream enc \\
       --out dec --sd_checkpoint_dir SD15 --controlnet_checkpoint CN.safetensors
+
+  # the same with the K-step student of a `cli.train_distill` run: its EMA
+  # weights from the latest checkpoint-N, K evaluations, no CFG
+  python -m diffcodec_tpu_torch.cli.run_codec decode --bitstream enc \\
+      --out dec --sd_checkpoint_dir SD15 --distilled_checkpoint runs/distill \\
+      --student_steps 4
 
   # decoded against original frames -> PSNR / MS-SSIM, all and inter
   python -m diffcodec_tpu_torch.cli.run_codec eval --orig FRAMES \\
@@ -57,57 +62,102 @@ def cmd_encode(args):
     print(json.dumps(enc.meta["bpp"], indent=2))
 
 
-def build_pipeline(args, device):
-    """(pipe, text, uncond): the DualFlow pipeline on `device` in bf16
-    (`--tiny` configs or SD-1.5's), its weights from `--sd_checkpoint_dir`
-    / `--controlnet_checkpoint` where given (else PyTorch's initialisation
-    from seed 0), and the prompt's and the negative prompt's embeddings
-    [1, L, D] through the checkpoint's CLIP text encoder (zeros without
-    one, as the JAX CLI)."""
+def model_configs(tiny: bool):
+    """(UNet, ControlNet, VAE, CLIP text) configs: the CLIs' `--tiny` ones,
+    or SD-1.5's."""
     from diffcodec_tpu_torch.config import (CLIPTextConfig, ControlNetConfig,
-                                            SamplerConfig, UNetConfig,
-                                            VAEConfig)
+                                            UNetConfig, VAEConfig)
+    if tiny:
+        return (UNetConfig.tiny(), ControlNetConfig.tiny(),
+                VAEConfig(base_channels=8, channel_mults=(1, 1, 2, 2),
+                          layers_per_block=1), CLIPTextConfig.tiny())
+    unet_cfg = UNetConfig()
+    return (unet_cfg, ControlNetConfig(unet=unet_cfg), VAEConfig(),
+            CLIPTextConfig())
+
+
+def build_pipeline(tiny: bool, sampler, device, sd_dir: str = "",
+                   controlnet_path: str = "", text_encoder: bool = False):
+    """(pipe, clip): the DualFlow pipeline on `device` in bf16 (`tiny`
+    configs or SD-1.5's) sampling with the `SamplerConfig` `sampler`, its
+    weights from the diffusers root `sd_dir` and the ControlNet state dict
+    `controlnet_path` where given (else PyTorch's initialisation from seed
+    0); with `text_encoder` and a root, the root's CLIP text encoder as
+    `clip`, else None."""
     from diffcodec_tpu_torch.sampling.pipeline import DualFlowPipeline
 
     dtype = torch.bfloat16
-    unet_cfg = UNetConfig.tiny() if args.tiny else UNetConfig()
-    cn_cfg = (ControlNetConfig.tiny() if args.tiny
-              else ControlNetConfig(unet=unet_cfg))
-    vae_cfg = (VAEConfig(base_channels=8, channel_mults=(1, 1, 2, 2),
-                         layers_per_block=1) if args.tiny else VAEConfig())
+    unet_cfg, cn_cfg, vae_cfg, clip_cfg = model_configs(tiny)
     torch.manual_seed(0)
-    pipe = DualFlowPipeline.create(
-        unet_cfg, cn_cfg, vae_cfg, SamplerConfig(
+    pipe = DualFlowPipeline.create(unet_cfg, cn_cfg, vae_cfg, sampler,
+                                   dtype=dtype, device=device)
+    if not sd_dir:
+        return pipe, None
+    from diffcodec_tpu_torch.models.clip_text import CLIPTextEncoder
+    from diffcodec_tpu_torch.models.weights import load_sd_checkpoint_dir
+
+    modules = {"unet": pipe.unet, "controlnet": pipe.controlnet,
+               "vae": pipe.vae}
+    clip = None
+    if text_encoder:
+        with torch.device(device):
+            clip = modules["text"] = CLIPTextEncoder(clip_cfg).to(
+                dtype).eval()
+    load_sd_checkpoint_dir(sd_dir, modules,
+                           controlnet_path=controlnet_path or None)
+    return pipe, clip
+
+
+def load_decoder(args, device):
+    """(pipe, text, uncond) for the decode options: the exact CFG pipeline
+    with the prompt's and the negative prompt's embeddings [1, L, D]
+    through the root's CLIP text encoder (zeros without a root, as the JAX
+    CLI); or, with `--distilled_checkpoint`, a `DistilledPipeline` (K =
+    `--student_steps`, no CFG: uncond None) whose UNet and ControlNet hold
+    the EMA weights of the run's latest checkpoint-N
+    (`train.distill.load_student`)."""
+    from diffcodec_tpu_torch.config import DistillConfig, SamplerConfig
+    from diffcodec_tpu_torch.sampling.distilled import DistilledPipeline
+    from diffcodec_tpu_torch.train.checkpoint import restore_checkpoint
+    from diffcodec_tpu_torch.train.distill import load_student
+    from diffcodec_tpu_torch.utils.tokenizer import default_tokenizer
+
+    pipe, clip = build_pipeline(
+        args.tiny, SamplerConfig(
             num_inference_steps=args.steps, guidance_scale=args.guidance,
             controlnet_conditioning_scale=args.cond_scale,
             controlnet_interval=args.cn_interval,
             unet_encoder_interval=args.enc_interval),
-        dtype=dtype, device=device)
-    if not args.sd_checkpoint_dir:
-        text = torch.zeros((1, 77, unet_cfg.cross_attention_dim),
-                           dtype=dtype, device=device)
-        return pipe, text, text
-    from diffcodec_tpu_torch.models.clip_text import CLIPTextEncoder
-    from diffcodec_tpu_torch.models.weights import load_sd_checkpoint_dir
-    from diffcodec_tpu_torch.utils.tokenizer import default_tokenizer
-
-    clip_cfg = CLIPTextConfig.tiny() if args.tiny else CLIPTextConfig()
-    with torch.device(device):
-        text_encoder = CLIPTextEncoder(clip_cfg).to(dtype).eval()
-    load_sd_checkpoint_dir(
-        args.sd_checkpoint_dir,
-        {"unet": pipe.unet, "controlnet": pipe.controlnet, "vae": pipe.vae,
-         "text": text_encoder},
-        controlnet_path=args.controlnet_checkpoint or None)
-    text, uncond = pipe.encode_prompt(
-        text_encoder, default_tokenizer(clip_cfg.max_length), [args.prompt],
-        [args.negative_prompt])
-    return pipe, text, uncond
+        device, args.sd_checkpoint_dir, args.controlnet_checkpoint,
+        text_encoder=True)
+    if clip is None:
+        text = uncond = torch.zeros(
+            (1, 77, pipe.unet.cfg.cross_attention_dim),
+            dtype=torch.bfloat16, device=device)
+    else:
+        text, uncond = pipe.encode_prompt(
+            clip, default_tokenizer(clip.cfg.max_length), [args.prompt],
+            [args.negative_prompt])
+    if not args.distilled_checkpoint:
+        return pipe, text, uncond
+    saved, step = restore_checkpoint(args.distilled_checkpoint)
+    if saved is None:
+        raise SystemExit(
+            f"no checkpoint-N dir under {args.distilled_checkpoint}")
+    load_student(pipe.unet, pipe.controlnet, saved["ema_params"])
+    print(f"distilled student from step {step} "
+          f"({args.student_steps}-step decode)")
+    dpipe = DistilledPipeline.from_pipeline(pipe, DistillConfig(
+        num_student_steps=args.student_steps, guidance_scale=args.guidance,
+        controlnet_conditioning_scale=args.cond_scale))
+    return dpipe, text, None
 
 
 def make_sampler(pipe, text, uncond, seed: int, device):
     """`decode_video`'s sample_fn: the same seeded latent noise each call
-    (as the JAX CLI's fixed key), CFG over the prompt embeddings."""
+    (as the JAX CLI's fixed key), then CFG over the prompt embeddings; or,
+    where `uncond` is None, `pipe` is a `DistilledPipeline` (no CFG batch)
+    whose re-noises follow the latents from the same generator."""
     gen = torch.Generator(device=device)
 
     def sample_fn(cond, flow):
@@ -115,10 +165,18 @@ def make_sampler(pipe, text, uncond, seed: int, device):
         gen.manual_seed(seed)
         latents = torch.randn((B, H // 8, W // 8, 4), generator=gen,
                               device=device)
+        if uncond is None:
+            return pipe.sample(latents, text.expand(B, -1, -1), cond, flow,
+                               generator=gen)
         return pipe.sample(latents, text.expand(B, -1, -1),
                            uncond.expand(B, -1, -1), cond, flow)
 
     return sample_fn
+
+
+def build_sampler(args, device):
+    """`decode_video`'s sample_fn for the decode options (`load_decoder`)."""
+    return make_sampler(*load_decoder(args, device), args.seed, device)
 
 
 def cmd_decode(args):
@@ -127,9 +185,7 @@ def cmd_decode(args):
     from diffcodec_tpu_torch.codec.runner import EncodedVideo, decode_video
 
     enc = EncodedVideo.load(args.bitstream)
-    pipe, text, uncond = build_pipeline(args, args.device)
-    out = decode_video(enc, make_sampler(pipe, text, uncond, args.seed,
-                                         args.device),
+    out = decode_video(enc, build_sampler(args, args.device),
                        max_batch=args.max_batch,
                        transfer_dtype=torch.bfloat16, device=args.device)
     os.makedirs(args.out, exist_ok=True)
@@ -167,6 +223,13 @@ def add_decode_options(p: argparse.ArgumentParser) -> None:
                         "(.safetensors / .bin), overriding controlnet/")
     p.add_argument("--prompt", default="")
     p.add_argument("--negative_prompt", default="")
+    p.add_argument("--distilled_checkpoint", default="",
+                   help="output dir of a cli.train_distill run: decode "
+                        "with the consistency student's EMA weights in "
+                        "--student_steps evaluations, no CFG "
+                        "(sampling/distilled.py)")
+    p.add_argument("--student_steps", type=int, default=4,
+                   help="K for the distilled decode")
     p.add_argument("--device", default="cuda")
 
 

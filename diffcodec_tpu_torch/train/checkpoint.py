@@ -59,7 +59,10 @@ def save_checkpoint(ckpt_dir: str, step: int, state: Any,
 def restore_checkpoint(ckpt_dir: str, step: Optional[int] = None,
                        map_location="cpu"):
     """(state, step) of checkpoint-{step}, the latest where step is None,
-    or (None, 0) where there is none."""
+    or (None, 0) where there is none.  The file is memory-mapped (private
+    pages): a tensor is read where it is used, so a caller that takes one
+    part of the state (the decode CLIs, a distilled run's EMA) reads no
+    more of it."""
     existing = list_checkpoints(ckpt_dir)
     if step is not None:
         existing = [(s, p) for s, p in existing if s == step]
@@ -67,7 +70,8 @@ def restore_checkpoint(ckpt_dir: str, step: Optional[int] = None,
         return None, 0
     step, path = existing[-1]
     state = torch.load(os.path.join(path, STATE_FILE),
-                       map_location=map_location, weights_only=True)
+                       map_location=map_location, weights_only=True,
+                       mmap=True)
     return state, step
 
 

@@ -1,16 +1,45 @@
-"""The consistency parameterization and teacher grid of the decoder's step
-distillation, which the K-step decode (`sampling/distilled.py`) needs.
+"""Consistency distillation of the DualFlow decoder into a K-step student:
+the consistency parameterization, the teacher's DDIM step, the state and
+the training step.
 
 Counterpart: `diffcodec_tpu/train/distill.py` (`boundary_scalings` :60-72,
-`ddim_grid` :75-82).  The distillation trainer itself is not ported yet.
+`ddim_grid` :75-82, `ddim_step` :85-98, `DistillState` :104-116,
+`ConsistencyDistiller` :119-234).  The teacher is the frozen UNet and
+DualFlowControlNet under classifier-free guidance at the pinned guidance
+and conditioning scales; the student and its EMA target have the same
+architecture and start from the teacher's weights, and both of the
+student's networks train.  The objective is consistency distillation:
+
+    L = huber(f_student(x_{t_n}, t_n), sg[f_ema(x_{t_m}, t_m)])
+
+with x_{t_m} the teacher's one DDIM step from x_{t_n} down the
+`num_teacher_steps`-point grid, and f(x, t) = c_skip(t) x + c_out(t) x0.
+
+Mixed precision as in `train/trainer.py`: three working copies in the
+compute dtype (the frozen teacher, the student and the EMA target, each a
+`denoiser(unet, controlnet)`), the student's fp32 masters and the fp32 EMA
+in the `DistillState`, and both copied back into their working copies
+after each update.  The teacher's and the target's forwards run under
+`torch.no_grad()` (JAX's stop-gradient), so no graph and no attention
+log-sum-exp is kept for them.  The JAX package's `shard_state` and
+`jit_train_step` have no counterpart: they wait for the mesh.
 """
 
 from __future__ import annotations
 
+import copy
+import dataclasses
+from typing import Any, Dict, Optional, Tuple
+
 import numpy as np
 import torch
+import torch.nn as nn
 
-from diffcodec_tpu_torch.sampling.schedulers import NoiseSchedule
+from diffcodec_tpu_torch.config import DistillConfig
+from diffcodec_tpu_torch.models.vae import AutoencoderKL
+from diffcodec_tpu_torch.sampling.schedulers import NoiseSchedule, cfg_combine
+from diffcodec_tpu_torch.train import checkpoint as ckpt
+from diffcodec_tpu_torch.train.trainer import Optimizer, Params
 
 
 def boundary_scalings(timesteps, sigma_data: float = 0.5,
@@ -34,3 +63,278 @@ def ddim_grid(schedule: NoiseSchedule, num_teacher_steps: int) -> np.ndarray:
     stride = T // num_teacher_steps
     ts = np.arange(num_teacher_steps - 1, -1, -1, dtype=np.int64) * stride
     return ts + (T - 1 - ts[0])
+
+
+def ddim_step(schedule: NoiseSchedule, sample: torch.Tensor,
+              eps: torch.Tensor, t, t_prev) -> torch.Tensor:
+    """Deterministic DDIM x_t -> x_{t_prev} (epsilon parameterisation,
+    eta = 0), fp32; t and t_prev are ints or [B] tensors, and t_prev < 0
+    means "to x0" (abar_prev = 1)."""
+    x0 = schedule.pred_original_sample(sample, eps, t)
+    t_prev = torch.as_tensor(t_prev, device=sample.device)
+    table = torch.from_numpy(schedule.alphas_cumprod).to(sample.device)
+    abar_prev = torch.where(t_prev >= 0, table[t_prev.clamp(min=0).long()],
+                            torch.ones((), device=sample.device))
+    abar_prev = abar_prev.reshape((-1,) + (1,) * (sample.dim() - 1))
+    return (torch.sqrt(abar_prev) * x0
+            + torch.sqrt(1.0 - abar_prev) * eps.float())
+
+
+def denoiser(unet: nn.Module, controlnet: nn.Module) -> nn.ModuleDict:
+    """A UNet and its ControlNet as one module: its parameters are named
+    'unet.*' and 'controlnet.*', the layout of every parameter dict here."""
+    return nn.ModuleDict({"unet": unet, "controlnet": controlnet})
+
+
+@dataclasses.dataclass(eq=False)
+class DistillState:
+    """The update count, the student's fp32 master parameters, the fp32
+    EMA target (a copy of the masters at creation) and the optimizer's
+    state, all keyed by `denoiser` names."""
+    step: int
+    params: Params
+    ema_params: Params
+    opt_state: Dict[str, Any]
+    tx: Optimizer
+
+    @classmethod
+    def create(cls, params: Params, tx: Optimizer) -> "DistillState":
+        params = {n: p.detach().float().clone() for n, p in params.items()}
+        return cls(step=0, params=params,
+                   ema_params={n: p.clone() for n, p in params.items()},
+                   opt_state=tx.init(params), tx=tx)
+
+    def state_dict(self) -> Dict[str, Any]:
+        return {"step": self.step, "params": self.params,
+                "ema_params": self.ema_params, "opt_state": self.opt_state}
+
+    @torch.no_grad()
+    def load_state_dict(self, saved: Dict[str, Any]) -> "DistillState":
+        """Copy a saved state into this one's tensors (their devices and
+        dtypes); the names must match."""
+        for key in ("params", "ema_params"):
+            _copy_into(getattr(self, key), saved[key], key)
+        for key, value in self.opt_state.items():  # moments and counters
+            if isinstance(value, dict):
+                _copy_into(value, saved["opt_state"][key], key)
+            else:
+                self.opt_state[key] = int(saved["opt_state"][key])
+        self.step = int(saved["step"])
+        return self
+
+
+def _copy_into(dst: Params, src: Params, what: str):
+    if set(dst) != set(src):
+        raise KeyError(f"{what}: names differ: "
+                       f"{sorted(set(dst) ^ set(src))[:5]}")
+    for n, t in dst.items():
+        t.copy_(src[n])
+
+
+def save_distill_checkpoint(ckpt_dir: str, state: DistillState,
+                            total_limit: Optional[int] = None) -> str:
+    """`checkpoint-{state.step}/state.pt` with the step, masters, EMA and
+    optimizer state (`train/checkpoint.py`'s rotation)."""
+    return ckpt.save_checkpoint(ckpt_dir, state.step, state.state_dict(),
+                                total_limit=total_limit)
+
+
+def restore_distill_checkpoint(ckpt_dir: str, state: DistillState,
+                               step: Optional[int] = None
+                               ) -> Tuple[Optional[DistillState], int]:
+    """(state filled from checkpoint-{step}, the latest where step is None,
+    step), or (None, 0) where there is none."""
+    saved, step = ckpt.restore_checkpoint(ckpt_dir, step)
+    if saved is None:
+        return None, 0
+    return state.load_state_dict(saved), step
+
+
+@torch.no_grad()
+def load_student(unet: nn.Module, controlnet: nn.Module,
+                 params: Params) -> None:
+    """Put a `denoiser`-keyed parameter dict (a state's EMA masters, as the
+    decode CLIs use them) into a UNet and its ControlNet, cast to their
+    dtypes on their devices; every parameter of both must be given."""
+    own = dict(denoiser(unet, controlnet).named_parameters())
+    _copy_into(own, params, "student")
+
+
+@dataclasses.dataclass(eq=False)
+class ConsistencyDistiller:
+    """The teacher, student and EMA-target working copies (`denoiser`s)
+    and the frozen VAE, bundled into a training step.
+
+    A batch holds 'image' [B, H, W, 3] in [-1, 1], 'cond' [B, H, W, 6],
+    'flow' [B, H, W, 4], 'text_embeds' and 'uncond_embeds' [B, L, D].
+    Making the distiller freezes the teacher, the target and the VAE
+    (`requires_grad_(False)`) and lets every parameter of the student
+    train, its UNet included."""
+    teacher: nn.ModuleDict
+    student: nn.ModuleDict
+    target: nn.ModuleDict
+    vae: AutoencoderKL
+    schedule: NoiseSchedule
+    config: DistillConfig
+
+    def __post_init__(self):
+        for m in (self.teacher, self.target, self.vae):
+            m.requires_grad_(False)
+        self.student.requires_grad_(True)
+
+    @classmethod
+    def create(cls, unet: nn.Module, controlnet: nn.Module,
+               vae: AutoencoderKL, schedule: NoiseSchedule,
+               config: DistillConfig, tx: Optimizer,
+               dtype: torch.dtype = torch.bfloat16):
+        """(distiller, state) from the teacher's modules: the student's
+        masters and the EMA from the teacher's weights (the warm start),
+        then the teacher cast to `dtype` and copied twice for the student
+        and the target; the VAE cast to `dtype`."""
+        teacher = denoiser(unet, controlnet)
+        state = DistillState.create(dict(teacher.named_parameters()), tx)
+        teacher = teacher.to(dtype).eval()
+        student = copy.deepcopy(teacher)
+        target = copy.deepcopy(teacher).eval()
+        return cls(teacher=teacher, student=student, target=target,
+                   vae=vae.to(dtype).eval(), schedule=schedule,
+                   config=config), state
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.student["unet"].dtype
+
+    @property
+    def _freeu(self):
+        c = self.config
+        return ((c.freeu_s1, c.freeu_s2, c.freeu_b1, c.freeu_b2)
+                if c.freeu else None)
+
+    def _eps(self, net: nn.ModuleDict, x, t, ctx, cond, flow, cond_scale):
+        cn = net["controlnet"]
+        pyramid = cn.extract_pyramid(cond, flow)
+        down, mid = cn.backbone(x, t, ctx, pyramid, cond_scale)
+        return net["unet"](x, t, ctx, down_block_additional_residuals=down,
+                           mid_block_additional_residual=mid,
+                           freeu=self._freeu)
+
+    @torch.no_grad()
+    def teacher_eps(self, x, t, text, uncond, cond, flow):
+        """The teacher's prediction under CFG at the pinned guidance scale:
+        one call on the batch doubled as [uncond, text], then
+        `cfg_combine` in the networks' dtype."""
+        c = self.config
+        eps = self._eps(self.teacher, torch.cat([x, x]), torch.cat([t, t]),
+                        torch.cat([uncond, text]), torch.cat([cond, cond]),
+                        torch.cat([flow, flow]),
+                        c.controlnet_conditioning_scale)
+        eps_u, eps_t = eps.chunk(2)
+        return cfg_combine(eps_u, eps_t, c.guidance_scale)
+
+    def consistency_fn(self, net: nn.ModuleDict, x, t, text, cond, flow):
+        """f(x_t, t), fp32: the boundary-scaled x0 prediction at a [B]
+        tensor of timesteps, with no CFG batch."""
+        c = self.config
+        eps = self._eps(net, x, t, text, cond, flow,
+                        c.controlnet_conditioning_scale)
+        x0 = self.schedule.pred_original_sample(x, eps, t)
+        c_skip, c_out = boundary_scalings(t, c.sigma_data,
+                                          c.timestep_scaling)
+        shape = (-1,) + (1,) * (x.dim() - 1)
+        return c_skip.reshape(shape) * x.float() + c_out.reshape(shape) * x0
+
+    def loss_fn(self, batch, generator: Optional[torch.Generator] = None,
+                latent_eps=None, idx=None, noise=None):
+        """(loss, metrics).  The draws (the posterior's eps like the
+        mean, a grid index per sample in [0, n - 2] and the fp32 noise
+        like the latents) are taken from `generator` in that order where
+        they are not given."""
+        c = self.config
+        dtype = self.dtype
+        with torch.no_grad():
+            mean, logvar = self.vae.encode(
+                batch["image"].to(self.vae.quant_conv.weight.dtype))
+        dev = mean.device
+        if latent_eps is None:
+            latent_eps = torch.randn(mean.shape, generator=generator,
+                                     device=dev)
+        latents = ((mean + torch.exp(0.5 * logvar) * latent_eps.to(
+            mean.dtype)) * self.vae.cfg.scaling_factor).float()
+
+        grid = torch.from_numpy(ddim_grid(self.schedule,
+                                          c.num_teacher_steps)).to(dev)
+        B = latents.shape[0]
+        if idx is None:
+            idx = torch.randint(0, grid.shape[0] - 1, (B,),
+                                generator=generator, device=dev)
+        idx = idx.to(dev).long()
+        t_n, t_m = grid[idx], grid[idx + 1]
+        if noise is None:
+            noise = torch.randn(latents.shape, generator=generator,
+                                device=dev)
+        x_tn = self.schedule.add_noise(latents, noise, t_n).to(dtype)
+
+        text, uncond = batch["text_embeds"], batch["uncond_embeds"]
+        cond, flow = batch["cond"], batch["flow"]
+        eps_t = self.teacher_eps(x_tn, t_n, text, uncond, cond, flow)
+        x_tm = ddim_step(self.schedule, x_tn, eps_t, t_n, t_m).to(dtype)
+
+        f_student = self.consistency_fn(self.student, x_tn, t_n, text, cond,
+                                        flow)
+        with torch.no_grad():
+            f_target = self.consistency_fn(self.target, x_tm, t_m, text,
+                                           cond, flow)
+        err = f_student - f_target
+        if c.loss == "huber":
+            loss = torch.mean(torch.sqrt(err * err + c.huber_c ** 2)
+                              - c.huber_c)
+        else:
+            loss = torch.mean(err * err)
+        return loss, {"loss": loss.detach(), "t_mean": t_n.float().mean()}
+
+    def gradients(self) -> Params:
+        """The student working copy's gradients by name, in its dtype
+        (zeros for a parameter the loss did not reach); the optimizer
+        widens each to fp32 as it uses it."""
+        return {n: (p.grad if p.grad is not None else torch.zeros_like(p))
+                for n, p in self.student.named_parameters()}
+
+    @torch.no_grad()
+    def load_params(self, state: DistillState):
+        """Copy the masters into the student and the EMA into the target
+        (cast to their dtype)."""
+        for net, params in ((self.student, state.params),
+                            (self.target, state.ema_params)):
+            for n, p in net.named_parameters():
+                p.copy_(params[n])
+
+    @torch.no_grad()
+    def update_ema(self, state: DistillState):
+        """optax.incremental_update(new, ema, 1 - ema_decay) in fp32:
+        ema <- (1 - decay) new + decay ema."""
+        s = 1.0 - self.config.ema_decay
+        for n, e in state.ema_params.items():
+            e.copy_(s * state.params[n] + (1.0 - s) * e)
+
+    def update(self, state: DistillState) -> DistillState:
+        """Apply the student's gradients (then dropped) to the masters,
+        move the EMA toward them, and copy both into their working
+        copies."""
+        grads = self.gradients()
+        for p in self.student.parameters():
+            p.grad = None
+        state.tx.update(state.params, grads, state.opt_state)
+        del grads
+        state.step += 1
+        self.update_ema(state)
+        self.load_params(state)
+        return state
+
+    def train_step(self, state: DistillState, batch,
+                   generator: Optional[torch.Generator] = None, **draws):
+        """One step: loss, backward, update.  `draws` are `loss_fn`'s
+        latent_eps, idx and noise.  Returns (state, metrics)."""
+        loss, metrics = self.loss_fn(batch, generator, **draws)
+        loss.backward()
+        return self.update(state), metrics
+

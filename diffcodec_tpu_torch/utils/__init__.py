@@ -1,2 +1,2 @@
 """Host-side utilities of the port: the CLIP tokenizer, the safetensors
-file format and .flo flow files."""
+file format, .flo flow files and the training CLIs' logging."""

@@ -6,8 +6,10 @@ must not lean on the JAX package.  A subprocess installs an import hook that
 refuses those modules, then imports every module of `diffcodec_tpu_torch`
 (the codec's among them: its JPEG reads import PIL inside functions; the
 residual stage's and the CLIP tokenizer's; the checkpoint loaders, the
-evaluation layer, whose plots import matplotlib inside functions, and the
-CLIs), `chip_smoke` and the port's
+evaluation layer, whose plots import matplotlib inside functions, the
+distillation trainer, the dataset loader (PIL inside its image read), the
+prefetcher, the metrics logger and the CLIs, the training ones among
+them), `chip_smoke` and the port's
 scripts, `scripts/profile_torch_decode.py` (which also profiles the
 residual training points), `scripts/conv_kernel_breakdown.py`,
 `scripts/conv_kernel_ab.py`, `scripts/attention_bwd_ab.py`,
@@ -80,7 +82,10 @@ def test_port_and_chip_smoke_import_without_jax():
                  "eval.metrics", "eval.inception", "eval.frechet",
                  "eval.codec_eval", "eval.bd_rate", "eval.anchors_data",
                  "eval.plots", "eval.visual_study", "eval.freq_analysis",
-                 "cli.run_codec", "cli.rd_sweep"):
+                 "cli.run_codec", "cli.rd_sweep", "train.distill",
+                 "train.dataset", "train.prefetch", "utils.logging",
+                 "cli.train_distill", "cli.train_residual",
+                 "cli.distill_eval"):
         assert f"diffcodec_tpu_torch.{name}" in proc.stdout.split(), name
 
 
