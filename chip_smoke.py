@@ -173,6 +173,37 @@ Phases, each printed as one JSON line with the elapsed seconds `t`:
              are the bf16 EMA of checkpoint-2 (not the masters, not the
              teacher), and their K = 2 decode matches `DistilledPipeline`
              on the in-memory EMA while the masters' does not
+  kernel     (validation shapes) attention at BH = 2 x 8 x 8 (the
+             ControlNet trainer's validation: CFG at batch 8, no lse) and
+             the fused VAE decoder's GN+SiLU+conv, head and upsample
+             entries at B = 8
+  train_cli  `cli.train_controlnet`'s `build_trainer` and `train` at SD-1.5
+             width on synthetic batches (no PIL here): batch 8 at 512 px,
+             AdamW 1e-5, bf16 over fp32 masters, checkpoints and
+             validation every 2 steps, 3 steps: samples/s of the median
+             step beside the `train` phase's, each step's launches (as
+             `train`), the validation's seconds and launches (20 CFG steps
+             and the fused decoder), 8 PNG panels decoded here (zlib)
+             against the pipeline's uint8 images, the checkpoints' GB/s
+             written, peak memory; then `--resume_from_checkpoint latest`
+             in a second trainer: the restored state bit-identical to the
+             saved one, its step 4 against the first trainer's step 4 on
+             the same draws; then `--latent_cache_dir` over 16 samples:
+             the cached moments against the fused encoder's, and one step
+             from the cache with no encoder launch
+  export     `cli.export_checkpoint` on train_cli's checkpoint-2 (1.7 GB),
+             loaded by `models.weights.load_sd_checkpoint_dir` into a
+             fresh full-width DualFlowControlNet: every tensor the step-2
+             fp32 masters bit for bit, seconds and GB/s each way; then
+             `--distilled` on distill_cli's checkpoint-2: both files the
+             EMA's tensors bit for bit
+  approx_drift
+             `cli.approx_drift` at its defaults (512 px, 30 steps, batch 7,
+             CFG 3.5, FreeU, bf16, SD-1.5 width, weights ~ N(0, 0.02^2)):
+             seconds, frames/s and launches of each of the seven modes,
+             latent rel-RMS and PSNR against exact; the ControlNet and
+             UNet-encoder calls and the attention launches asserted from
+             the intervals and the 30 steps
 Then a {"kernels": [...]} line, the `nvidia-smi` name and power limit, and
 last {"ok": true, "device": {...}}.  Any failure raises and exits non-zero.
 """
@@ -187,9 +218,11 @@ import os
 import statistics
 import subprocess
 import sys
+import shutil
 import tempfile
 import time
 import types
+import zlib
 
 import numpy as np
 import torch
@@ -463,6 +496,25 @@ DISTILL_REF_TRAIN = TrainConfig(learning_rate=1e-3, adam_weight_decay=0.0,
 DISTILL_REF_TOL = dict(loss_rel=0.05, grad_norm_rel=0.05,
                        grad_cosine_below_bf16=0.01, ema_rule_rel=1e-2,
                        ema_cosine=0.5)
+# cli.train_controlnet's in-training validation: 20 UniPC steps with CFG
+# over a batch of 8 (attention at BH = 2 x 8 x 8, the fused decoder's convs
+# at B = 8); the CLI run: 3 steps, then resumed to 4
+VAL_BATCH, VAL_STEPS = TRAIN_BATCH, 20
+TRAIN_CLI_STEPS = 3
+# train_cli's resume: the state restored from checkpoint-3 is held to the
+# saved one bit for bit.  Its step 4 against the uninterrupted trainer's
+# step 4 (the same state and draws) cannot be: the splat's and the
+# attention backward's fp32 atomics add in a varying order, so two runs of
+# one step differ (||resumed - uninterrupted|| read 0.0063 of the step's
+# move on the H100, a CPU run 0).  A resume fault moves it by far more:
+# other draws or lost moments by ~100% (Adam's count, whose slip would
+# move it by ~6%, is held exactly: 3 restored, 4 after).  Limit: 5%
+TRAIN_CLI_RESUME_REL = 0.05
+# the latent cache against the fused encoder on the fly, the same batches
+# of 8 in bf16: the cache stores the bf16 moments widened to fp32 (exact),
+# so anything past one bf16 ulp (2^-8 of the value and of the largest)
+# would be another computation
+LATENT_CACHE_ULP = 2.0 ** -8
 
 
 def compare(label: str, got, want, atol: float, rtol: float) -> float:
@@ -2489,12 +2541,13 @@ def distill_decode(ema_params, gen) -> dict:
     return out
 
 
-def distill_reference():
+def distill_reference(workdir: str):
     """One distillation step at a tiny config, the card (bf16, kernels)
     against the CPU (fp32, plain versions) on the same weights, batch and
     draws; then `cli.train_distill`'s loop on the card from a tiny
-    diffusers root, its EMA restored by `run_codec`'s loader and decoded
-    in 2 steps against `DistilledPipeline` on the in-memory EMA."""
+    diffusers root under `workdir`, its EMA restored by `run_codec`'s
+    loader and decoded in 2 steps against `DistilledPipeline` on the
+    in-memory EMA.  Returns `distill_cli`'s (run directory, state)."""
     cfgs = (UNetConfig.tiny(), ControlNetConfig.tiny(),
             VAEConfig(base_channels=8, channel_mults=(1, 1, 2, 2),
                       layers_per_block=1))
@@ -2580,10 +2633,10 @@ def distill_reference():
             and out["ema_cosine"] >= tol["ema_cosine"]):
         raise AssertionError(f"tiny distillation step on the card disagrees "
                              f"with the CPU: {out}")
-    distill_cli(cfgs)
+    return distill_cli(cfgs, workdir)
 
 
-def distill_cli(cfgs):
+def distill_cli(cfgs, workdir: str):
     """`cli.train_distill`'s loop (its `build_distiller` and `train`) on
     the card at the tiny config from a diffusers root written here, on a
     synthetic batch (no PIL on this machine): 2 steps at lr 1e-3, a
@@ -2593,89 +2646,89 @@ def distill_cli(cfgs):
     the masters and the teacher, and its decode must match
     `DistilledPipeline` over the root's VAE, the in-memory EMA and the
     root's text encoder, on the same seeded draws, K = 2, while the same
-    decode from the masters must not."""
+    decode from the masters must not.  The root and the run stay under
+    `workdir`; returns (run directory, state)."""
     import argparse
     import logging
 
     from diffcodec_tpu_torch.cli import run_codec, train_distill
 
     gen = torch.Generator(device="cuda").manual_seed(12)
-    with tempfile.TemporaryDirectory() as tmp:
-        root, run = os.path.join(tmp, "sd"), os.path.join(tmp, "run")
-        with torch.device("cuda"):
-            modules = {"unet": UNet2DConditionModel(cfgs[0]),
-                       "controlnet": DualFlowControlNet(cfgs[1]),
-                       "vae": AutoencoderKL(cfgs[2]),
-                       "text": CLIPTextEncoder(CLIPTextConfig.tiny())}
-        for m in modules.values():
-            fill_params(m, gen)
-        positive_confidence(modules["controlnet"])
-        checkpoints.synthesize_sd_checkpoint_dir(root, modules)
-        del modules
-        args = train_distill.parse_args([
-            "--index_file", "synthetic", "--output_dir", run, "--tiny",
-            "--device", "cuda", "--sd_checkpoint_dir", root,
-            "--resolution", "64", "--max_train_steps", "2",
-            "--checkpointing_steps", "1", "--log_every", "1",
-            "--learning_rate", "1e-3"])
-        logger = logging.getLogger("chip_smoke.distill_cli")
-        d, state, text_encoder, tokenizer = train_distill.build_distiller(
-            args, logger)
+    root = os.path.join(workdir, "distill_sd")
+    run = os.path.join(workdir, "distill_run")
+    with torch.device("cuda"):
+        modules = {"unet": UNet2DConditionModel(cfgs[0]),
+                   "controlnet": DualFlowControlNet(cfgs[1]),
+                   "vae": AutoencoderKL(cfgs[2]),
+                   "text": CLIPTextEncoder(CLIPTextConfig.tiny())}
+    for m in modules.values():
+        fill_params(m, gen)
+    positive_confidence(modules["controlnet"])
+    checkpoints.synthesize_sd_checkpoint_dir(root, modules)
+    del modules
+    args = train_distill.parse_args([
+        "--index_file", "synthetic", "--output_dir", run, "--tiny",
+        "--device", "cuda", "--sd_checkpoint_dir", root,
+        "--resolution", "64", "--max_train_steps", "2",
+        "--checkpointing_steps", "1", "--log_every", "1",
+        "--learning_rate", "1e-3"])
+    logger = logging.getLogger("chip_smoke.distill_cli")
+    d, state, text_encoder, tokenizer = train_distill.build_distiller(
+        args, logger)
 
-        @torch.no_grad()
-        def embed_text(texts):
-            return text_encoder(torch.from_numpy(tokenizer(list(texts)))
-                                .cuda())
+    @torch.no_grad()
+    def embed_text(texts):
+        return text_encoder(torch.from_numpy(tokenizer(list(texts)))
+                            .cuda())
 
-        rng = np.random.default_rng(13)
-        raw = {"image": rng.uniform(-1, 1, (2, 64, 64, 3)).astype(
-                   np.float32),
-               "cond": rng.uniform(0, 1, (2, 64, 64, 6)).astype(np.float32),
-               "flow": (rng.standard_normal((2, 64, 64, 4)) * 3).astype(
-                   np.float32),
-               "text_embeds": embed_text(["a frame", "another frame"])}
-        state, cli_s = timed(lambda: train_distill.train(
-            args, d, state, lambda: [raw], embed_text, logger))
-        saved = [s for s, _ in list_checkpoints(run)]
+    rng = np.random.default_rng(13)
+    raw = {"image": rng.uniform(-1, 1, (2, 64, 64, 3)).astype(np.float32),
+           "cond": rng.uniform(0, 1, (2, 64, 64, 6)).astype(np.float32),
+           "flow": (rng.standard_normal((2, 64, 64, 4)) * 3).astype(
+               np.float32),
+           "text_embeds": embed_text(["a frame", "another frame"])}
+    state, cli_s = timed(lambda: train_distill.train(
+        args, d, state, lambda: [raw], embed_text, logger))
+    saved = [s for s, _ in list_checkpoints(run)]
 
-        p = argparse.ArgumentParser()
-        run_codec.add_decode_options(p)
-        dargs = p.parse_args(["--tiny", "--sd_checkpoint_dir", root,
-                              "--distilled_checkpoint", run,
-                              "--student_steps", "2", "--seed", "5"])
-        cli_pipe, text, _ = run_codec.load_decoder(dargs, "cuda")
-        restored = dict(denoiser(cli_pipe.unet, cli_pipe.controlnet)
-                        .named_parameters())
-        teacher = dict(d.teacher.named_parameters())
-        weights = dict(
-            tensors=len(restored),
-            not_ema=sum(not torch.equal(
-                p, state.ema_params[n].to(p.dtype)) for n, p in
-                restored.items()),
-            off_masters=sum(not torch.equal(
-                p, state.params[n].to(p.dtype)) for n, p in
-                restored.items()),
-            off_teacher=sum(not torch.equal(p, teacher[n])
-                            for n, p in restored.items()))
-        from_cli = run_codec.make_sampler(cli_pipe, text, None, 5, "cuda")
-        text, _ = DualFlowPipeline.encode_prompt(text_encoder, tokenizer,
-                                                 [""], [""])
+    p = argparse.ArgumentParser()
+    run_codec.add_decode_options(p)
+    dargs = p.parse_args(["--tiny", "--sd_checkpoint_dir", root,
+                          "--distilled_checkpoint", run,
+                          "--student_steps", "2", "--seed", "5"])
+    cli_pipe, text, _ = run_codec.load_decoder(dargs, "cuda")
+    restored = dict(denoiser(cli_pipe.unet, cli_pipe.controlnet)
+                    .named_parameters())
+    teacher = dict(d.teacher.named_parameters())
+    weights = dict(
+        tensors=len(restored),
+        not_ema=sum(not torch.equal(
+            p, state.ema_params[n].to(p.dtype)) for n, p in
+            restored.items()),
+        off_masters=sum(not torch.equal(
+            p, state.params[n].to(p.dtype)) for n, p in
+            restored.items()),
+        off_teacher=sum(not torch.equal(p, teacher[n])
+                        for n, p in restored.items()))
+    from_cli = run_codec.make_sampler(cli_pipe, text, None, 5, "cuda")
+    text, _ = DualFlowPipeline.encode_prompt(text_encoder, tokenizer,
+                                             [""], [""])
 
-        def in_memory(params):
-            pipe = DualFlowPipeline.create(*cfgs, dtype=torch.bfloat16,
-                                           device="cuda")
-            pipe.vae.load_state_dict(d.vae.state_dict())
-            load_student(pipe.unet, pipe.controlnet, params)
-            return run_codec.make_sampler(
-                DistilledPipeline.from_pipeline(pipe, DistillConfig(
-                    num_student_steps=2)), text, None, 5, "cuda")
+    def in_memory(params):
+        pipe = DualFlowPipeline.create(*cfgs, dtype=torch.bfloat16,
+                                       device="cuda")
+        pipe.vae.load_state_dict(d.vae.state_dict())
+        load_student(pipe.unet, pipe.controlnet, params)
+        return run_codec.make_sampler(
+            DistilledPipeline.from_pipeline(pipe, DistillConfig(
+                num_student_steps=2)), text, None, 5, "cuda")
 
-        cond = torch.from_numpy(raw["cond"]).cuda().bfloat16()
-        flow = torch.from_numpy(raw["flow"]).cuda().bfloat16()
-        got = from_cli(cond, flow).float()
-        want = in_memory(state.ema_params)(cond, flow).float()
-        again = in_memory(state.ema_params)(cond, flow).float()
-        masters = in_memory(state.params)(cond, flow).float()
+    cond = torch.from_numpy(raw["cond"]).cuda().bfloat16()
+    flow = torch.from_numpy(raw["flow"]).cuda().bfloat16()
+    got = from_cli(cond, flow).float()
+    want = in_memory(state.ema_params)(cond, flow).float()
+    again = in_memory(state.ema_params)(cond, flow).float()
+    masters = in_memory(state.params)(cond, flow).float()
     diff = (got - want).abs()
     out = dict(checkpoints=saved, steps=state.step, train_s=cli_s,
                restored=weights, decode_max_abs_err=diff.max().item(),
@@ -2701,6 +2754,418 @@ def distill_cli(cfgs):
     if not out["masters_max_abs_err"] > tol["max_abs"]:
         raise AssertionError(f"distill_cli: the decode cannot tell the EMA "
                              f"from the masters: {out}")
+    return run, state
+
+
+def check_validation_kernels(gen) -> list:
+    """Every kernel at the shapes `cli.train_controlnet`'s validation
+    gives it and no earlier phase did: its 20-step CFG decode of a batch
+    of 8 (attention at BH = 2 x 8 x 8, no lse) and the fused VAE
+    decoder's convs at B = 8.  Its splats (B = 16) are the training
+    phase's shapes."""
+    b = VAL_BATCH
+    return (check_attention(gen, 2 * b * HEADS)
+            + check_gn_conv(gen, [(b,) + s[1:] for s in GN_SHAPES
+                                  if s[0] == FRAMES])
+            + check_upsample(gen, [(b,) + s[1:] for s in UP_SHAPES]))
+
+
+def png_pixels(path: str) -> np.ndarray:
+    """[H, W, 3] uint8 of an 8-bit RGB PNG whose scanlines all use filter
+    0, decoded here with zlib alone: the chunks' CRCs checked, the IDAT
+    inflated, the filter bytes checked."""
+    with open(path, "rb") as f:
+        data = f.read()
+    if data[:8] != b"\x89PNG\r\n\x1a\n":
+        raise AssertionError(f"{path}: not a PNG file")
+    pos, chunks = 8, {}
+    while pos < len(data):
+        n = int.from_bytes(data[pos:pos + 4], "big")
+        kind, body = data[pos + 4:pos + 8], data[pos + 8:pos + 8 + n]
+        if zlib.crc32(kind + body) != int.from_bytes(
+                data[pos + 8 + n:pos + 12 + n], "big"):
+            raise AssertionError(f"{path}: bad CRC in {kind!r}")
+        chunks.setdefault(kind, []).append(body)
+        pos += 12 + n
+    header = chunks[b"IHDR"][0]
+    w, h = int.from_bytes(header[:4], "big"), int.from_bytes(header[4:8],
+                                                             "big")
+    if header[8:] != bytes([8, 2, 0, 0, 0]):
+        raise AssertionError(f"{path}: not 8-bit RGB: {header[8:]!r}")
+    rows = np.frombuffer(zlib.decompress(b"".join(chunks[b"IDAT"])),
+                         np.uint8).reshape(h, 1 + 3 * w)
+    if rows[:, 0].any():
+        raise AssertionError(f"{path}: a scanline uses a filter")
+    return rows[:, 1:].reshape(h, w, 3)
+
+
+def _cli_batch(gen, B, res, embed_text) -> dict:
+    """A dataset batch as `UniDataset` gives it (numpy, fp32): the ground
+    truth uniform in [-1, 1], the anchors uniform in [0, 1], flow ~ 4
+    N(0, 1) pixels; with `CAPTIONS` embedded as 'text_embeds'."""
+    def rand(*shape):
+        return torch.rand(shape, generator=gen, device="cuda").cpu().numpy()
+    captions = (CAPTIONS * B)[:B]
+    return {"image": rand(B, res, res, 3) * 2 - 1,
+            "cond": rand(B, res, res, 6),
+            "flow": torch.randn((B, res, res, 4), generator=gen,
+                                device="cuda").cpu().numpy() * 4,
+            "text": captions, "text_embeds": embed_text(captions)}
+
+
+class _Samples:
+    """An indexable dataset over a numpy batch, without augmentation (the
+    latent cache's input)."""
+    transform = False
+
+    def __init__(self, batch):
+        self.batch = batch
+
+    def __len__(self):
+        return len(self.batch["text"])
+
+    def __getitem__(self, i):
+        return {k: v[i] for k, v in self.batch.items()}
+
+
+def _instrumented(trainer, validate):
+    """Time and count every `train_step` and validation `train` makes,
+    and record what `save_checkpoint` writes and the images the
+    validation pipeline decodes (instance attributes over the methods;
+    the module's `save_checkpoint` swapped, which `train` imports at its
+    call).  Returns (record, the validation wrapped, undo)."""
+    from diffcodec_tpu_torch.train import checkpoint as ckpt_mod
+
+    rec = dict(step_s=[], launches=[], val_s=[], val_launches=[],
+               images=[], saves=[])
+    step_fn, save_fn = trainer.train_step, ckpt_mod.save_checkpoint
+    sample_fn = validate.pipeline.sample
+
+    def train_step(*a, **kw):
+        (out, s, n) = counted(lambda: step_fn(*a, **kw))
+        rec["step_s"].append(s)
+        rec["launches"].append(n)
+        return out
+
+    def sample(*a, **kw):
+        images = sample_fn(*a, **kw)
+        rec["images"].append(images)
+        return images
+
+    def validated(state, step, metrics_logger):
+        (out, s, n) = counted(lambda: validate(state, step, metrics_logger))
+        rec["val_s"].append(s)
+        rec["val_launches"].append(n)
+        return out
+
+    def save_checkpoint(ckpt_dir, step, state, total_limit=None):
+        if step == 2:  # the masters `export` holds its file to
+            rec["masters2"] = {k: v.detach().cpu().clone()
+                               for k, v in state["params"].items()}
+        (path, s) = timed(lambda: save_fn(ckpt_dir, step, state,
+                                          total_limit))
+        nbytes = os.path.getsize(os.path.join(path, "state.pt"))
+        rec["saves"].append(dict(step=step, s=s, bytes=nbytes))
+        return path
+
+    trainer.train_step = train_step
+    validate.pipeline.sample = sample
+    ckpt_mod.save_checkpoint = save_checkpoint
+
+    def undo():
+        del trainer.train_step
+        del validate.pipeline.sample
+        ckpt_mod.save_checkpoint = save_fn
+
+    return rec, validated, undo
+
+
+def _train_cli_args(run, *extra):
+    from diffcodec_tpu_torch.cli import train_controlnet
+    return train_controlnet.parse_args([
+        "--index_file", "synthetic", "--output_dir", run,
+        "--resolution", str(RES), "--train_batch_size", str(TRAIN_BATCH),
+        "--learning_rate", "1e-5", "--mixed_precision", "bf16",
+        "--checkpointing_steps", "2", "--validation_steps", "2",
+        "--log_every", "1", "--device", "cuda", "--seed", "0", *extra])
+
+
+def train_cli(gen, workdir: str, train_samples_per_s: float) -> tuple:
+    """`cli.train_controlnet`'s `build_trainer` and `train` at SD-1.5
+    width on the card (its defaults from `--seed`: the UNet, the fused
+    VAE, the CLIP tower and the ControlNet), fed a synthetic batch of 8
+    at 512 px through `batches` (no PIL on this machine): AdamW 1e-5,
+    bf16 over fp32 masters; checkpoints and validation every 2 steps, 3
+    steps; then `--resume_from_checkpoint latest` to step 4, against the
+    same step taken by the uninterrupted trainer; then `--latent_cache_dir`
+    over 16 samples and one step from the cache.  Returns the line's
+    fields and the checkpoint-2 masters (for `export`)."""
+    import logging
+
+    from diffcodec_tpu_torch.cli import train_controlnet
+    from diffcodec_tpu_torch.cli.train_distill import step_generator
+    from diffcodec_tpu_torch.train.latent_cache import (
+        LatentCachedDataset, precompute_latent_moments)
+    from diffcodec_tpu_torch.train.dataset import iter_dataset_batches
+    from diffcodec_tpu_torch.train.validation import to_uint8
+
+    logger = logging.getLogger("chip_smoke.train_cli")
+    run = os.path.join(workdir, "controlnet_run")
+    args = _train_cli_args(run, "--max_train_steps", str(TRAIN_CLI_STEPS))
+    torch.cuda.reset_peak_memory_stats()
+    (trainer, state, text_encoder, tokenizer), build_s = timed(
+        lambda: train_controlnet.build_trainer(args, logger))
+
+    @torch.no_grad()
+    def embed_text(texts):
+        return text_encoder(torch.from_numpy(tokenizer(list(texts)))
+                            .cuda())
+
+    raw = _cli_batch(gen, TRAIN_BATCH, RES, embed_text)
+    val_batch = _cli_batch(gen, VAL_BATCH, RES, embed_text)
+    validate = train_controlnet.make_validator(args, trainer, val_batch)
+    rec, validated, undo = _instrumented(trainer, validate)
+    try:
+        state, train_s = timed(lambda: train_controlnet.train(
+            args, trainer, state, lambda: [raw], embed_text, logger,
+            validated))
+    finally:
+        undo()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    batch = train_controlnet.device_batch(raw, torch.bfloat16, "cuda")
+    with_grad = attention_needing_grad(trainer, rec["launches"][1],
+                                       batch["text_embeds"])
+
+    # the 8 panels of step 2 against the pipeline's images
+    images = to_uint8(rec["images"][0].float().cpu().numpy())
+    panels = sorted(os.listdir(os.path.join(run, "validation")))
+    panel_mismatch = []
+    for b, name in enumerate(panels):
+        px = png_pixels(os.path.join(run, "validation", name))
+        if px.shape != (RES, 4 * RES, 3) or not np.array_equal(
+                px[:, 2 * RES:3 * RES], images[b]):
+            panel_mismatch.append(name)
+
+    # resume: a second trainer from checkpoint-3 against the first one's
+    # fourth step, the same draws (step_generator(seed, 3))
+    a3 = {n: p.clone() for n, p in state.params.items()}
+    args4 = _train_cli_args(run, "--max_train_steps", "4",
+                            "--resume_from_checkpoint", "latest",
+                            "--checkpointing_steps", "0")
+    (resumed, rstate, _, _), resume_build_s = timed(
+        lambda: train_controlnet.build_trainer(args4, logger))
+    restored = dict(
+        step=rstate.step, count=rstate.opt_state["count"],
+        params_differ=sum(not torch.equal(rstate.params[n], p)
+                          for n, p in state.params.items()),
+        moments_differ=sum(
+            not torch.equal(rstate.opt_state[k][n], state.opt_state[k][n])
+            for k in ("mu", "nu") for n in state.params))
+    rstate = train_controlnet.train(args4, resumed, rstate, lambda: [raw],
+                                    embed_text, logger)
+    saved = [s for s, _ in list_checkpoints(run)]
+    disk_free_gb = shutil.disk_usage(run).free / 1e9
+    trainer.train_step(state, batch, step_generator(args.seed, 3, "cuda"))
+    move = torch.cat([(state.params[n] - a3[n]).flatten()
+                      for n in sorted(a3)])
+    apart = torch.cat([(rstate.params[n] - state.params[n]).flatten()
+                       for n in sorted(a3)])
+    resume = dict(restored=restored, steps=[state.step, rstate.step],
+                  counts=[state.opt_state["count"],
+                          rstate.opt_state["count"]],
+                  max_abs_diff=apart.abs().max().item(),
+                  rel_to_step=(apart.norm() / move.norm()).item(),
+                  tol=TRAIN_CLI_RESUME_REL)
+    del resumed, rstate, a3, move, apart
+    torch.cuda.empty_cache()
+
+    # the latent cache: 16 samples encoded by the fused encoder in batches
+    # of 8, against the same batches' moments on the fly; then one step
+    # from the cache
+    cache_dir = os.path.join(workdir, "latent_cache")
+    a, b = (_cli_batch(gen, TRAIN_BATCH, RES, embed_text) for _ in range(2))
+    samples = _Samples({"image": np.concatenate([a["image"], b["image"]]),
+                        "cond": np.concatenate([a["cond"], b["cond"]]),
+                        "flow": np.concatenate([a["flow"], b["flow"]]),
+                        "text": a["text"] + b["text"]})
+    n_cached, cache_s = timed(lambda: precompute_latent_moments(
+        trainer.vae, samples, cache_dir, batch_size=TRAIN_BATCH))
+    cached = LatentCachedDataset(samples, cache_dir)
+    cache_err = 0.0
+    for s0 in range(0, n_cached, TRAIN_BATCH):
+        idx = range(s0, s0 + TRAIN_BATCH)
+        imgs = torch.from_numpy(np.stack([samples[i]["image"]
+                                          for i in idx])).cuda()
+        want = torch.cat(trainer.moments({"image": imgs}), dim=-1).float()
+        got = torch.from_numpy(np.stack([cached[i]["latent_moments"]
+                                         for i in idx])).cuda()
+        cache_err = max(cache_err, compare(
+            "latent cache", got, want,
+            LATENT_CACHE_ULP * want.abs().max().item(), LATENT_CACHE_ULP))
+    cache_batch = next(iter_dataset_batches(cached, TRAIN_BATCH,
+                                            text_encoder=embed_text,
+                                            shuffle=False))
+    step_batch = train_controlnet.device_batch(cache_batch, torch.bfloat16,
+                                               "cuda")
+    _, cached_s, cached_launches = counted(lambda: trainer.train_step(
+        state, step_batch, step_generator(args.seed, state.step, "cuda")))
+
+    saves = [dict(step=r["step"], s=r["s"], gb=r["bytes"] / 1e9,
+                  gb_per_s=r["bytes"] / 1e9 / r["s"]) for r in rec["saves"]]
+    out = dict(batch=TRAIN_BATCH, res=RES, steps=TRAIN_CLI_STEPS,
+               build_s=build_s, train_s=train_s, step_s=rec["step_s"],
+               samples_per_s=TRAIN_BATCH / statistics.median(rec["step_s"]),
+               train_phase_samples_per_s=train_samples_per_s,
+               validation_s=rec["val_s"], checkpoints=saved, saves=saves,
+               disk_free_gb=disk_free_gb,
+               peak_mem_gib=peak, launches=rec["launches"],
+               attention_launches_needing_grad=with_grad,
+               validation_launches=rec["val_launches"],
+               panels=len(panels), panel_mismatch=panel_mismatch,
+               resume_build_s=resume_build_s, resume=resume,
+               latent_cache=dict(samples=n_cached, s=cache_s,
+                                 max_abs_err=cache_err,
+                                 tol_ulp=LATENT_CACHE_ULP,
+                                 step_s=cached_s,
+                                 step_launches=cached_launches))
+    log("train_cli", **out)
+    if saved != [2, 3, 4] or state.step != 5:
+        raise AssertionError(f"train_cli: checkpoints {saved}, step "
+                             f"{state.step}")
+    for i, n in enumerate(rec["launches"]):
+        check_launches(f"train_cli step {i + 1}", n, {
+            **ENCODER_LAUNCHES, "splat_sum": None, "upsample_conv3x3": 0,
+            "conv3x3_head": 0, "silu_conv3x3": 0,
+            "attention_bwd": with_grad})
+    if len(rec["val_launches"]) != 1:
+        raise AssertionError(f"train_cli: {len(rec['val_launches'])} "
+                             "validations, expected 1 (step 2)")
+    check_launches("train_cli validation", rec["val_launches"][0], {
+        "attention": VAL_STEPS * 46, "splat_sum": 8, "silu_conv3x3": 0,
+        **FUSED_VAE_LAUNCHES, **NO_TRAIN_KERNELS})
+    if len(panels) != VAL_BATCH or panel_mismatch:
+        raise AssertionError(f"train_cli: panels {panels}, mismatching "
+                             f"{panel_mismatch}")
+    if (restored["step"] != 3 or restored["count"] != 3
+            or restored["params_differ"] or restored["moments_differ"]):
+        raise AssertionError(f"train_cli: the resumed state is not the "
+                             f"saved one: {restored}")
+    if (resume["steps"] != [4, 4] or resume["counts"] != [4, 4]
+            or not resume["rel_to_step"] <= TRAIN_CLI_RESUME_REL):
+        raise AssertionError(f"train_cli: the resumed step 4 parts from "
+                             f"the uninterrupted one: {resume}")
+    check_launches("train_cli cached step", cached_launches, {
+        "gn_silu_conv3x3": 0, "downsample_conv3x3": 0, "attention": None,
+        "attention_bwd": with_grad, "splat_sum": None})
+    masters2 = rec["masters2"]
+    del trainer, state, text_encoder, rec
+    torch.cuda.empty_cache()
+    return out, run, masters2
+
+
+def export(run: str, masters2: dict, distill_run: str, distill_state,
+           workdir: str) -> dict:
+    """`cli.export_checkpoint` on `train_cli`'s checkpoint-2 (SD-1.5
+    width), loaded by `models.weights.load_sd_checkpoint_dir` into a fresh
+    DualFlowControlNet on the card: every tensor the step-2 fp32 masters,
+    bit for bit; then `--distilled` on `distill_cli`'s tiny checkpoint-2:
+    both files the EMA's tensors, bit for bit."""
+    from diffcodec_tpu_torch.cli import export_checkpoint
+    from diffcodec_tpu_torch.train.checkpoint import restore_checkpoint
+    from diffcodec_tpu_torch.utils.safetensors_io import load_file
+
+    path = os.path.join(workdir, "controlnet.safetensors")
+    _, write_s = timed(lambda: export_checkpoint.main(
+        ["--checkpoint_dir", run, "--step", "2", "--out", path]))
+    nbytes = os.path.getsize(path)
+    unet_cfg = UNetConfig()
+    with torch.device("cuda"):
+        fresh = DualFlowControlNet(ControlNetConfig(unet=unet_cfg))
+    _, read_s = timed(lambda: checkpoints.load_sd_checkpoint_dir(
+        workdir, {"controlnet": fresh}, controlnet_path=path))
+    own = dict(fresh.named_parameters())
+    differ = [n for n, p in own.items()
+              if not torch.equal(p.cpu(), masters2[n])]
+    missing = sorted(set(masters2) ^ set(own))
+
+    out_dir = os.path.join(workdir, "student_export")
+    export_checkpoint.main(["--distilled", "--tiny", "--checkpoint_dir",
+                            distill_run, "--step", "2", "--out", out_dir])
+    saved, _ = restore_checkpoint(distill_run, 2)
+    files = sorted(os.listdir(out_dir))
+    student_differ = []
+    for name in ("controlnet", "unet"):
+        sd = load_file(os.path.join(out_dir, f"{name}.safetensors"))
+        ema = {n[len(name) + 1:]: t for n, t in saved["ema_params"].items()
+               if n.startswith(name + ".")}
+        if set(sd) != set(ema):
+            student_differ.append(f"{name}: names")
+        student_differ += [f"{name}.{n}" for n, t in sd.items()
+                           if n in ema and not (
+                               torch.equal(t, ema[n]) and torch.equal(
+                                   t, distill_state.ema_params[
+                                       f"{name}.{n}"].cpu()))]
+    out = dict(tensors=len(own), bytes=nbytes, write_s=write_s,
+               write_gb_per_s=nbytes / 1e9 / write_s, read_s=read_s,
+               read_gb_per_s=nbytes / 1e9 / read_s, differ=len(differ),
+               missing=missing, student_files=files,
+               student_differ=student_differ)
+    log("export", **out)
+    if differ or missing or student_differ or files != [
+            "controlnet.safetensors", "unet.safetensors"]:
+        raise AssertionError(f"export: {out}")
+    return out
+
+
+def approx_drift(workdir: str) -> tuple:
+    """`cli.approx_drift` at its defaults (512 px, 30 steps, batch 7, CFG
+    3.5, FreeU, bf16, SD-1.5 width), its JSON into `workdir`: each mode's
+    seconds, frames/s and kernel launches (its `run_mode` wrapped here),
+    the drift of each cached mode against exact; the ControlNet and
+    UNet-encoder calls and the attention launches asserted from (ci, ei)
+    and the 30 steps, 8 splats a decode, the VAE on cuDNN."""
+    from diffcodec_tpu_torch.cli import approx_drift as drift_cli
+
+    run_mode, launches = drift_cli.run_mode, []
+
+    def counted_mode(*a, **kw):
+        result, _, n = counted(lambda: run_mode(*a, **kw))
+        launches.append(n)
+        return result
+
+    drift_cli.run_mode = counted_mode
+    try:
+        record, runs = drift_cli.main(
+            ["--out", os.path.join(workdir, "approx_drift.json")])
+    finally:
+        drift_cli.run_mode = run_mode
+    modes = {}
+    for (name, ci, ei), n in zip(drift_cli.MODES, launches):
+        r = runs[name]
+        modes[name] = dict(seconds=r["seconds"],
+                           frames_per_s=r["frames_per_s"], calls=r["calls"],
+                           launches=n, **record["modes"][name])
+    out = dict(operating_point=record["operating_point"], modes=modes)
+    log("approx_drift", **out)
+    for (name, ci, ei), n in zip(drift_cli.MODES, launches):
+        cn, enc = -(-STEPS // ci), -(-STEPS // ei)
+        if modes[name]["calls"] != {"controlnet": cn, "unet_encoder": enc}:
+            raise AssertionError(f"approx_drift {name}: calls "
+                                 f"{modes[name]['calls']}, expected "
+                                 f"{cn}, {enc}")
+        # attention: the ControlNet's 14 a call, the UNet's down path's 12
+        # an encoder call, its mid block's and up path's 20 every step
+        check_launches(f"approx_drift {name}", n, {
+            "attention": 14 * cn + 12 * enc + 20 * STEPS, "splat_sum": 8,
+            "gn_silu_conv3x3": 0, "conv3x3_head": 0, "upsample_conv3x3": 0,
+            "silu_conv3x3": 0, **NO_TRAIN_KERNELS})
+    exact = record["modes"]["exact"]
+    if exact["latent_mse"] != 0.0 or any(
+            not math.isfinite(m["latent_rel_rms"])
+            for k, m in record["modes"].items() if k != "exact"):
+        raise AssertionError(f"approx_drift: {record['modes']}")
+    return out, launches[0]
+
 
 
 def summary(rows, paths, name, source, replaces, main_path, **extra):
@@ -2781,7 +3246,18 @@ def main() -> int:
     distilled_decode = distill_decode(ema_params, gen)
     del ema_params
     torch.cuda.empty_cache()
-    distill_reference()
+    with tempfile.TemporaryDirectory() as work:
+        distill_run, distill_state = distill_reference(work)
+        torch.cuda.empty_cache()
+        rows += check_validation_kernels(gen)
+        torch.cuda.empty_cache()
+        cli_out, run, masters2 = train_cli(gen, work,
+                                           trained["samples_per_s"])
+        export(run, masters2, distill_run, distill_state, work)
+        del masters2, distill_state
+        torch.cuda.empty_cache()
+        _, drift_launches = approx_drift(work)
+        torch.cuda.empty_cache()
 
     paths = {"decode": dec["launches"],
              "decode_fusedconv": fused_out["launches"],
@@ -2793,7 +3269,10 @@ def main() -> int:
              "train_residual": residual["launches"],
              "residual_ddpm": ddpm["launches"],
              "distill": distilled_train["launches"],
-             "distill_decode": distilled_decode["launches"]}
+             "distill_decode": distilled_decode["launches"],
+             "train_cli": cli_out["launches"][1],
+             "train_cli_validation": cli_out["validation_launches"][0],
+             "approx_drift": drift_launches}
     cu = "diffcodec_tpu_torch/csrc/"
     flash = "jax/experimental/pallas/ops/tpu/flash_attention.py"
     kernels = [

@@ -26,6 +26,7 @@ import torch
 import torch.nn.functional as F
 
 _MSSSIM_WEIGHTS = (0.0448, 0.2856, 0.3001, 0.2363, 0.1333)
+_SSIM_SIZE = 11  # the Gaussian's taps
 
 
 def require_fp32_on(model: torch.nn.Module, device) -> torch.device:
@@ -72,7 +73,7 @@ def _blur(x: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
     return F.conv2d(x, kernel.view(1, 1, k, 1).expand(C, 1, k, 1), groups=C)
 
 
-def _ssim_components(a, b, data_range, size=11, sigma=1.5, k1=0.01,
+def _ssim_components(a, b, data_range, size=_SSIM_SIZE, sigma=1.5, k1=0.01,
                      k2=0.03):
     """(SSIM map, cs map) of NCHW fp32 pairs."""
     kernel = _gaussian_kernel(size, sigma, a.device)
@@ -112,11 +113,14 @@ def _avg_pool2(x: torch.Tensor, pad_h: int, pad_w: int) -> torch.Tensor:
 def ms_ssim(a: torch.Tensor, b: torch.Tensor, data_range: float = 255.0,
             weights: Sequence[float] = _MSSSIM_WEIGHTS) -> torch.Tensor:
     """Multi-scale SSIM of [B, H, W, C] pairs -> [B] (H and W >= 161 for
-    the 5 scales)."""
+    the 5 scales; NaN below, where a scale is smaller than the blur and
+    JAX's valid-mode filter leaves an empty map, whose mean is NaN)."""
     a, b = _nchw(a), _nchw(b)
     levels = len(weights)
     values = []
     for i in range(levels):
+        if min(a.shape[2], a.shape[3]) < _SSIM_SIZE:
+            return torch.full(a.shape[:1], float("nan"), device=a.device)
         ssim_map, cs_map = _ssim_components(a, b, data_range)
         if i < levels - 1:
             values.append(cs_map.mean(dim=(2, 3)).clamp_min(0.0))

@@ -39,7 +39,8 @@ from diffcodec_tpu_torch.config import DistillConfig
 from diffcodec_tpu_torch.models.vae import AutoencoderKL
 from diffcodec_tpu_torch.sampling.schedulers import NoiseSchedule, cfg_combine
 from diffcodec_tpu_torch.train import checkpoint as ckpt
-from diffcodec_tpu_torch.train.trainer import Optimizer, Params
+from diffcodec_tpu_torch.train.trainer import (Optimizer, Params, copy_into,
+                                               load_opt_state)
 
 
 def boundary_scalings(timesteps, sigma_data: float = 0.5,
@@ -113,22 +114,10 @@ class DistillState:
         """Copy a saved state into this one's tensors (their devices and
         dtypes); the names must match."""
         for key in ("params", "ema_params"):
-            _copy_into(getattr(self, key), saved[key], key)
-        for key, value in self.opt_state.items():  # moments and counters
-            if isinstance(value, dict):
-                _copy_into(value, saved["opt_state"][key], key)
-            else:
-                self.opt_state[key] = int(saved["opt_state"][key])
+            copy_into(getattr(self, key), saved[key], key)
+        load_opt_state(self.opt_state, saved["opt_state"])
         self.step = int(saved["step"])
         return self
-
-
-def _copy_into(dst: Params, src: Params, what: str):
-    if set(dst) != set(src):
-        raise KeyError(f"{what}: names differ: "
-                       f"{sorted(set(dst) ^ set(src))[:5]}")
-    for n, t in dst.items():
-        t.copy_(src[n])
 
 
 def save_distill_checkpoint(ckpt_dir: str, state: DistillState,
@@ -157,7 +146,7 @@ def load_student(unet: nn.Module, controlnet: nn.Module,
     decode CLIs use them) into a UNet and its ControlNet, cast to their
     dtypes on their devices; every parameter of both must be given."""
     own = dict(denoiser(unet, controlnet).named_parameters())
-    _copy_into(own, params, "student")
+    copy_into(own, params, "student")
 
 
 @dataclasses.dataclass(eq=False)

@@ -175,6 +175,40 @@ class TrainState:
         self.step += 1
         return self
 
+    def state_dict(self) -> Dict[str, Any]:
+        return {"step": self.step, "params": self.params,
+                "opt_state": self.opt_state}
+
+    @torch.no_grad()
+    def load_state_dict(self, saved: Dict[str, Any]) -> "TrainState":
+        """Copy a saved state into this one's tensors (their devices and
+        dtypes); the names must match."""
+        copy_into(self.params, saved["params"], "params")
+        load_opt_state(self.opt_state, saved["opt_state"])
+        self.step = int(saved["step"])
+        return self
+
+
+@torch.no_grad()
+def copy_into(dst: Params, src: Params, what: str):
+    """Copy each tensor of `src` into `dst`'s of the same name, which must
+    be the same names."""
+    if set(dst) != set(src):
+        raise KeyError(f"{what}: names differ: "
+                       f"{sorted(set(dst) ^ set(src))[:5]}")
+    for n, t in dst.items():
+        t.copy_(src[n])
+
+
+def load_opt_state(opt_state: Dict[str, Any], saved: Dict[str, Any]):
+    """Copy a saved `Optimizer` state into `opt_state`: its moments (and
+    accumulated gradients) tensor by tensor, its counters as ints."""
+    for key, value in opt_state.items():
+        if isinstance(value, dict):
+            copy_into(value, saved[key], key)
+        else:
+            opt_state[key] = int(saved[key])
+
 
 @dataclasses.dataclass(eq=False)
 class ControlNetTrainer:

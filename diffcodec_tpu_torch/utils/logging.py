@@ -4,10 +4,11 @@ Counterpart: `diffcodec_tpu/utils/logging.py` (`create_logger`,
 `AverageMeter`, `StepTimer`, `MetricsLogger`; the reference's
 `cmp/utils/common_utils.py:8-60` and `train_controlnet.py:762-774`).  The
 metrics go to stdout lines, as there; wandb is optional and falls back to
-a no-op with a notice where the package is missing.  The JAX package's
-TensorBoard sink (`flax.metrics.tensorboard`), its `jax.profiler` trace
-and its image panels (the ControlNet trainer's validation, not ported
-yet) have no counterpart: the port takes no new sink.
+a no-op with a notice where the package is missing, and so do the
+validation panels (`log_image`), which `train/validation.py` also writes
+as PNG files.  The JAX package's TensorBoard sink
+(`flax.metrics.tensorboard`) and its `jax.profiler` trace have no
+counterpart: the port takes no new sink.
 """
 
 from __future__ import annotations
@@ -120,3 +121,10 @@ class MetricsLogger:
             self.wandb.log({k: float(v) for k, v in metrics.items()},
                            step=step)
 
+    def log_image(self, tag: str, image, step: int):
+        """An HWC uint8 image panel to wandb where it is on (the
+        reference's validation image grids, train_controlnet.py:222-248);
+        else nothing: the panel's PNG file is the record."""
+        if self.wandb is not None:
+            import wandb
+            self.wandb.log({tag: wandb.Image(image)}, step=step)

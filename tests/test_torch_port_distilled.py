@@ -1,8 +1,8 @@
 """The port's K-step distilled decoder (`DistilledPipeline`) and its helpers
 against the JAX package, on the CPU.
 
-The helpers are held exactly (c_out to 1 ulp, for the reason given at
-its check).  The whole decode runs the tiny models on the
+The helpers are held exactly (c_out, in both packages, to a few ulps of
+its float64 value, for the reason given at its check).  The whole decode runs the tiny models on the
 same seeded weights, conditioning and initial latents on both sides; the
 K - 1 re-noises are JAX's own draws, made by repeating the key splits of
 `DistilledPipeline.sample` (`distilled.py:96`, `:83-85`), and handed to
@@ -47,12 +47,24 @@ def test_boundary_scalings_match_jax():
     got = tdistill.boundary_scalings(torch.from_numpy(ts), 0.5, 10.0)
     assert all(g.dtype == torch.float32 for g in got)
     np.testing.assert_array_equal(got[0].numpy(), np.asarray(want[0]))
-    # c_out = s / sqrt(s^2 + 0.25): the port's square root is IEEE's,
-    # correctly rounded; XLA's CPU square root is not (and under jit XLA
-    # turns the division into a product with an rsqrt), so 5 of these
-    # 1000 values differ by 1 ulp (2^-23 relative), none by more
-    np.testing.assert_allclose(got[1].numpy(), np.asarray(want[1]),
-                               rtol=2.0 ** -23, atol=0)
+    # c_out = s / sqrt(s^2 + 0.25), three fp32 roundings (the sum, the
+    # square root, the quotient; XLA may turn the quotient into a product
+    # with an rsqrt).  Both packages' CPU square roots and divisions are
+    # vectorised, and how they round depends on the host's build: against
+    # each other the two differed at 5 of these 1000 values by 1 ulp on
+    # one host and at 155 by up to 2 ulps on another.  So each is held to
+    # the float64 value rounded to fp32, in ulps of that value: the port
+    # read 2 ulps at most on one host (torch 2.13.0+cpu) and 1 on the card
+    # machine's CPU (torch 2.11.0+cu128), JAX 1 ulp (the card's machine
+    # has no JAX)
+    s = ts.astype(np.float32) * np.float32(0.01)
+    assert np.array_equal(s, (torch.from_numpy(ts).float() * 0.01).numpy())
+    exact = s.astype(np.float64) / np.sqrt(s.astype(np.float64) ** 2 + 0.25)
+    exact = exact.astype(np.float32)
+    for c_out, ulps in ((got[1].numpy(), 2), (np.asarray(want[1]), 1)):
+        err = (np.abs(c_out.astype(np.float64) - exact)
+               / np.spacing(exact))
+        assert err.max() <= ulps, err.max()
     c_skip, c_out = tdistill.boundary_scalings(0)
     assert float(c_skip) == 1.0 and float(c_out) == 0.0
 

@@ -93,6 +93,25 @@ def test_image_metrics_match_jax(fn, dtype):
         np.testing.assert_allclose(got, want, **SSIM_TOL)
 
 
+@pytest.mark.parametrize("size", [(64, 64), (160, 200), (161, 161)])
+def test_ms_ssim_below_its_scales_is_jaxs(size):
+    """Below 161 px a scale of the 11-tap blur is empty: NaN, as JAX's
+    valid-mode filter gives (the codec's metrics on small frames then
+    report MS-SSIM NaN, not an error); from 161 px both compute it."""
+    a, b = (f[:, :size[0], :size[1]] for f in _pair("uint8"))
+    want = np.asarray(jm.ms_ssim(jnp.asarray(a, jnp.float32),
+                                 jnp.asarray(b, jnp.float32)))
+    got = metrics.ms_ssim(torch.from_numpy(a), torch.from_numpy(b)).numpy()
+    assert got.shape == want.shape == (3,)
+    if min(size) < 161:
+        assert np.isnan(want).all() and np.isnan(got).all()
+        summary = metrics.calculate_metrics_batch(a, b, device="cpu")
+        assert np.isnan(summary["ms_ssim"]) and np.isnan(
+            jm.calculate_metrics_batch(a, b)["ms_ssim"])
+    else:
+        np.testing.assert_allclose(got, want, **SSIM_TOL)
+
+
 def test_psnr_of_identical_frames_is_inf():
     a = torch.from_numpy(_frames(2))
     assert torch.isinf(metrics.psnr(a, a)).all()

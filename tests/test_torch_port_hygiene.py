@@ -8,8 +8,9 @@ refuses those modules, then imports every module of `diffcodec_tpu_torch`
 residual stage's and the CLIP tokenizer's; the checkpoint loaders, the
 evaluation layer, whose plots import matplotlib inside functions, the
 distillation trainer, the dataset loader (PIL inside its image read), the
-prefetcher, the metrics logger and the CLIs, the training ones among
-them), `chip_smoke` and the port's
+prefetcher, the metrics logger, the PNG writer, the in-training
+validation and the CLIs, the training, export, drift, weights-day and
+figure ones among them), `chip_smoke` and the port's
 scripts, `scripts/profile_torch_decode.py` (which also profiles the
 residual training points), `scripts/conv_kernel_breakdown.py`,
 `scripts/conv_kernel_ab.py`, `scripts/attention_bwd_ab.py`,
@@ -85,7 +86,9 @@ def test_port_and_chip_smoke_import_without_jax():
                  "cli.run_codec", "cli.rd_sweep", "train.distill",
                  "train.dataset", "train.prefetch", "utils.logging",
                  "cli.train_distill", "cli.train_residual",
-                 "cli.distill_eval"):
+                 "cli.distill_eval", "utils.png_io", "train.validation",
+                 "cli.train_controlnet", "cli.export_checkpoint",
+                 "cli.approx_drift", "cli.weights_day", "cli.make_figures"):
         assert f"diffcodec_tpu_torch.{name}" in proc.stdout.split(), name
 
 
