@@ -204,6 +204,26 @@ Phases, each printed as one JSON line with the elapsed seconds `t`:
              latent rel-RMS and PSNR against exact; the ControlNet and
              UNet-encoder calls and the attention launches asserted from
              the intervals and the 30 steps
+  cmp_train  the CMP trainer (`train.cmp_train`, `train.cmp_config`) at
+             the reference's shipped config (resnet50 + skip, 198 logits,
+             batch 8 at 384 px, SGD 0.1 / 0.9 / 1e-4, seeded weights,
+             synthetic batches sampled as `cli.train_cmp` samples them):
+             samples/s of the median of 5 steps, peak memory, launches (0:
+             cuDNN runs it, as XLA ran it); one timed step each of
+             alexnet_fcn_32x + plain (1,) at batch 12, resnet50 + plain
+             (1, 2, 4) and resnet50 + flownet; `quantize_flow`'s bins on
+             the card against the CPU's over a sweep with every bin edge;
+             one step at 128 px on the card (TF32 off, then on) against
+             the CPU; `cli.train_cmp` from the config as JSON (saved,
+             resumed bit-identically, its counter continued)
+  mesh       this script again under torchrun as a one-rank NCCL group
+             (`--mesh-worker`): `parallel.mesh.make_mesh` (1 x 1),
+             `ControlNetTrainer.shard_state` and one full-width step (batch
+             8, 512 px) against the unsharded step on the same draws (to
+             5% of the step's move), `train_controlnet --fsdp 1` through
+             the mesh path on synthetic batches, and the dry run's five
+             paths (`parallel.dryrun`, tiny models, bf16); each path's
+             launches
 Then a {"kernels": [...]} line, the `nvidia-smi` name and power limit, and
 last {"ok": true, "device": {...}}.  Any failure raises and exits non-zero.
 """
@@ -249,6 +269,7 @@ from diffcodec_tpu_torch.ops.attention import (attention, attention_backward,
                                                attention_bwd,
                                                attention_forward,
                                                attention_reference)
+from diffcodec_tpu_torch.ops.launches import count_launches
 from diffcodec_tpu_torch.ops.softsplat import splat_sum, splat_sum_reference
 from diffcodec_tpu_torch.ops.tiling import merge_tiles
 from diffcodec_tpu_torch.models.clip_text import CLIPTextEncoder
@@ -266,7 +287,12 @@ from diffcodec_tpu_torch.sampling.pipeline import DualFlowPipeline
 from diffcodec_tpu_torch.sampling.schedulers import NoiseSchedule, ddpm_step
 from diffcodec_tpu_torch.sampling.tiled import (_crop_batch, sample_tiled,
                                                 tile_grid, unit_from_uint8)
-from diffcodec_tpu_torch.train.checkpoint import list_checkpoints
+from diffcodec_tpu_torch.cli import train_cmp
+from diffcodec_tpu_torch.codec.sparse_flow import flow_sampler
+from diffcodec_tpu_torch.train import cmp_config
+from diffcodec_tpu_torch.train import cmp_train as cmp_train_mod
+from diffcodec_tpu_torch.train.checkpoint import (list_checkpoints,
+                                                  restore_checkpoint)
 from diffcodec_tpu_torch.train.distill import (ConsistencyDistiller,
                                                denoiser, load_student)
 from diffcodec_tpu_torch.train.lpips import LPIPS, make_lpips_fn
@@ -515,6 +541,59 @@ TRAIN_CLI_RESUME_REL = 0.05
 # so anything past one bf16 ulp (2^-8 of the value and of the largest)
 # would be another computation
 LATENT_CACHE_ULP = 2.0 ** -8
+# the CMP trainer at the reference's shipped config
+# (cmp/experiments/semiauto_annot/resnet50_vip+mpii_liteflow/config.yaml):
+# resnet50 + skip, 198 logits, batch 8 at 384 px, SGD 0.1, momentum 0.9,
+# weight decay 1e-4; the first of CMP_TRAIN_STEPS steps is the warm-up
+CMP_SHIPPED = {
+    "model": {"arch": "CMP", "total_iter": 42000,
+              "lr_steps": [24000, 36000], "lr_mults": [0.1, 0.1], "lr": 0.1,
+              "optim": "SGD", "warmup_lr": [], "warmup_steps": [],
+              "module": {"arch": "CMP", "image_encoder": "resnet50",
+                         "sparse_encoder": "shallownet8x",
+                         "flow_decoder": "MotionDecoderSkipLayer",
+                         "skip_layer": True, "img_enc_dim": 256,
+                         "sparse_enc_dim": 16, "output_dim": 198,
+                         "decoder_combo": [1, 2, 4],
+                         "pretrained_image_encoder": False,
+                         "flow_criterion": "DiscreteLoss", "nbins": 99,
+                         "fmax": 50}},
+    "data": {"workers": 2, "batch_size": 8, "short_size": 416,
+             "crop_size": [384, 384],
+             "sample_strategy": ["grid", "watershed"],
+             "sample_bg_ratio": 5.74e-5, "nms_ks": 41, "max_num_guide": -1},
+    "trainer": {"initial_val": True, "print_freq": 100, "val_freq": 5000,
+                "save_freq": 5000, "loss_record": ["loss_flow"],
+                "tensorboard": True}}
+CMP_TRAIN_STEPS = 6
+# the other variants, one timed step each at full width: (module keys,
+# batch); the rep_learning AlexNet config trains batches of 12
+CMP_VARIANTS = {
+    "alexnet_fcn_32x_plain": ({"image_encoder": "alexnet_fcn_32x",
+                               "sparse_encoder": "shallownet32x",
+                               "flow_decoder": "MotionDecoderPlain",
+                               "skip_layer": False,
+                               "decoder_combo": [1]}, 12),
+    "resnet50_plain": ({"flow_decoder": "MotionDecoderPlain",
+                        "skip_layer": False}, 8),
+    "resnet50_flownet": ({"flow_decoder": "MotionDecoderFlowNet"}, 8)}
+# the card's step against the CPU's at 128 px (batch 8): the loss, and
+# the running statistics' and the parameters' distance from the CPU's
+# relative to the CPU step's move of them.  fp32 training gradients of a
+# random CMP are ill-conditioned: each package's sits 3-8% from the
+# float64 gradient on the CPU (tests/test_torch_port_cmp_train.py).  Read
+# on an H100 80GB HBM3 at 700 W with cuDNN's TF32 off: 1.0e-7, 2.1e-6 and
+# 0.031; with it on (how the card runs): 2.8e-4, 1.0e-3 and 0.84.  Each
+# limit sits between the two; the TF32-off step is held to them
+CMP_REF_CROP = 128
+CMP_TRAIN_TOL = dict(loss_rel=1e-5, stats_rel_move=1e-4, params_rel_move=0.2)
+# the mesh: a one-rank NCCL group's sharded step against the unsharded
+# one from the same state, both on the card (the splat's and dQ's fp32
+# atomics), as train_cli holds resume.  At the first step from fresh
+# moments the two read 0.057 apart (every element moves by +-lr there, so
+# a gradient's sign flipped near 0 counts fully); hence step 2
+MESH_STEP_REL = 0.05
+MESH_TIMEOUT_S = 900
 
 
 def compare(label: str, got, want, atol: float, rtol: float) -> float:
@@ -816,18 +895,8 @@ def timed(fn):
 
 def counted(fn):
     """(fn(), seconds, launches of each kernel in that call)."""
-    counters = {"attention": attention,
-                "attention_bwd": attention_bwd,
-                "splat_sum": splat_sum,
-                "gn_silu_conv3x3": conv.gn_silu_conv3x3,
-                "conv3x3_head": conv.projected_head,
-                "silu_conv3x3": conv.silu_conv3x3,
-                "upsample_conv3x3": conv.upsample_conv3x3,
-                "downsample_conv3x3": conv.downsample_conv3x3}
-    for c in counters.values():
-        c.launches = 0
-    result, seconds = timed(fn)
-    return result, seconds, {k: c.launches for k, c in counters.items()}
+    (result, launches), seconds = timed(lambda: count_launches(fn))
+    return result, seconds, launches
 
 
 def check_images(label, images, frames=FRAMES, res=RES):
@@ -3168,6 +3237,375 @@ def approx_drift(workdir: str) -> tuple:
 
 
 
+def _cmp_cfg(module=None, data=None):
+    """The shipped CMP config (`CMP_SHIPPED`) with `module` and `data`
+    keys replaced, parsed by `train.cmp_config`."""
+    raw = json.loads(json.dumps(CMP_SHIPPED))
+    raw["model"]["module"].update(module or {})
+    raw["data"].update(data or {})
+    return cmp_config.parse_cmp_config(raw)
+
+
+def _cmp_batch(cfg, n: int, crop: int, seed: int) -> dict:
+    """n synthetic samples as `cli.train_cmp` makes them (its bank and
+    the config's sparse sampler), numpy."""
+    rng = np.random.default_rng(seed)
+    imgs, flows = train_cmp._synthetic_bank(n, crop, rng)
+
+    def sample_sparse(flow):
+        sparse, mask = flow_sampler(
+            flow, strategy=tuple(cfg.data.sample_strategy),
+            bg_ratio=cfg.data.sample_bg_ratio, nms_ks=cfg.data.nms_ks,
+            max_num_guide=cfg.data.max_num_guide, rng=rng)
+        return np.concatenate([sparse, mask[..., :2].astype(np.float32)],
+                              axis=-1)
+
+    return train_cmp.make_batch(imgs, flows, np.arange(n), sample_sparse)
+
+
+def _cmp_steps(cfg, batch, steps: int, device="cuda"):
+    """`steps` training steps of the config's CMP (from seed 0) on one
+    batch: (the trainer, step seconds, the losses, the launches of the
+    second step)."""
+    trainer = train_cmp.build(cfg, 0, device)
+    b = {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
+    step_s, losses, launches = [], [], None
+    for i in range(steps):
+        def step():
+            return trainer.train_step(b, torch.Generator(
+                device=device).manual_seed(i)).item()
+        if i == 1:
+            loss, s, launches = counted(step)
+        else:
+            loss, s = timed(step)
+        step_s.append(s)
+        losses.append(loss)
+    return trainer, step_s, losses, launches
+
+
+def _cmp_reference(cfg) -> dict:
+    """One step of the shipped config at CMP_REF_CROP from the same
+    weights and batch: on the CPU, on the card with cuDNN's TF32 off (the
+    reading held to CMP_TRAIN_TOL) and on the card as it runs (TF32
+    convs).  Each reading: the loss's relative difference, the running
+    statistics' and the parameters' distance from the CPU's, relative to
+    the CPU step's move of them."""
+    batch = _cmp_batch(cfg, cfg.data.batch_size, CMP_REF_CROP, 7)
+    cpu = train_cmp.build(cfg, 0, "cpu")
+    p0 = {n: p.detach().clone() for n, p in cpu.params().items()}
+    s0 = {n: b.clone() for n, b in cpu.batch_stats().items()}
+    loss = cpu.train_step({k: torch.from_numpy(v) for k, v in batch.items()}
+                          ).item()
+
+    def rel(got, want, start):
+        num = sum(((got[n].cpu() - want[n]) ** 2).sum() for n in want)
+        den = sum(((want[n] - start[n]) ** 2).sum() for n in want)
+        return (num / den).sqrt().item()
+
+    readings = {}
+    tf32 = torch.backends.cudnn.allow_tf32
+    try:
+        for name, allow in (("fp32", False), ("tf32", True)):
+            torch.backends.cudnn.allow_tf32 = allow
+            card = train_cmp.build(cfg, 0, "cuda")
+            got = card.train_step({k: torch.from_numpy(v).cuda()
+                                   for k, v in batch.items()}).item()
+            readings[name] = dict(
+                loss_rel=abs(got - loss) / abs(loss),
+                stats_rel_move=rel(card.batch_stats(), cpu.batch_stats(),
+                                   s0),
+                params_rel_move=rel(card.params(), cpu.params(), p0))
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    return dict(crop=CMP_REF_CROP, batch=cfg.data.batch_size, loss=loss,
+                **readings)
+
+
+def cmp_train_phase(workdir: str) -> dict:
+    """The CMP trainer on the card: the shipped config at full width
+    (CMP_TRAIN_STEPS steps, samples/s of the median of the last 5, peak
+    memory, launches), the card's step against the CPU's
+    (`_cmp_reference`), `quantize_flow`'s bins against the CPU's, one
+    timed step of each other variant, then `cli.train_cmp` from a JSON
+    config: saved, resumed bit-identically, its counter continued."""
+    cfg = _cmp_cfg()
+    B, crop = cfg.data.batch_size, cfg.data.crop_size[0]
+    batch = _cmp_batch(cfg, B, crop, 3)
+    torch.cuda.reset_peak_memory_stats()
+    trainer, step_s, losses, launches = _cmp_steps(cfg, batch,
+                                                   CMP_TRAIN_STEPS)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    n_params = sum(p.numel() for p in trainer.params().values())
+    del trainer
+    torch.cuda.empty_cache()
+
+    sweep = torch.linspace(-51.0, 51.0, 400001)
+    edges = (torch.arange(100, dtype=torch.float32)
+             * torch.tensor(100 / 99, dtype=torch.float32) - 50.0)
+    sweep = torch.cat([sweep, edges, torch.nextafter(edges, edges + 1),
+                       torch.nextafter(edges, edges - 1)])
+    flow = sweep.reshape(1, 1, -1, 1).repeat(1, 1, 1, 2)
+    bins_differ = int((cmp_train_mod.quantize_flow(flow.cuda()).cpu()
+                       != cmp_train_mod.quantize_flow(flow)).sum())
+
+    variants = {}
+    for name, (module, vb) in CMP_VARIANTS.items():
+        vcfg = _cmp_cfg(module, {"batch_size": vb})
+        vbatch = _cmp_batch(vcfg, vb, crop, 4)
+        tr, vs, vl, vn = _cmp_steps(vcfg, vbatch, 2)
+        variants[name] = dict(batch=vb, crop=crop, step_s=vs[1],
+                              samples_per_s=vb / vs[1], losses=vl,
+                              launches=vn)
+        del tr
+        torch.cuda.empty_cache()
+    reference = _cmp_reference(cfg)
+    cli = _cmp_cli(workdir)
+    out = dict(config="resnet50 + skip, 198 logits", batch=B, crop=crop,
+               params=n_params, steps=CMP_TRAIN_STEPS, step_s=step_s,
+               samples_per_s=B / statistics.median(step_s[1:]),
+               peak_mem_gib=peak, losses=losses, launches=launches,
+               quantize_bins_differ=bins_differ, variants=variants,
+               vs_cpu=reference, tol=CMP_TRAIN_TOL, cli=cli)
+    log("cmp_train", **out)
+    if not all(map(math.isfinite, losses + [
+            x for v in variants.values() for x in v["losses"]])):
+        raise AssertionError("cmp_train: a non-finite loss")
+    for path, n in [("cmp_train", launches)] + [
+            (k, v["launches"]) for k, v in variants.items()]:
+        check_launches(path, n, {k: 0 for k in n})
+    if bins_differ:
+        raise AssertionError(f"cmp_train: {bins_differ} quantize_flow bins "
+                             "differ between the card and the CPU")
+    r = reference["fp32"]
+    if not all(r[k] <= CMP_TRAIN_TOL[k] for k in CMP_TRAIN_TOL):
+        raise AssertionError(f"cmp_train: the card's fp32 step disagrees "
+                             f"with the CPU's: {reference}")
+    return out
+
+
+def _cmp_cli(workdir: str) -> dict:
+    """`cli.train_cmp` from the shipped config written as JSON (no PyYAML
+    on this machine): --synthetic 8 --crop 128 to iter 2 with a
+    checkpoint each step, then --resume latest to iter 3.  Asserts the
+    restored state bit-identical to checkpoint-2 and the counter
+    continued."""
+    import contextlib
+    import io
+
+    from diffcodec_tpu_torch.train.checkpoint import _map_tensors
+
+    run = os.path.join(workdir, "cmp_run")
+    path = os.path.join(workdir, "cmp_config.json")
+    with open(path, "w") as f:
+        json.dump(CMP_SHIPPED, f)
+    common = ["--config", path, "--output_dir", run, "--synthetic", "8",
+              "--crop", "128", "--save_freq", "1", "--device", "cuda"]
+    restored = []
+    load = cmp_train_mod.CMPTrainer.load_state_dict
+
+    def snapshot(state):
+        return {"params": dict(state["params"]),
+                "batch_stats": dict(state["batch_stats"]),
+                "trace": dict(state["opt_state"]["trace"]),
+                "count": state["opt_state"]["count"]}
+
+    def load_and_keep(self, state):
+        load(self, state)
+        restored.append(snapshot(_map_tensors(
+            self.state_dict(), lambda t: t.detach().cpu().clone())))
+        return self
+
+    texts = []
+    for extra in (["--total_iter", "2"],
+                  ["--total_iter", "3", "--resume", "latest"]):
+        out = io.StringIO()
+        cmp_train_mod.CMPTrainer.load_state_dict = load_and_keep
+        try:
+            with contextlib.redirect_stdout(out):
+                train_cmp.main(common + extra)
+        finally:
+            cmp_train_mod.CMPTrainer.load_state_dict = load
+        texts.append(out.getvalue())
+        if extra[-1] == "2":
+            saved = snapshot(restore_checkpoint(run, 2)[0])
+    (state,) = restored
+    differ = [f"{k}.{n}" for k in ("params", "batch_stats", "trace")
+              for n, t in saved[k].items() if not torch.equal(state[k][n], t)]
+    iters = [line.split()[1] for t in texts for line in t.splitlines()
+             if line.startswith("iter ")]
+    out = dict(iters=iters, resumed="resumed from checkpoint-2" in texts[1],
+               restored_count=state["count"], saved_count=saved["count"],
+               restored_differ=len(differ),
+               checkpoints=[s for s, _ in list_checkpoints(run)])
+    if (differ or not out["resumed"] or iters != ["2/2", "3/3"]
+            or state["count"] != 2 or out["checkpoints"] != [1, 2, 3]):
+        raise AssertionError(f"cmp_train cli: {out} {differ[:5]}")
+    return out
+
+
+def mesh_phase() -> dict:
+    """The mesh on the card: this script's `mesh_worker` under torchrun as
+    a one-rank NCCL group on 127.0.0.1 and a free port."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    with tempfile.TemporaryDirectory() as d:
+        out = os.path.join(d, "mesh.json")
+        t = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "torch.distributed.run",
+             "--nproc_per_node=1", "--master_addr=127.0.0.1",
+             f"--master_port={port}", os.path.abspath(__file__),
+             "--mesh-worker", out], capture_output=True, text=True,
+            timeout=MESH_TIMEOUT_S)
+        seconds = time.perf_counter() - t
+        if proc.returncode != 0:
+            raise AssertionError(f"mesh: the worker failed "
+                                 f"({proc.returncode}):\n"
+                                 f"{proc.stdout[-4000:]}\n"
+                                 f"{proc.stderr[-8000:]}")
+        with open(out) as f:
+            result = json.load(f)
+    result["seconds"] = seconds
+    log("mesh", **result)
+    return result
+
+
+def _mesh_trainer(saved=None, mesh=None):
+    """`train`'s models and batch (seeded alike each call, batch 8 at
+    512 px) in a trainer: its state loaded from `saved` where given, then
+    put on `mesh` where given."""
+    gen = torch.Generator(device="cuda").manual_seed(41)
+    unet_cfg = UNetConfig()
+    models = train_models(unet_cfg, ControlNetConfig(unet=unet_cfg),
+                          VAEConfig(), "cuda")
+    for m in models:
+        fill_params(m, gen)
+    positive_confidence(models[1])
+    trainer, state = make_trainer(*models, TrainConfig(), torch.bfloat16)
+    batch = train_batch(gen, TRAIN_BATCH, RES, unet_cfg.cross_attention_dim,
+                        "cuda", torch.bfloat16)
+    if saved is not None:
+        state.load_state_dict(saved)
+        trainer.load_params(state.params)
+    if mesh is not None:
+        state = trainer.shard_state(mesh, state)
+    return trainer, state, batch
+
+
+def mesh_worker(out_path: str) -> int:
+    """The `mesh` phase's work, in a torchrun process: `make_mesh` (1 x 1,
+    NCCL), a sharded full-width ControlNet step against the unsharded one
+    from the same state on the same draws (to MESH_STEP_REL of the step's
+    move: the splat's and the attention backward's fp32 atomics),
+    `train_controlnet --fsdp 1` through the mesh path on synthetic batches
+    (no PIL here), then the dry run's five paths at one rank; launches of
+    each."""
+    import logging
+
+    from diffcodec_tpu_torch.cli import train_controlnet
+    from diffcodec_tpu_torch.config import MeshConfig
+    from diffcodec_tpu_torch.parallel import dryrun
+    from diffcodec_tpu_torch.parallel.mesh import join_mesh, make_mesh
+    import torch.distributed as dist
+
+    _kernels.lib()
+    mesh = make_mesh(MeshConfig(), "cuda")
+    out = dict(mesh=mesh.shape, backend=dist.get_backend(),
+               world=dist.get_world_size())
+    # step 2 of one trainer, and of a second one on the mesh from the
+    # first's state after step 1 (as train_cli holds resume: a first Adam
+    # step moves every element by +-lr, and the atomics flip the sign of
+    # the ones whose gradient is ~0)
+    from diffcodec_tpu_torch.cli.train_distill import step_generator
+    from diffcodec_tpu_torch.train.checkpoint import _map_tensors
+
+    trainer, state, batch = _mesh_trainer()
+    trainer.train_step(state, batch, step_generator(0, 0, "cuda"))
+    saved = _map_tensors(state.state_dict(), lambda t: t.cpu().clone())
+    _, m1 = trainer.train_step(state, batch, step_generator(0, 1, "cuda"))
+    one = {n: p.clone() for n, p in state.params.items()}
+    del trainer, state
+    torch.cuda.empty_cache()
+    trainer, state, batch = _mesh_trainer(saved, mesh)
+    (state, m2), _, launches = counted(lambda: trainer.train_step(
+        state, batch, step_generator(0, 1, "cuda")))
+    sharded = state.state_dict()["params"]
+    move = torch.cat([(one[n] - saved["params"][n].cuda()).flatten()
+                      for n in sorted(one)])
+    apart = torch.cat([(sharded[n] - one[n]).flatten() for n in sorted(one)])
+    out["step"] = dict(batch=TRAIN_BATCH, res=RES, step=2,
+                       loss=[m1["loss"].item(), m2["loss"].item()],
+                       rel_to_step=(apart.norm() / move.norm()).item(),
+                       max_abs_diff=apart.abs().max().item(),
+                       tol=MESH_STEP_REL, launches=launches)
+    del trainer, state, saved, one, sharded, move, apart
+    torch.cuda.empty_cache()
+
+    logger = logging.getLogger("chip_smoke.mesh")
+    with tempfile.TemporaryDirectory() as workdir:
+        run = os.path.join(workdir, "run")
+        args = _train_cli_args(run, "--max_train_steps", "2", "--fsdp", "1",
+                               "--validation_steps", "0")
+        trainer, state, text_encoder, tokenizer = \
+            train_controlnet.build_trainer(args, logger)
+        state = trainer.shard_state(join_mesh(args.fsdp, args.device),
+                                    state)
+
+        @torch.no_grad()
+        def embed_text(texts):
+            return text_encoder(torch.from_numpy(tokenizer(list(texts)))
+                                .cuda())
+
+        gen = torch.Generator(device="cuda").manual_seed(43)
+        raw = _cli_batch(gen, TRAIN_BATCH, RES, embed_text)
+        state, _, cli_launches = counted(lambda: train_controlnet.train(
+            args, trainer, state, lambda: [raw], embed_text, logger))
+        out["cli"] = dict(steps=state.step, launches=cli_launches,
+                          checkpoints=[s for s, _ in list_checkpoints(run)])
+    del trainer, state, text_encoder
+    torch.cuda.empty_cache()
+    out["dryrun"] = dryrun.run(mesh, "cuda")
+    with open(out_path, "w") as f:
+        json.dump(out, f)
+    dist.destroy_process_group()
+    return 0
+
+
+def check_mesh(result: dict):
+    """The mesh phase's assertions, on the worker's numbers."""
+    step, cli, dr = result["step"], result["cli"], result["dryrun"]
+    if result["mesh"] != {"data": 1, "fsdp": 1} or result["backend"] != \
+            "nccl":
+        raise AssertionError(f"mesh: {result['mesh']} {result['backend']}")
+    if not step["rel_to_step"] <= MESH_STEP_REL or not all(
+            map(math.isfinite, step["loss"])):
+        raise AssertionError(f"mesh: the sharded step is not the "
+                             f"unsharded one: {step}")
+    check_launches("mesh step", step["launches"], {
+        **ENCODER_LAUNCHES, "splat_sum": None, "attention": None,
+        "attention_bwd": None, "upsample_conv3x3": 0, "conv3x3_head": 0,
+        "silu_conv3x3": 0})
+    if cli["steps"] != 2 or cli["checkpoints"] != [2]:
+        raise AssertionError(f"mesh: train_controlnet --fsdp 1: {cli}")
+    check_launches("mesh cli", cli["launches"], {
+        "attention_bwd": None, "downsample_conv3x3": None})
+    expected = {"train": {"attention": None, "attention_bwd": None,
+                          "splat_sum": None},
+                "decode": {"attention": None, "splat_sum": None,
+                           **NO_TRAIN_KERNELS},
+                "distill": {"attention": None, "attention_bwd": None,
+                            "splat_sum": None},
+                "tiled": {"attention": None, "splat_sum": None,
+                          **NO_TRAIN_KERNELS},
+                "sparse": {"attention": None, "splat_sum": None,
+                           **NO_TRAIN_KERNELS}}
+    for path, want in expected.items():
+        check_launches(f"mesh dryrun {path}", dr[path]["launches"], want)
+
+
 def summary(rows, paths, name, source, replaces, main_path, **extra):
     """One kernel's entry of the `kernels` line: its heaviest shape's
     numbers (the largest bound), its worst error over every shape (each
@@ -3186,6 +3624,8 @@ def summary(rows, paths, name, source, replaces, main_path, **extra):
 
 
 def main() -> int:
+    if sys.argv[1:2] == ["--mesh-worker"]:
+        return mesh_worker(sys.argv[2])
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
               file=sys.stderr)
@@ -3258,6 +3698,10 @@ def main() -> int:
         torch.cuda.empty_cache()
         _, drift_launches = approx_drift(work)
         torch.cuda.empty_cache()
+        cmp_trained = cmp_train_phase(work)
+        torch.cuda.empty_cache()
+    meshed = mesh_phase()
+    check_mesh(meshed)
 
     paths = {"decode": dec["launches"],
              "decode_fusedconv": fused_out["launches"],
@@ -3272,7 +3716,12 @@ def main() -> int:
              "distill_decode": distilled_decode["launches"],
              "train_cli": cli_out["launches"][1],
              "train_cli_validation": cli_out["validation_launches"][0],
-             "approx_drift": drift_launches}
+             "approx_drift": drift_launches,
+             "cmp_train": cmp_trained["launches"],
+             "mesh": meshed["step"]["launches"],
+             "mesh_cli": meshed["cli"]["launches"],
+             **{f"dryrun_{k}": v["launches"]
+                for k, v in meshed["dryrun"].items() if k != "mesh"}}
     cu = "diffcodec_tpu_torch/csrc/"
     flash = "jax/experimental/pallas/ops/tpu/flash_attention.py"
     kernels = [

@@ -13,6 +13,15 @@ draws from `step_generator(seed, step)`; `checkpoint-N/state.pt` every
 `--resume_from_checkpoint latest`; in-training validation panels every
 `--validation_steps` (`train/validation.py`).
 
+Under torchrun the step runs on the data x fsdp mesh (`parallel/mesh.py`,
+one process a device): `--fsdp N` ranks share the masters and the
+moments, the other axis splits the batch, every rank encodes its share
+of a `--latent_cache_dir`, and rank 0 writes the checkpoints, the logs and
+the validation panels:
+
+  torchrun --nproc_per_node 8 -m diffcodec_tpu_torch.cli.train_controlnet \\
+      --fsdp 2 --index_file data/index.txt --output_dir runs/dualflow ...
+
   python -m diffcodec_tpu_torch.cli.train_controlnet \\
       --index_file data/index.txt --caption_file data/captions.txt \\
       --output_dir runs/dualflow --resolution 512 \\
@@ -29,6 +38,7 @@ runs on `--device` (default cuda).
 from __future__ import annotations
 
 import argparse
+import logging
 import os
 
 import numpy as np
@@ -112,8 +122,10 @@ def parse_args(argv=None):
     p.add_argument("--validation_index_file", default="")
     # parallelism
     p.add_argument("--fsdp", type=int, default=1,
-                   help="fsdp axis size; other than 1 needs the mesh, "
-                        "which the port does not have yet")
+                   help="fsdp axis size of the mesh under torchrun: the "
+                        "fp32 masters and Adam's moments are split over "
+                        "this many ranks, the batch over the rest; "
+                        "other than 1 needs torchrun --nproc_per_node")
     p.add_argument("--log_every", type=int, default=10)
     p.add_argument("--latent_cache_dir", default="",
                    help="precompute frozen-VAE latent moments here (once) "
@@ -273,8 +285,10 @@ def train(args, trainer, state, batches, embed_text, logger, validate=None):
     the end, `validate(state, step, metrics_logger)` every
     `--validation_steps` where given.  `embed_text` is
     `train_distill.train`'s argument; the batches carry their embeddings
-    here.  Returns the state."""
+    here.  On a mesh each rank steps on its data rows of every batch.
+    Returns the state."""
     from diffcodec_tpu_torch.cli.train_distill import step_generator
+    from diffcodec_tpu_torch.parallel.mesh import is_writer
     from diffcodec_tpu_torch.train.checkpoint import save_checkpoint
     from diffcodec_tpu_torch.utils.logging import MetricsLogger, StepTimer
 
@@ -282,7 +296,8 @@ def train(args, trainer, state, batches, embed_text, logger, validate=None):
     metrics_logger = MetricsLogger(
         os.path.join(args.output_dir, "logs"), logger,
         wandb_project=(args.tracker_project_name
-                       if args.report_to in ("wandb", "all") else None))
+                       if args.report_to in ("wandb", "all") and is_writer()
+                       else None))
     timer = StepTimer()
     step = state.step
     logger.info("training from step %d to %d", step, args.max_train_steps)
@@ -355,11 +370,9 @@ def make_validator(args, trainer, val_batch):
 
 def main(argv=None):
     args = parse_args(argv)
-    if args.fsdp != 1:
-        raise SystemExit(
-            "--fsdp other than 1 needs the mesh (parallel/mesh.py on "
-            "torch.distributed, ROADMAP.md queue A), which the port does "
-            "not have yet")
+    from diffcodec_tpu_torch.parallel.mesh import is_writer, join_mesh
+
+    mesh = join_mesh(args.fsdp, args.device)
     if args.latent_cache_dir and args.model_variant == "res":
         raise SystemExit(
             "--latent_cache_dir is dualflow-only: the res variant's "
@@ -371,7 +384,11 @@ def main(argv=None):
     from diffcodec_tpu_torch.utils.logging import create_logger
 
     logger = create_logger("train")
+    if not is_writer():
+        logger.setLevel(logging.WARNING)
     trainer, state, text_encoder, tokenizer = build_trainer(args, logger)
+    if mesh is not None:
+        state = trainer.shard_state(mesh, state)
     B = args.train_batch_size
     dataset = UniDataset(args.caption_file or "/dev/null", args.index_file,
                          resolution=args.resolution,
@@ -386,7 +403,8 @@ def main(argv=None):
                         args.latent_cache_dir)
             n = precompute_latent_moments(trainer.vae, dataset,
                                           args.latent_cache_dir,
-                                          batch_size=B)
+                                          batch_size=B,
+                                          over_ranks=mesh is not None)
             logger.info("cached %d samples", n)
         dataset = LatentCachedDataset(dataset, args.latent_cache_dir)
 
@@ -396,7 +414,7 @@ def main(argv=None):
             args.device))
 
     validate = None
-    if args.validation_steps and args.validation_index_file:
+    if args.validation_steps and args.validation_index_file and is_writer():
         val_ds = UniDataset(args.caption_file or "/dev/null",
                             args.validation_index_file,
                             resolution=args.resolution, drop_txt_prob=0.0,

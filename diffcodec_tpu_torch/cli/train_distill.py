@@ -15,6 +15,12 @@ over `UniDataset` batches; `checkpoint-N/state.pt` every
       --sd_checkpoint_dir SD15 --controlnet_checkpoint CN.safetensors \\
       --output_dir runs/distill --max_train_steps 20000
 
+Under torchrun the step runs on the data x fsdp mesh (`parallel/mesh.py`,
+one process a device): `--fsdp N` ranks share the masters, the EMA and
+the moments, the other axis splits the batch, and rank 0 writes the
+checkpoints and the logs (`torchrun --nproc_per_node 8 -m
+diffcodec_tpu_torch.cli.train_distill --fsdp 2 ...`).
+
 Decode with the student's EMA weights through `run_codec decode
 --distilled_checkpoint runs/distill --student_steps 4`.  The dataset reads
 its frames with PIL, so this runs where PIL is; the step runs on
@@ -68,7 +74,11 @@ def parse_args(argv=None):
     p.add_argument("--checkpointing_steps", type=int, default=500)
     p.add_argument("--checkpoints_total_limit", type=int, default=None)
     p.add_argument("--resume_from_checkpoint", default="")
-    p.add_argument("--fsdp", type=int, default=1)
+    p.add_argument("--fsdp", type=int, default=1,
+                   help="fsdp axis size of the mesh under torchrun: the "
+                        "fp32 masters, the EMA and Adam's moments are split "
+                        "over this many ranks, the batch over the rest; "
+                        "other than 1 needs torchrun --nproc_per_node")
     p.add_argument("--log_every", type=int, default=10)
     p.add_argument("--tiny", action="store_true",
                    help="tiny model configs (wiring smoke test)")
@@ -186,12 +196,12 @@ def train(args, distiller, state, batches, embed_text, logger):
                 break
             seen += 1
             text = raw["text_embeds"].to(dtype)
-            batch = {"image": torch.from_numpy(raw["image"]).to(device,
-                                                                dtype),
-                     "cond": torch.from_numpy(raw["cond"]).to(device, dtype),
-                     "flow": torch.from_numpy(raw["flow"]).to(device),
-                     "text_embeds": text,
-                     "uncond_embeds": uncond_row.expand_as(text)}
+            batch = {
+                "image": torch.from_numpy(raw["image"]).to(device, dtype),
+                "cond": torch.from_numpy(raw["cond"]).to(device, dtype),
+                "flow": torch.from_numpy(raw["flow"]).to(device),
+                "text_embeds": text,
+                "uncond_embeds": uncond_row.expand_as(text)}
             with timer:
                 state, metrics = distiller.train_step(
                     state, batch, step_generator(args.seed, step, device))
@@ -220,18 +230,22 @@ def train(args, distiller, state, batches, embed_text, logger):
 
 def main(argv=None):
     args = parse_args(argv)
-    if args.fsdp != 1:
-        raise SystemExit(
-            "--fsdp other than 1 needs the mesh (parallel/mesh.py on "
-            "torch.distributed, ROADMAP.md queue A), which the port does "
-            "not have yet")
+    from diffcodec_tpu_torch.parallel.mesh import is_writer, join_mesh
+
+    mesh = join_mesh(args.fsdp, args.device)
+    import logging
+
     import torch
 
     from diffcodec_tpu_torch.train.dataset import UniDataset
     from diffcodec_tpu_torch.utils.logging import create_logger
 
     logger = create_logger("distill")
+    if not is_writer():
+        logger.setLevel(logging.WARNING)
     distiller, state, text_encoder, tokenizer = build_distiller(args, logger)
+    if mesh is not None:
+        state = distiller.shard_state(mesh, state)
     dataset = UniDataset(args.caption_file or "/dev/null", args.index_file,
                          resolution=args.resolution, drop_txt_prob=0.0,
                          seed=args.seed)

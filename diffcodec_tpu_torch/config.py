@@ -1,7 +1,7 @@
 """Typed configuration of the port: the model and sampler configs of
 `diffcodec_tpu/config.py` (:16-120, `CLIPTextConfig` :68-83), its
-`TrainConfig` (:122-161), its `DistillConfig` (:164-190) and its
-`CodecConfig` (:194-202), copied so the
+`TrainConfig` (:122-161), its `DistillConfig` (:164-190), its
+`CodecConfig` (:194-202) and its `MeshConfig` (:205-213), copied so the
 port imports nothing of the JAX package.  Frozen dataclasses, hashable,
 with the same defaults (SD-1.5 widths) and the same `tiny()` test
 sizes."""
@@ -187,3 +187,14 @@ class CodecConfig:
     tile_overlap: int = 64
     frame_height: int = 1080
     frame_width: int = 1920
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshConfig:
+    """Device mesh axes: data (DP over GOP frames / tiles / the train
+    batch) x fsdp (parameter and optimizer-state sharding, the ZeRO
+    analogue of controlnet/deepspeed_config.json)."""
+    data_axis: str = "data"
+    fsdp_axis: str = "fsdp"
+    data_size: int = -1  # -1: infer from device count / fsdp_size
+    fsdp_size: int = 1

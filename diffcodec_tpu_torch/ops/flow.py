@@ -22,8 +22,10 @@ def resize_bilinear(x: torch.Tensor, target_h: int, target_w: int,
         return x
     dev = x.device
     if align_corners:
-        ys = torch.linspace(0.0, H - 1.0, target_h, device=dev)
-        xs = torch.linspace(0.0, W - 1.0, target_w, device=dev)
+        # fp32, or float64 for float64 data (JAX's default float under x64)
+        grid = torch.promote_types(x.dtype, torch.float32)
+        ys = torch.linspace(0.0, H - 1.0, target_h, device=dev, dtype=grid)
+        xs = torch.linspace(0.0, W - 1.0, target_w, device=dev, dtype=grid)
     else:
         ys = ((torch.arange(target_h, device=dev, dtype=torch.float32) + 0.5)
               * (H / target_h) - 0.5)

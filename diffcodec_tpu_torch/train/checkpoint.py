@@ -38,7 +38,23 @@ def save_checkpoint(ckpt_dir: str, step: int, state: Any,
     """Save `state` (tensors in nested dicts, lists and numbers) as
     checkpoint-{step}, moved to the CPU; where `total_limit` checkpoints
     exist already, delete the oldest so that the new one keeps the count at
-    the limit.  Saving a step again replaces it without rotating others."""
+    the limit.  Saving a step again replaces it without rotating others.
+    In a process group every rank calls it and rank 0 writes (the others
+    wait for it)."""
+    import torch.distributed as dist
+
+    from diffcodec_tpu_torch.parallel.mesh import is_writer
+
+    path = os.path.join(ckpt_dir, f"checkpoint-{step}")
+    if is_writer():
+        _write(ckpt_dir, step, state, total_limit)
+    if dist.is_initialized():
+        dist.barrier()
+    return path
+
+
+def _write(ckpt_dir: str, step: int, state: Any,
+           total_limit: Optional[int]) -> str:
     os.makedirs(ckpt_dir, exist_ok=True)
     existing = [(s, p) for s, p in list_checkpoints(ckpt_dir) if s != step]
     if total_limit is not None and len(existing) >= total_limit:

@@ -21,8 +21,14 @@ compute dtype (the frozen teacher, the student and the EMA target, each a
 in the `DistillState`, and both copied back into their working copies
 after each update.  The teacher's and the target's forwards run under
 `torch.no_grad()` (JAX's stop-gradient), so no graph and no attention
-log-sum-exp is kept for them.  The JAX package's `shard_state` and
-`jit_train_step` have no counterpart: they wait for the mesh.
+log-sum-exp is kept for them.  `shard_state` puts the state on a
+`parallel/mesh.py` mesh as the JAX package's does (`distill.py:236-257`):
+each rank keeps its fsdp slice of the masters, the EMA and Adam's
+moments, a step averages the student's gradients over the data ranks,
+clips by the whole gradient's norm, updates the slices and gathers the
+student's and the target's working copies back; every rank is given the
+global batch and draws for all of it, keeping its rows.  `jit_train_step` has no
+counterpart (eager).
 """
 
 from __future__ import annotations
@@ -37,10 +43,13 @@ import torch.nn as nn
 
 from diffcodec_tpu_torch.config import DistillConfig
 from diffcodec_tpu_torch.models.vae import AutoencoderKL
+from diffcodec_tpu_torch.parallel.mesh import (FsdpLayout, row_taker,
+                                               shard_batch)
 from diffcodec_tpu_torch.sampling.schedulers import NoiseSchedule, cfg_combine
 from diffcodec_tpu_torch.train import checkpoint as ckpt
 from diffcodec_tpu_torch.train.trainer import (Optimizer, Params, copy_into,
-                                               load_opt_state)
+                                               gathered,
+                                               load_opt_state, sliced)
 
 
 def boundary_scalings(timesteps, sigma_data: float = 0.5,
@@ -91,12 +100,14 @@ def denoiser(unet: nn.Module, controlnet: nn.Module) -> nn.ModuleDict:
 class DistillState:
     """The update count, the student's fp32 master parameters, the fp32
     EMA target (a copy of the masters at creation) and the optimizer's
-    state, all keyed by `denoiser` names."""
+    state, all keyed by `denoiser` names; this rank's fsdp slices on a
+    mesh (`layout`, set by `ConsistencyDistiller.shard_state`)."""
     step: int
     params: Params
     ema_params: Params
     opt_state: Dict[str, Any]
     tx: Optimizer
+    layout: Optional[Any] = None
 
     @classmethod
     def create(cls, params: Params, tx: Optimizer) -> "DistillState":
@@ -106,16 +117,22 @@ class DistillState:
                    opt_state=tx.init(params), tx=tx)
 
     def state_dict(self) -> Dict[str, Any]:
-        return {"step": self.step, "params": self.params,
-                "ema_params": self.ema_params, "opt_state": self.opt_state}
+        """The whole state, gathered on a mesh (every rank must call it)."""
+        return {"step": self.step,
+                "params": gathered(self.layout, self.params),
+                "ema_params": gathered(self.layout, self.ema_params),
+                "opt_state": gathered(self.layout, self.opt_state)}
 
     @torch.no_grad()
     def load_state_dict(self, saved: Dict[str, Any]) -> "DistillState":
-        """Copy a saved state into this one's tensors (their devices and
-        dtypes); the names must match."""
+        """Copy a saved (whole) state into this one's tensors (their
+        devices and dtypes; this rank's slices on a mesh); the names must
+        match."""
         for key in ("params", "ema_params"):
-            copy_into(getattr(self, key), saved[key], key)
-        load_opt_state(self.opt_state, saved["opt_state"])
+            copy_into(getattr(self, key), sliced(self.layout, saved[key]),
+                      key)
+        load_opt_state(self.opt_state, sliced(self.layout,
+                                              saved["opt_state"]))
         self.step = int(saved["step"])
         return self
 
@@ -165,6 +182,7 @@ class ConsistencyDistiller:
     vae: AutoencoderKL
     schedule: NoiseSchedule
     config: DistillConfig
+    layout: Optional[Any] = None  # the mesh's, set by shard_state
 
     def __post_init__(self):
         for m in (self.teacher, self.target, self.vae):
@@ -234,33 +252,38 @@ class ConsistencyDistiller:
 
     def loss_fn(self, batch, generator: Optional[torch.Generator] = None,
                 latent_eps=None, idx=None, noise=None):
-        """(loss, metrics).  The draws (the posterior's eps like the
-        mean, a grid index per sample in [0, n - 2] and the fp32 noise
-        like the latents) are taken from `generator` in that order where
-        they are not given."""
+        """(loss, metrics) of the global `batch`.  The draws (the
+        posterior's eps like the mean, a grid index per sample in
+        [0, n - 2] and the fp32 noise like the latents) are taken from
+        `generator` in that order for the whole batch where they are not
+        given.  On a mesh the batch and the draws are the global batch's
+        and this rank's loss is its data rows' (`row_taker`)."""
         c = self.config
         dtype = self.dtype
+        n = batch["cond"].shape[0]
+        take = row_taker(self.layout, n)
+        batch = shard_batch(self.layout and self.layout.mesh, batch)
         with torch.no_grad():
             mean, logvar = self.vae.encode(
                 batch["image"].to(self.vae.quant_conv.weight.dtype))
         dev = mean.device
         if latent_eps is None:
-            latent_eps = torch.randn(mean.shape, generator=generator,
-                                     device=dev)
-        latents = ((mean + torch.exp(0.5 * logvar) * latent_eps.to(
+            latent_eps = torch.randn((n, *mean.shape[1:]),
+                                     generator=generator, device=dev)
+        latents = ((mean + torch.exp(0.5 * logvar) * take(latent_eps).to(
             mean.dtype)) * self.vae.cfg.scaling_factor).float()
 
         grid = torch.from_numpy(ddim_grid(self.schedule,
                                           c.num_teacher_steps)).to(dev)
-        B = latents.shape[0]
         if idx is None:
-            idx = torch.randint(0, grid.shape[0] - 1, (B,),
+            idx = torch.randint(0, grid.shape[0] - 1, (n,),
                                 generator=generator, device=dev)
-        idx = idx.to(dev).long()
+        idx = take(idx.to(dev).long())
         t_n, t_m = grid[idx], grid[idx + 1]
         if noise is None:
-            noise = torch.randn(latents.shape, generator=generator,
-                                device=dev)
+            noise = torch.randn((n, *latents.shape[1:]),
+                                generator=generator, device=dev)
+        noise = take(noise)
         x_tn = self.schedule.add_noise(latents, noise, t_n).to(dtype)
 
         text, uncond = batch["text_embeds"], batch["uncond_embeds"]
@@ -291,11 +314,27 @@ class ConsistencyDistiller:
     @torch.no_grad()
     def load_params(self, state: DistillState):
         """Copy the masters into the student and the EMA into the target
-        (cast to their dtype)."""
+        (cast to their dtype; gathered from the slices on a mesh)."""
         for net, params in ((self.student, state.params),
                             (self.target, state.ema_params)):
             for n, p in net.named_parameters():
-                p.copy_(params[n])
+                src = params[n]
+                if self.layout is not None:
+                    src = self.layout.gather(n, src.to(p.dtype))
+                p.copy_(src)
+
+    def shard_state(self, mesh, state: DistillState) -> DistillState:
+        """Put `state` on `mesh` (`parallel/mesh.py`): this rank keeps its
+        fsdp slice of each master, EMA tensor and Adam moment, by the JAX
+        package's rule (`_fsdp_spec`), so three SD-scale trees fit beside
+        the teacher."""
+        layout = FsdpLayout(mesh, {n: p.shape
+                                   for n, p in state.params.items()})
+        state.params = layout.shard_dict(state.params)
+        state.ema_params = layout.shard_dict(state.ema_params)
+        state.opt_state = sliced(layout, state.opt_state)
+        state.layout = self.layout = layout
+        return state
 
     @torch.no_grad()
     def update_ema(self, state: DistillState):
@@ -312,7 +351,12 @@ class ConsistencyDistiller:
         grads = self.gradients()
         for p in self.student.parameters():
             p.grad = None
-        state.tx.update(state.params, grads, state.opt_state)
+        if self.layout is None:
+            state.tx.update(state.params, grads, state.opt_state)
+        else:
+            grads = self.layout.shard_dict(self.layout.mean_over_data(grads))
+            state.tx.update(state.params, grads, state.opt_state,
+                            self.layout.sq_norm)
         del grads
         state.step += 1
         self.update_ema(state)
@@ -321,9 +365,13 @@ class ConsistencyDistiller:
 
     def train_step(self, state: DistillState, batch,
                    generator: Optional[torch.Generator] = None, **draws):
-        """One step: loss, backward, update.  `draws` are `loss_fn`'s
-        latent_eps, idx and noise.  Returns (state, metrics)."""
+        """One step on the global `batch`: loss, backward, update.
+        `draws` are `loss_fn`'s latent_eps, idx and noise.  Returns
+        (state, metrics), the metrics the global batch's on a mesh."""
         loss, metrics = self.loss_fn(batch, generator, **draws)
         loss.backward()
-        return self.update(state), metrics
+        state = self.update(state)
+        if self.layout is not None:
+            metrics = self.layout.mean_metrics(metrics)
+        return state, metrics
 

@@ -39,19 +39,34 @@ def _check_deterministic(dataset):
 
 @torch.no_grad()
 def precompute_latent_moments(vae, dataset, cache_dir: str,
-                              batch_size: int = 8) -> int:
+                              batch_size: int = 8,
+                              over_ranks: bool = False) -> int:
     """Encode every sample of `dataset` (indexable; samples hold an
     'image' [H, W, 3] in [-1, 1], or a 'residual', which the trainer then
     encodes instead) once with `vae` on its device and dtype, and store the
-    moments.  Returns the number of samples written."""
+    moments.  Returns the number of samples in the cache.
+
+    With `over_ranks` every rank of the process group calls it and
+    encodes every world-th batch; rank 0 writes the count once all have
+    written theirs, and no rank returns before that.  No rank waits for
+    long: the shares differ by at most a batch.  Every rank still reads
+    every sample, so the dataset's draws (a caption dropped or kept per
+    read) advance on each as in one process and the training batches that
+    follow are the same on every rank."""
+    import torch.distributed as dist
+
     _check_deterministic(dataset)
     os.makedirs(cache_dir, exist_ok=True)
+    rank, world = ((dist.get_rank(), dist.get_world_size()) if over_ranks
+                   else (0, 1))
     w = vae.quant_conv.weight
     n = len(dataset)
     shape = None
     for s0 in range(0, n, batch_size):
         idx = range(s0, min(s0 + batch_size, n))
         samples = [dataset[i] for i in idx]
+        if (s0 // batch_size) % world != rank:
+            continue
         imgs = np.stack([s.get("residual", s["image"]) for s in samples])
         mean, logvar = vae.encode(torch.from_numpy(imgs).to(w.device,
                                                              w.dtype))
@@ -59,8 +74,13 @@ def precompute_latent_moments(vae, dataset, cache_dir: str,
         for k, i in enumerate(idx):
             np.save(_moments_path(cache_dir, i), moments[k])
         shape = list(moments[0].shape)
-    with open(os.path.join(cache_dir, _META), "w") as f:
-        json.dump({"count": n, "moments_shape": shape}, f)
+    if world > 1:
+        dist.barrier()
+    if rank == 0:
+        with open(os.path.join(cache_dir, _META), "w") as f:
+            json.dump({"count": n, "moments_shape": shape}, f)
+    if world > 1:
+        dist.barrier()
     return n
 
 

@@ -27,6 +27,15 @@ cast-at-use with `dtype=bf16` over fp32 parameters: the gradient of the
 cast is the bf16 gradient widened to fp32.  The frozen UNet and VAE run in
 the compute dtype with `requires_grad_(False)`; gradients still flow
 through the UNet's activations to the ControlNet's residuals.
+
+On a mesh (`shard_state`, `parallel/mesh.py`) each process holds its fsdp
+slice of the masters and the moments: a step averages the working copy's
+gradients over the data ranks, clips by the norm of the whole gradient
+(the squared sums all-reduced), updates the slices and gathers the working
+copy back; every rank is given the global batch and draws the noise and
+timesteps for all of it, and keeps its own rows (all of them where the data
+axis does not divide the batch), so the sharded step is the one-process
+step.  Checkpoints hold the gathered state.
 """
 
 from __future__ import annotations
@@ -40,6 +49,8 @@ from torch.utils.checkpoint import checkpoint
 
 from diffcodec_tpu_torch.config import TrainConfig
 from diffcodec_tpu_torch.models.vae import AutoencoderKL
+from diffcodec_tpu_torch.parallel.mesh import (FsdpLayout, row_taker,
+                                               shard_batch)
 from diffcodec_tpu_torch.sampling.schedulers import NoiseSchedule
 from diffcodec_tpu_torch.train.losses import diffusion_loss, pixel_losses
 
@@ -110,7 +121,11 @@ class Optimizer:
         return state
 
     @torch.no_grad()
-    def update(self, params: Params, grads: Params, state: Dict[str, Any]):
+    def update(self, params: Params, grads: Params, state: Dict[str, Any],
+               sq_norm: Optional[Callable[[Params], torch.Tensor]] = None):
+        """`sq_norm(grads)`: the squared global norm of the gradient to clip
+        by (the sum over `grads`' tensors where None; a mesh's
+        `FsdpLayout.sq_norm` where they are slices)."""
         k = self.cfg.gradient_accumulation_steps
         if k > 1:
             mini = state["mini_step"]
@@ -121,14 +136,16 @@ class Optimizer:
             if mini + 1 < k:
                 return
             grads = state["acc"]
-        self._apply(params, grads, state)
+        self._apply(params, grads, state, sq_norm)
         if k > 1:
             for acc in state["acc"].values():
                 acc.zero_()
 
-    def _apply(self, params: Params, grads: Params, state: Dict[str, Any]):
+    def _apply(self, params: Params, grads: Params, state: Dict[str, Any],
+               sq_norm=None):
         cfg = self.cfg
-        norm = torch.sqrt(sum(torch.sum(g.float() ** 2)
+        norm = torch.sqrt(sq_norm(grads) if sq_norm is not None else
+                          sum(torch.sum(g.float() ** 2)
                               for g in grads.values()))
         # optax: (g / norm) * max_norm where norm >= max_norm, else g
         clip = norm >= cfg.max_grad_norm
@@ -159,34 +176,65 @@ class Optimizer:
 @dataclasses.dataclass(eq=False)
 class TrainState:
     """The update count, the fp32 master parameters by name and the
-    optimizer's state; `apply_gradients` updates both in place."""
+    optimizer's state; `apply_gradients` updates both in place.  On a mesh
+    (`layout`, set by `ControlNetTrainer.shard_state`) the tensors are this
+    rank's fsdp slices."""
     step: int
     params: Params
     opt_state: Dict[str, Any]
     tx: Optimizer
+    layout: Optional[Any] = None
 
     @classmethod
     def create(cls, params: Params, tx: Optimizer) -> "TrainState":
         params = {n: p.detach().float().clone() for n, p in params.items()}
         return cls(step=0, params=params, opt_state=tx.init(params), tx=tx)
 
-    def apply_gradients(self, grads: Params) -> "TrainState":
-        self.tx.update(self.params, grads, self.opt_state)
+    def apply_gradients(self, grads: Params,
+                        sq_norm=None) -> "TrainState":
+        self.tx.update(self.params, grads, self.opt_state, sq_norm)
         self.step += 1
         return self
 
     def state_dict(self) -> Dict[str, Any]:
-        return {"step": self.step, "params": self.params,
-                "opt_state": self.opt_state}
+        """The step, masters and optimizer state, gathered whole on a mesh
+        (every rank must call it)."""
+        return {"step": self.step, "params": gathered(self.layout,
+                                                      self.params),
+                "opt_state": gathered(self.layout, self.opt_state)}
 
     @torch.no_grad()
     def load_state_dict(self, saved: Dict[str, Any]) -> "TrainState":
-        """Copy a saved state into this one's tensors (their devices and
-        dtypes); the names must match."""
-        copy_into(self.params, saved["params"], "params")
-        load_opt_state(self.opt_state, saved["opt_state"])
+        """Copy a saved (whole) state into this one's tensors (their
+        devices and dtypes; this rank's slices on a mesh); the names must
+        match."""
+        copy_into(self.params, sliced(self.layout, saved["params"]),
+                  "params")
+        load_opt_state(self.opt_state, sliced(self.layout,
+                                              saved["opt_state"]))
         self.step = int(saved["step"])
         return self
+
+
+def gathered(layout, tree):
+    """A state's tensors by name (dicts of them, beside counters) whole:
+    gathered over the fsdp ranks where `layout` is a mesh's."""
+    return tree if layout is None else _tensor_dicts(tree,
+                                                     layout.gather_dict)
+
+
+def sliced(layout, tree):
+    """`gathered`'s inverse: this rank's slices of whole tensors."""
+    return tree if layout is None else _tensor_dicts(tree, layout.shard_dict)
+
+
+def _tensor_dicts(tree, fn):
+    """fn on each dict of tensors in a state's nested dicts."""
+    if isinstance(tree, dict) and all(isinstance(v, torch.Tensor)
+                                      for v in tree.values()):
+        return fn(tree)
+    return {k: _tensor_dicts(v, fn) if isinstance(v, dict) else v
+            for k, v in tree.items()}
 
 
 @torch.no_grad()
@@ -229,6 +277,7 @@ class ControlNetTrainer:
     schedule: NoiseSchedule
     config: TrainConfig
     lpips: Optional[torch.nn.Module] = None
+    layout: Optional[Any] = None  # the mesh's, set by shard_state
 
     def __post_init__(self):
         self.unet.requires_grad_(False)
@@ -248,25 +297,33 @@ class ControlNetTrainer:
 
     def loss_fn(self, batch, generator: Optional[torch.Generator] = None,
                 noise=None, timesteps=None, latent_eps=None, moments=None):
-        """(loss, metrics).  The draws (the posterior's eps like the mean,
-        the fp32 noise like the latents and a timestep per sample in
-        [0, num_train_timesteps)) are taken from `generator` in that order
-        where they are not given; `moments` skips the encode."""
+        """(loss, metrics) of the global `batch`.  The draws (the
+        posterior's eps like the mean, the fp32 noise like the latents and
+        a timestep per sample in [0, num_train_timesteps)) are taken from
+        `generator` in that order for the whole batch where they are not
+        given; `moments` skips the encode.  On a mesh the batch, the draws
+        and `moments` are the global batch's and this rank's loss is its
+        data rows' (`row_taker`)."""
         cfg = self.config
-        mean, logvar = self.moments(batch) if moments is None else moments
+        n = batch["cond"].shape[0]
+        take = row_taker(self.layout, n)
+        batch = shard_batch(self.layout and self.layout.mesh, batch)
+        mean, logvar = (self.moments(batch) if moments is None
+                        else map(take, moments))
         dev = mean.device
         if latent_eps is None:
-            latent_eps = torch.randn(mean.shape, generator=generator,
-                                     device=dev)
-        latents = (mean + torch.exp(0.5 * logvar) * latent_eps.to(mean.dtype)
-                   ) * self.vae.cfg.scaling_factor
+            latent_eps = torch.randn((n, *mean.shape[1:]),
+                                     generator=generator, device=dev)
+        latents = (mean + torch.exp(0.5 * logvar) * take(latent_eps).to(
+            mean.dtype)) * self.vae.cfg.scaling_factor
         if noise is None:
-            noise = torch.randn(latents.shape, generator=generator,
+            noise = torch.randn((n, *latents.shape[1:]), generator=generator,
                                 device=dev)
         if timesteps is None:
             timesteps = torch.randint(
-                0, self.schedule.cfg.num_train_timesteps,
-                (latents.shape[0],), generator=generator, device=dev)
+                0, self.schedule.cfg.num_train_timesteps, (n,),
+                generator=generator, device=dev)
+        noise, timesteps = take(noise), take(timesteps)
         noisy = self.schedule.add_noise(latents, noise, timesteps)
 
         cn_args = (noisy, timesteps, batch["text_embeds"], batch["cond"],
@@ -319,9 +376,25 @@ class ControlNetTrainer:
     @torch.no_grad()
     def load_params(self, params: Params):
         """Copy the master parameters into the working copy (cast to its
-        dtype)."""
+        dtype; gathered from the slices on a mesh)."""
         for n, p in self.controlnet.named_parameters():
-            p.copy_(params[n])
+            src = params[n]
+            if self.layout is not None:
+                src = self.layout.gather(n, src.to(p.dtype))
+            p.copy_(src)
+
+    def shard_state(self, mesh, state: TrainState) -> TrainState:
+        """Put `state` on `mesh` (`parallel/mesh.py`): this rank keeps its
+        fsdp slice of each master and moment (the accumulated gradients
+        too), by the JAX package's rule (`_fsdp_spec`: the largest
+        dimension the fsdp size divides); later steps average gradients
+        over the data ranks and gather the working copy back."""
+        layout = FsdpLayout(mesh, {n: p.shape
+                                   for n, p in state.params.items()})
+        state.params = layout.shard_dict(state.params)
+        state.opt_state = sliced(layout, state.opt_state)
+        state.layout = self.layout = layout
+        return state
 
     def update(self, state: TrainState) -> TrainState:
         """Apply the working copy's gradients (then dropped) to the master
@@ -329,14 +402,24 @@ class ControlNetTrainer:
         grads = self.gradients()
         for p in self.controlnet.parameters():
             p.grad = None
-        state.apply_gradients(grads)
+        if self.layout is None:
+            state.apply_gradients(grads)
+        else:
+            grads = self.layout.shard_dict(self.layout.mean_over_data(grads))
+            state.apply_gradients(grads, self.layout.sq_norm)
+        del grads
         self.load_params(state.params)
         return state
 
     def train_step(self, state: TrainState, batch,
                    generator: Optional[torch.Generator] = None, **draws):
-        """One micro-step: loss, backward, update.  `draws` are `loss_fn`'s
-        noise, timesteps and latent_eps.  Returns (state, metrics)."""
+        """One micro-step on the global `batch`: loss, backward, update.
+        `draws` are `loss_fn`'s noise, timesteps and latent_eps.  Returns
+        (state, metrics), the metrics the global batch's on a mesh."""
         loss, metrics = self.loss_fn(batch, generator, **draws)
         loss.backward()
-        return self.update(state), metrics
+        state = self.update(state)
+        if self.layout is not None:
+            metrics = self.layout.mean_metrics(metrics)
+        return state, metrics
+

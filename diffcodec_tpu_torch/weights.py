@@ -7,8 +7,8 @@ copied from `diffcodec_tpu/models/hf_import.py` (`unet_name_map` :145,
 `feature_extractor_name_map` :321, `residue_extractor_name_map` :351,
 `warp_extractor_name_map` :383, `rescontrolnet_name_map` :404) and from
 `diffcodec_tpu/models/cmp.py`
-(`cmp_name_map` :338, `cmp_batch_stats_map` :441, DiffCodec's resnet50 +
-skip configuration), the metric networks' (`lpips_alex_name_map`,
+(`cmp_name_map` :338, `cmp_batch_stats_map` :441, every backbone and
+decoder), the metric networks' (`lpips_alex_name_map`,
 `hf_import.py:422`; `inception64_name_map` and `_batch_stats_map`,
 `diffcodec_tpu/eval/inception.py:62-78`; `i3d_name_map` and
 `_batch_stats_map`, `diffcodec_tpu/models/i3d.py:115-161`) together with
@@ -19,6 +19,8 @@ map for (its torch names are diffusers' `UNet2DModel`, the layout of the
 reference's residual checkpoint).  Each entry is (torch name, flax path,
 kind), kind one of:
   conv_kernel    flax HWIO <-> torch OIHW
+  convT_kernel   flax ConvTranspose [kh, kw, out, in] <-> torch
+                 ConvTranspose2d [in, out, kh, kw]
   conv3d_kernel  flax THWIO <-> torch OITHW
   linear_kernel  flax [in, out] <-> torch [out, in]
   bias / raw     copied as they are
@@ -421,10 +423,24 @@ def unet2d_name_map(block_out_channels: Sequence[int] = (64, 128, 128, 256),
     return out
 
 
+def _transform(kind: str, value: np.ndarray) -> np.ndarray:
+    """torch layout -> flax (`hf_import._transform`)."""
+    value = np.asarray(value)
+    if kind in ("conv_kernel", "convT_kernel"):
+        # OIHW -> HWIO; ConvTranspose2d [in, out, kh, kw] -> flax's
+        # ConvTranspose (transpose_kernel=True) [kh, kw, out, in]
+        return value.transpose(2, 3, 1, 0)
+    if kind == "conv3d_kernel":
+        return value.transpose(2, 3, 4, 1, 0)  # OITHW -> THWIO
+    if kind == "linear_kernel":
+        return value.T
+    return value
+
+
 def _inverse_transform(kind: str, value: np.ndarray) -> np.ndarray:
     value = np.asarray(value)
-    if kind == "conv_kernel":
-        return value.transpose(3, 2, 0, 1)  # HWIO -> OIHW
+    if kind in ("conv_kernel", "convT_kernel"):
+        return value.transpose(3, 2, 0, 1)  # HWIO -> OIHW, and convT's
     if kind == "conv3d_kernel":
         return value.transpose(4, 3, 0, 1, 2)  # THWIO -> OITHW
     if kind == "linear_kernel":
@@ -443,6 +459,21 @@ def export_state_dict(params: Mapping, name_map: List[Entry]
         for p in fpath:
             node = node[p]
         out[tname] = np.ascontiguousarray(_inverse_transform(kind, node))
+    return out
+
+
+def import_state_dict(state_dict: Mapping, name_map: List[Entry]) -> Dict:
+    """torch-layout state dict -> a nested flax tree (numpy) of the map's
+    paths: `export_state_dict`'s inverse."""
+    out: Dict = {}
+    for tname, fpath, kind in name_map:
+        node = out
+        for p in fpath[:-1]:
+            node = node.setdefault(p, {})
+        value = state_dict[tname]
+        if isinstance(value, torch.Tensor):
+            value = value.detach().cpu().numpy()
+        node[fpath[-1]] = np.ascontiguousarray(_transform(kind, value))
     return out
 
 
@@ -469,93 +500,144 @@ def load_pipeline_params(pipe, params: Mapping) -> None:
     load_flax_params(pipe.vae, params["vae"], vae_name_map(pipe.vae.cfg))
 
 
-def _cmp_bn(t: str, f: Tuple[str, ...]) -> List[Entry]:
-    return _norm(t, f + ("bn",))
+def cmp_name_map(nbins: int = 99, backbone: str = "resnet50",
+                 decoder: str = "skip", combo: Sequence[int] = (1, 2, 4)
+                 ) -> List[Entry]:
+    """The JAX package's `cmp_name_map`, entry for entry: the torch CMP's
+    names (image_encoder / flow_encoder / flow_decoder) -> the flax CMP's
+    parameter paths, for every backbone (resnet50, the AlexNet FCNs) and
+    decoder (skip, plain over `combo`, flownet).  The running statistics
+    are in `cmp_batch_stats_map`."""
+    del nbins  # the names do not depend on it
+    out: List[Entry] = []
 
+    def conv(t, f, bias=True):  # a ConvBNRelu's conv, nested under 'conv'
+        out.append((f"{t}.weight", f + ("conv", "kernel"), "conv_kernel"))
+        if bias:
+            out.append((f"{t}.bias", f + ("conv", "bias"), "bias"))
 
-def _cmp_conv(t: str, f: Tuple[str, ...], bias: bool = True) -> List[Entry]:
-    """A ConvBNRelu's conv: flax nests it under 'conv'."""
-    if bias:
-        return _conv(t, f + ("conv",))
-    return [(t + ".weight", f + ("conv", "kernel"), "conv_kernel")]
+    def bn(t, f):
+        out.extend(_norm(t, f + ("bn",)))
 
+    def bare(t, f, bias=True, kind="conv_kernel"):
+        out.append((f"{t}.weight", f + ("kernel",), kind))
+        if bias:
+            out.append((f"{t}.bias", f + ("bias",), "bias"))
 
-def _cmp_resnet_blocks():
-    """(torch prefix, flax path) of every bottleneck of the ResNet-50."""
-    for li, blocks in ((1, 3), (2, 4), (3, 6), (4, 3)):
-        for b in range(blocks):
-            yield (f"image_encoder.layer{li}.{b}", b,
-                   ("image_encoder", f"layer{li}_{b}"))
-
-
-def _cmp_decoder_convs():
-    """(torch prefix of the conv, of its BatchNorm, flax path) of every
-    ConvBNRelu of the skip decoder: the branches' Sequentials hold conv,
-    BatchNorm and ReLU three times, after a leading MaxPool in the pooled
-    ones; the fusion and skip convs are ConvBNRelus of their own."""
-    fd = "flow_decoder"
-    for name, base in (("decoder1", 0), ("decoder2", 1), ("decoder4", 1),
-                       ("decoder8", 1)):
-        for i in range(3):
-            yield (f"{fd}.{name}.{base + 3 * i}",
-                   f"{fd}.{name}.{base + 3 * i + 1}", (fd, f"{name}_{i}"))
-    for name in ("fusion8", "skipconv4", "fusion4", "skipconv2", "fusion2"):
-        yield f"{fd}.{name}.0", f"{fd}.{name}.1", (fd, name)
-
-
-def cmp_name_map() -> List[Entry]:
-    """The JAX package's `cmp_name_map()` for DiffCodec's CMP (resnet50
-    backbone, skip decoder): torch checkpoint names -> flax paths of the
-    parameters.  The running statistics are in `cmp_batch_stats_map`."""
-    ie = ("image_encoder",)
-    out: List[Entry] = [
-        ("image_encoder.conv1.weight", ie + ("conv1", "kernel"),
-         "conv_kernel")]
-    out += _norm("image_encoder.bn1", ie + ("bn1",))
-    for t, b, f in _cmp_resnet_blocks():
-        for c in ("conv1", "conv2", "conv3"):
-            out += _cmp_conv(f"{t}.{c}", f + (c,), bias=False)
-            out += _cmp_bn(f"{t}.bn{c[-1]}", f + (c,))
-        if b == 0:
-            out += _cmp_conv(f"{t}.downsample.0", f + ("downsample",),
-                             bias=False)
-            out += _cmp_bn(f"{t}.downsample.1", f + ("downsample",))
-    out += _conv("image_encoder.conv5", ie + ("conv5",))
+    ie, fe, fd = "image_encoder", "flow_encoder", "flow_decoder"
+    if backbone == "resnet50":
+        out.append((f"{ie}.conv1.weight", (ie, "conv1", "kernel"),
+                    "conv_kernel"))
+        out.extend(_norm(f"{ie}.bn1", (ie, "bn1")))
+        for t, b, f in _cmp_resnet_blocks():
+            for c in ("conv1", "conv2", "conv3"):
+                conv(f"{t}.{c}", f + (c,), bias=False)
+                bn(f"{t}.bn{c[-1]}", f + (c,))
+            if b == 0:
+                conv(f"{t}.downsample.0", f + ("downsample",), bias=False)
+                bn(f"{t}.downsample.1", f + ("downsample",))
+        bare(f"{ie}.conv5", (ie, "conv5"))
+    else:  # the AlexNet FCN: Sequentials with conv at .0, BatchNorm at .1
+        for name in _CMP_ALEXNET:
+            conv(f"{ie}.{name}.0", (ie, name))
+            bn(f"{ie}.{name}.1", (ie, name))
+        bare(f"{ie}.conv8", (ie, "conv8"))
     # ShallowNet's Sequential: conv 0 / BatchNorm 1, conv 4 / BatchNorm 5
-    for conv, bn, name in ((0, 1, "conv1"), (4, 5, "conv2")):
-        out += _cmp_conv(f"flow_encoder.features.{conv}",
-                         ("flow_encoder", name))
-        out += _cmp_bn(f"flow_encoder.features.{bn}", ("flow_encoder", name))
-    for t_conv, t_bn, f in _cmp_decoder_convs():
-        out += _cmp_conv(t_conv, f)
-        out += _cmp_bn(t_bn, f)
-    out += _conv("flow_decoder.head", ("flow_decoder", "head"))
+    for conv_i, bn_i, name in ((0, 1, "conv1"), (4, 5, "conv2")):
+        conv(f"{fe}.features.{conv_i}", (fe, name))
+        bn(f"{fe}.features.{bn_i}", (fe, name))
+    if decoder == "plain":
+        for t_conv, t_bn, f in _cmp_branch_convs(combo, 2):
+            conv(t_conv, f)
+            bn(t_bn, f)
+        bare(f"{fd}.head", (fd, "head"))
+        return out
+    for t_conv, t_bn, f in _cmp_branch_convs((1, 2, 4, 8), 3):
+        conv(t_conv, f)
+        bn(t_bn, f)
+    if decoder == "flownet":
+        conv(f"{fd}.fusion8.0", (fd, "fusion8"))
+        bn(f"{fd}.fusion8.1", (fd, "fusion8"))
+        for s in (8, 4, 2, 1):
+            bare(f"{fd}.predict_flow{s}", (fd, f"predict_flow{s}"))
+        for s, d in ((8, 4), (4, 2), (2, 1)):
+            bare(f"{fd}.upsampled_flow{s}_to_{d}",
+                 (fd, f"upsampled_flow{s}_to_{d}"), bias=False,
+                 kind="convT_kernel")
+        for s in (8, 4, 2):
+            bare(f"{fd}.deconv{s}.0", (fd, f"deconv{s}"),
+                 kind="convT_kernel")
+        return out
+    for name in _CMP_SKIP_CONVS:
+        conv(f"{fd}.{name}.0", (fd, name))
+        bn(f"{fd}.{name}.1", (fd, name))
+    bare(f"{fd}.head", (fd, "head"))
     return out
 
 
-def cmp_batch_stats_map() -> List[Entry]:
+def cmp_batch_stats_map(nbins: int = 99, backbone: str = "resnet50",
+                        decoder: str = "skip",
+                        combo: Sequence[int] = (1, 2, 4)) -> List[Entry]:
     """BatchNorm running_mean / running_var -> the flax 'batch_stats'
-    collection, for the same CMP as `cmp_name_map`."""
+    collection, for the same variants as `cmp_name_map`, entry for entry
+    as the JAX package's."""
+    del nbins
     out: List[Entry] = []
 
     def bn(t, f):
         out.extend([(f"{t}.running_mean", f + ("bn", "mean"), "raw"),
                     (f"{t}.running_var", f + ("bn", "var"), "raw")])
 
-    out += [("image_encoder.bn1.running_mean",
-             ("image_encoder", "bn1", "mean"), "raw"),
-            ("image_encoder.bn1.running_var",
-             ("image_encoder", "bn1", "var"), "raw")]
-    for t, b, f in _cmp_resnet_blocks():
-        for c in ("conv1", "conv2", "conv3"):
-            bn(f"{t}.bn{c[-1]}", f + (c,))
-        if b == 0:
-            bn(f"{t}.downsample.1", f + ("downsample",))
-    bn("flow_encoder.features.1", ("flow_encoder", "conv1"))
-    bn("flow_encoder.features.5", ("flow_encoder", "conv2"))
-    for _, t_bn, f in _cmp_decoder_convs():
+    ie, fe, fd = "image_encoder", "flow_encoder", "flow_decoder"
+    if backbone == "resnet50":
+        out += [(f"{ie}.bn1.running_mean", (ie, "bn1", "mean"), "raw"),
+                (f"{ie}.bn1.running_var", (ie, "bn1", "var"), "raw")]
+        for t, b, f in _cmp_resnet_blocks():
+            for c in ("conv1", "conv2", "conv3"):
+                bn(f"{t}.bn{c[-1]}", f + (c,))
+            if b == 0:
+                bn(f"{t}.downsample.1", f + ("downsample",))
+    else:
+        for name in _CMP_ALEXNET:
+            bn(f"{ie}.{name}.1", (ie, name))
+    bn(f"{fe}.features.1", (fe, "conv1"))
+    bn(f"{fe}.features.5", (fe, "conv2"))
+    if decoder == "plain":
+        for _, t_bn, f in _cmp_branch_convs(combo, 2):
+            bn(t_bn, f)
+        return out
+    for _, t_bn, f in _cmp_branch_convs((1, 2, 4, 8), 3):
         bn(t_bn, f)
+    for name in (("fusion8",) if decoder == "flownet" else _CMP_SKIP_CONVS):
+        bn(f"{fd}.{name}.1", (fd, name))
     return out
+
+
+_CMP_ALEXNET = ("conv1", "conv2", "conv3", "conv4", "conv5", "fc6", "fc7")
+_CMP_SKIP_CONVS = ("fusion8", "skipconv4", "fusion4", "skipconv2", "fusion2")
+
+
+def _cmp_resnet_blocks():
+    """(torch prefix, block index, flax path) of every bottleneck of the
+    ResNet-50."""
+    for li, blocks in ((1, 3), (2, 4), (3, 6), (4, 3)):
+        for b in range(blocks):
+            yield (f"image_encoder.layer{li}.{b}", b,
+                   ("image_encoder", f"layer{li}_{b}"))
+
+
+def _cmp_branch_convs(pools, n_convs: int):
+    """(torch prefix of the conv, of its BatchNorm, flax path) of every
+    conv+BN+ReLU of the decoder branches `decoder{p}`: each Sequential
+    holds conv, BatchNorm and ReLU `n_convs` times, after a leading
+    MaxPool in the pooled ones."""
+    fd = "flow_decoder"
+    for p in pools:
+        base = 0 if p == 1 else 1
+        for i in range(n_convs):
+            yield (f"{fd}.decoder{p}.{base + 3 * i}",
+                   f"{fd}.decoder{p}.{base + 3 * i + 1}",
+                   (fd, f"decoder{p}_{i}"))
 
 
 def load_flax_variables(module: torch.nn.Module, variables: Mapping,
@@ -573,10 +655,17 @@ def load_flax_variables(module: torch.nn.Module, variables: Mapping,
     module.load_state_dict(sd, strict=True)
 
 
+def cmp_maps(module: torch.nn.Module) -> Tuple[List[Entry], List[Entry]]:
+    """(`cmp_name_map`, `cmp_batch_stats_map`) of a port `models.cmp.CMP`'s
+    variant."""
+    variant = (module.nbins, module.backbone, module.decoder, module.combo)
+    return cmp_name_map(*variant), cmp_batch_stats_map(*variant)
+
+
 def load_cmp_params(module: torch.nn.Module, variables: Mapping) -> None:
-    """Load a flax CMP's variables into the port's `models.cmp.CMP`."""
-    load_flax_variables(module, variables, cmp_name_map(),
-                        cmp_batch_stats_map())
+    """Load a flax CMP's variables into the port's `models.cmp.CMP`, any
+    variant."""
+    load_flax_variables(module, variables, *cmp_maps(module))
 
 
 def lpips_alex_name_map() -> List[Entry]:

@@ -1,8 +1,8 @@
 """The port imports on a machine without JAX.
 
 The card's machine has PyTorch, numpy, scipy and einops but no jax, flax,
-optax, PIL, safetensors, matplotlib, transformers or triton, and the port
-must not lean on the JAX package.  A subprocess installs an import hook that
+optax, PIL, safetensors, matplotlib, transformers, triton or PyYAML, and
+the port must not lean on the JAX package.  A subprocess installs an import hook that
 refuses those modules, then imports every module of `diffcodec_tpu_torch`
 (the codec's among them: its JPEG reads import PIL inside functions; the
 residual stage's and the CLIP tokenizer's; the checkpoint loaders, the
@@ -10,7 +10,9 @@ evaluation layer, whose plots import matplotlib inside functions, the
 distillation trainer, the dataset loader (PIL inside its image read), the
 prefetcher, the metrics logger, the PNG writer, the in-training
 validation and the CLIs, the training, export, drift, weights-day and
-figure ones among them), `chip_smoke` and the port's
+figure ones among them; the CMP's trainer, its configs (PyYAML inside the
+YAML loader) and CLI; the mesh and its dry run), `chip_smoke` and the
+port's
 scripts, `scripts/profile_torch_decode.py` (which also profiles the
 residual training points), `scripts/conv_kernel_breakdown.py`,
 `scripts/conv_kernel_ab.py`, `scripts/attention_bwd_ab.py`,
@@ -27,7 +29,7 @@ import sys
 REPO = pathlib.Path(__file__).resolve().parent.parent
 PKG = REPO / "diffcodec_tpu_torch"
 BLOCKED = ("jax", "jaxlib", "flax", "optax", "PIL", "safetensors",
-           "matplotlib", "transformers", "triton", "diffcodec_tpu")
+           "matplotlib", "transformers", "triton", "yaml", "diffcodec_tpu")
 
 _CHILD = r"""
 import importlib, importlib.abc, pkgutil, sys
@@ -88,7 +90,9 @@ def test_port_and_chip_smoke_import_without_jax():
                  "cli.train_distill", "cli.train_residual",
                  "cli.distill_eval", "utils.png_io", "train.validation",
                  "cli.train_controlnet", "cli.export_checkpoint",
-                 "cli.approx_drift", "cli.weights_day", "cli.make_figures"):
+                 "cli.approx_drift", "cli.weights_day", "cli.make_figures",
+                 "train.cmp_train", "train.cmp_config", "cli.train_cmp",
+                 "parallel.mesh", "parallel.dryrun"):
         assert f"diffcodec_tpu_torch.{name}" in proc.stdout.split(), name
 
 
