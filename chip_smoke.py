@@ -8,7 +8,13 @@ Phases, each printed as one JSON line with the elapsed seconds `t`:
              the decodes give it: max abs error and tolerance, the kernel's,
              the plain version's and, where one PyTorch call computes the
              same function (or, for the convs, its conv part), that call's
-             time (CUDA events, median of per-call times), and the bound
+             time (CUDA events, median of per-call times), and the bound;
+             the splat under two flows at each shape, i.i.d. noise (`wide`)
+             and a smooth field (`smooth`, as RAFT's), and beside its bound
+             `l2_bound_ms`, the time of one L2 reduction for each corner in
+             the frame at the rate of adds measured at C = 161 (a model of
+             the first small-channel kernel's traffic, not a bound: a
+             kernel that sums corners before it reduces goes below it)
   decode     the port's main path: `DualFlowPipeline.sample` at SD-1.5
              full width, 7 frames (one GOP-8) at 512 x 512, 30 UniPC steps
              with CFG 3.5, ControlNet scale 1.35 and FreeU, bf16, seeded
@@ -101,14 +107,17 @@ Phases, each printed as one JSON line with the elapsed seconds `t`:
              full-width AlexNet LPIPS) and the edge term, the term beside
              its value with the LPIPS network in bf16
   kernel     (residual shapes) the splat's small-channel kernel at the
-             residue transform's full-frame shapes: [8, 512, 512, 4] (RGB
-             and its metric) and [8, 512, 512, 3] (a flow and its metric),
-             and at the residual DDPM's [16, 256, 256, 4] and 3
+             residue transform's full-frame shapes: [16, 512, 512, 4] (both
+             anchors' RGB and its metric, one launch) and [16, 512, 512, 3]
+             (both occlusion checks: a flow and its metric), at B = 8 (one
+             direction) too, and at the residual DDPM's [32, 256, 256, c]
+             and [16, 256, 256, c]
   train_residual
              the residual second stage's training path: eight captions
              through `HashTokenizer` and the full-width CLIP text encoder
              (bf16), `make_residue_batch` on the card (both anchors warped
-             and occlusion-fused, 4 splats at 512 px), then
+             in one splat and both occlusion checks in another, then
+             fused: 2 splats at 512 px), then
              `ControlNetTrainer.train_step` with `ResControlNet` at SD-1.5
              width (the encode target the residual, the warped prediction
              to the ControlNet), batch 8 at 512 px, the fused VAE encoder,
@@ -118,7 +127,7 @@ Phases, each printed as one JSON line with the elapsed seconds `t`:
              of one iteration synchronised in turn (text encode, residue
              batch, encode, forward, backward, update), peak memory,
              launches (the train step's as in `train`, 8 splats; the
-             residue batch's 4 splats and nothing else; none in the text
+             residue batch's 2 splats and nothing else; none in the text
              encoder), finite losses, masters moved, frozen UNet, VAE and
              text encoder unmoved, non-zero gradients in the warp extractor
              and upstream of the residue extractor's splats
@@ -132,7 +141,7 @@ Phases, each printed as one JSON line with the elapsed seconds `t`:
              `train_residual.py`'s defaults: 256 px, batch 16, the residue
              batch made each step, eps-MSE at a timestep per sample in
              [0, 500), AdamW 4e-4; DDPM_STEPS steps: samples/s from the
-             median step, peak memory, finite losses, launches (4 splats a
+             median step, peak memory, finite losses, launches (2 splats a
              step); one `ddpm_step` from the UNet's output on the card
              against the same step on the CPU
   kernel     (distillation shapes) attention at BH = 32 (the CFG teacher
@@ -310,6 +319,10 @@ T0 = time.perf_counter()
 PEAK_BF16_FLOPS = 989e12
 PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
+# the rate at which L2 added the fp32 floats of the splat's C = 161 kernel,
+# measured on the H100 by scripts/splat_kernel_ab.py (PERF.md): the rate
+# of splat_bounds' l2_bound_ms
+L2_ADD_BYTES_PER_S = 2.2e12
 
 # ~0.1 s of spinning at the H100's ~1.7-2 GHz SM clock (see time_ms)
 SPIN_CYCLES = 200_000_000
@@ -433,7 +446,8 @@ CODEC_INTER = CODEC_FRAMES - 2
 CMP_SMALL = (64, 96)
 CMP_TOL = dict(logit_rel_norm=2e-2, flow_max_abs=0.5, flow_mean_abs=0.05)
 # the residual path: the residue transform's splats at 512 px (RGB + its
-# metric, a flow + its metric; splat_small_kernel, C < 16) at B = 8
+# metric, a flow + its metric; splat_tile_kernel) at B = 8, and as
+# make_residue_batch launches them, both directions in one (B = 16)
 # checkpoint: the distilled decode from reloaded weights against the same
 # decode from the modules that wrote them, on images in [-1, 1].  Equal
 # weights give equal networks (the tensors are compared bit for bit); what
@@ -456,8 +470,9 @@ EVAL_TOL = dict(psnr_abs=1e-4, ms_ssim_abs=1e-5, lpips_rel_norm=1e-4,
                 inception_rel_norm=5e-4, i3d_rel_norm=1e-3)
 EVAL_CROP = 256
 RESIDUE_SPLAT_SHAPES = [(512, 4), (512, 3)]
-# make_residue_batch: two warps and two occlusion checks, nothing else
-RESIDUE_BATCH_LAUNCHES = {"splat_sum": 4, "attention": 0, "attention_bwd": 0,
+# make_residue_batch: both warps in one splat and both occlusion checks in
+# another, nothing else
+RESIDUE_BATCH_LAUNCHES = {"splat_sum": 2, "attention": 0, "attention_bwd": 0,
                           "gn_silu_conv3x3": 0, "conv3x3_head": 0,
                           "silu_conv3x3": 0, "upsample_conv3x3": 0,
                           "downsample_conv3x3": 0}
@@ -692,32 +707,83 @@ def check_attention(gen, BH: int = BATCH * HEADS) -> list:
     return rows
 
 
+def smooth_flow(gen, B: int, R: int) -> torch.Tensor:
+    """[B, R, R, 2] flows as the codec and the residual trainer see them
+    (smooth RAFT fields, not noise): per sample a translation uniform in
+    [-8, 8] pixels, plus a random field at 1/32 of the frame, upsampled
+    bilinearly and scaled to a standard deviation of 2 pixels."""
+    g = max(1, R // 32)
+    field = F.interpolate(
+        torch.randn(B, 2, g, g, device="cuda", generator=gen), size=(R, R),
+        mode="bilinear", align_corners=False)
+    field = field * (2.0 / field.std().clamp_min(1e-6))
+    shift = (torch.rand(B, 2, 1, 1, device="cuda", generator=gen) * 2 - 1) * 8
+    return (field + shift).permute(0, 2, 3, 1).contiguous()
+
+
+# the splat's flows: i.i.d. noise of 3 pixels (every neighbour's target
+# elsewhere: the worst case for the reductions) and a smooth field
+SPLAT_FLOWS = ("wide", "smooth")
+
+
+def splat_inputs(gen, B: int, R: int, C: int, kind: str):
+    """vals ~ N(0, 1) [B, R, R, C] and a `kind` flow ('wide': 3 N(0, 1)
+    pixels, 'local': 0.5 N(0, 1), 'smooth': `smooth_flow`), with a NaN, an
+    off-frame and a -1e9 row (B >= 3)."""
+    vals = torch.randn(B, R, R, C, device="cuda", generator=gen)
+    if kind == "smooth":
+        flow = smooth_flow(gen, B, R)
+    else:
+        scale = {"wide": 3.0, "local": 0.5}[kind]
+        flow = torch.randn(B, R, R, 2, device="cuda", generator=gen) * scale
+    flow[0, 1, :4, 0] = float("nan")        # dropped pixels
+    flow[1, :, -1, 0] = R + 2.0             # lands out of frame
+    flow[2, 0, :, 1] = -1e9
+    return vals, flow
+
+
+def splat_bounds(flow: torch.Tensor, C: int) -> dict:
+    """The splat's bound on these inputs: bytes read and written over
+    HBM's rate against a multiply and an add a corner and channel over
+    the fp32 rate (bound_ms, bound_by); and l2_bound_ms, the floats it
+    would add with one reduction for each corner that lands in the frame
+    (C floats each) over L2_ADD_BYTES_PER_S: a model, not a bound, since a
+    kernel that sums the corners of a destination first adds fewer."""
+    B, H, W, _ = flow.shape
+    n = B * H * W
+    b_ms, b_by = bound(4 * 2 * n * C, 4 * n * (2 * C + 2), PEAK_FP32_FLOPS)
+    fx = torch.arange(W, device=flow.device) + flow[..., 0]
+    fy = torch.arange(H, device=flow.device)[:, None] + flow[..., 1]
+    finite = torch.isfinite(fx) & torch.isfinite(fy)
+    x0 = torch.where(finite, fx, -10.0).floor()
+    y0 = torch.where(finite, fy, -10.0).floor()
+    inside = sum(int(((x0 + kx >= 0) & (x0 + kx < W) & (y0 + ky >= 0)
+                      & (y0 + ky < H)).sum())
+                 for kx in (0, 1) for ky in (0, 1))
+    return dict(bound_ms=b_ms, bound_by=b_by,
+                l2_bound_ms=4 * C * inside / L2_ADD_BYTES_PER_S * 1e3)
+
+
 def check_splat(gen, batch: int = BATCH, shapes=SPLAT_SHAPES) -> list:
     """The splat at (R, C) `shapes` (default: the extractor's) for `batch`
-    splats (2 flow directions per sample in the extractor)."""
+    splats (2 flow directions per sample in the extractor), under each
+    kind of flow of SPLAT_FLOWS."""
     rows = []
     for R, C in shapes:
-        vals = torch.randn(batch, R, R, C, device="cuda", generator=gen)
-        flow = torch.randn(batch, R, R, 2, device="cuda", generator=gen) * 3
-        flow[0, 1, :4, 0] = float("nan")        # dropped pixels
-        flow[1, :, -1, 0] = R + 2.0             # lands out of frame
-        flow[2, 0, :, 1] = -1e9
-        err = compare(f"splat_sum {[batch, R, R, C]}", splat_sum(vals, flow),
-                      splat_sum_reference(vals, flow), **SPLAT_TOL)
-        n = batch * R * R
-        # a multiply and an add per corner and channel, fp32; vals and
-        # flow read, out written
-        b_ms, b_by = bound(4 * 2 * n * C, 4 * n * (2 * C + 2),
-                           PEAK_FP32_FLOPS)
-        row = dict(kernel="splat_sum", shape=[batch, R, R, C],
-                   max_abs_err=err, tol=SPLAT_TOL,
-                   ms=time_ms(lambda: splat_sum(vals, flow), 20),
-                   plain_ms=time_ms(lambda: splat_sum_reference(vals, flow),
-                                    20),
-                   library_ms=None, bound_ms=b_ms, bound_by=b_by)
-        log("kernel", **row)
-        rows.append(row)
-        del vals, flow
+        for kind in SPLAT_FLOWS:
+            vals, flow = splat_inputs(gen, batch, R, C, kind)
+            err = compare(f"splat_sum {[batch, R, R, C]} {kind}",
+                          splat_sum(vals, flow),
+                          splat_sum_reference(vals, flow), **SPLAT_TOL)
+            row = dict(kernel="splat_sum", shape=[batch, R, R, C], flow=kind,
+                       max_abs_err=err, tol=SPLAT_TOL,
+                       ms=time_ms(lambda: splat_sum(vals, flow), 20),
+                       plain_ms=time_ms(
+                           lambda: splat_sum_reference(vals, flow), 20),
+                       library_ms=None, **splat_bounds(flow, C))
+            log("kernel", **row)
+            rows.append(row)
+            del vals, flow
     return rows
 
 
@@ -2322,11 +2388,11 @@ def residual_reference():
                tol=dict(TRAIN_REF_TOL, warped_max_abs=RESIDUE_TOL),
                launches=launches)
     log("residual_reference", **out)
-    # the residue batch's 4 splats and 2 a level of the tiny extractor
+    # the residue batch's 2 splats and 2 a level of the tiny extractor
     check_launches("residual_reference", launches, {
         "attention": None, "attention_bwd": None, "gn_silu_conv3x3": None,
         "downsample_conv3x3": None,
-        "splat_sum": 4 + 2 * len(cfgs[1].inject_channels)})
+        "splat_sum": 2 + 2 * len(cfgs[1].inject_channels)})
     if not (out["warped_max_abs_err"] <= RESIDUE_TOL
             and out["loss_rel_err"] <= TRAIN_REF_TOL["loss_rel"]
             and out["grad_norm_rel_err"] <= TRAIN_REF_TOL["grad_norm_rel"]
@@ -3606,13 +3672,16 @@ def check_mesh(result: dict):
         check_launches(f"mesh dryrun {path}", dr[path]["launches"], want)
 
 
-def summary(rows, paths, name, source, replaces, main_path, **extra):
+def summary(rows, paths, name, source, replaces, main_path, heaviest=None,
+            **extra):
     """One kernel's entry of the `kernels` line: its heaviest shape's
-    numbers (the largest bound), its worst error over every shape (each
-    shape's limit is on its own `kernel` line), and its launches in
-    `main_path`'s run and in every decode's."""
+    numbers (the largest bound, among the rows `heaviest` takes where it
+    is given), its worst error over every shape (each shape's limit is on
+    its own `kernel` line), and its launches in `main_path`'s run and in
+    every decode's."""
     mine = [r for r in rows if r["kernel"] == name]
-    top = max(mine, key=lambda r: r["bound_ms"])
+    top = max((r for r in mine if heaviest is None or heaviest(r)),
+              key=lambda r: r["bound_ms"])
     return dict(name=name, route="cuda", source=source, replaces=replaces,
                 launches=paths[main_path][name], launches_in=main_path,
                 launches_by_path={p: n[name] for p, n in paths.items()},
@@ -3620,6 +3689,7 @@ def summary(rows, paths, name, source, replaces, main_path, **extra):
                 shape=top["shape"], ms=top["ms"],
                 plain_ms=top["plain_ms"], bound_ms=top["bound_ms"],
                 bound_by=top["bound_by"], library_ms=top["library_ms"],
+                **({"flow": top["flow"]} if "flow" in top else {}),
                 **extra)
 
 
@@ -3669,9 +3739,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     train_reference()
 
-    rows += (check_splat(gen, TRAIN_BATCH, RESIDUE_SPLAT_SHAPES)
-             + check_splat(gen, DDPM_BATCH,
-                           [(DDPM_RES, c) for _, c in RESIDUE_SPLAT_SHAPES]))
+    ddpm_shapes = [(DDPM_RES, c) for _, c in RESIDUE_SPLAT_SHAPES]
+    rows += (check_splat(gen, 2 * TRAIN_BATCH, RESIDUE_SPLAT_SHAPES)
+             + check_splat(gen, TRAIN_BATCH, RESIDUE_SPLAT_SHAPES)
+             + check_splat(gen, 2 * DDPM_BATCH, ddpm_shapes)
+             + check_splat(gen, DDPM_BATCH, ddpm_shapes))
     torch.cuda.empty_cache()
     residual = train_residual(gen)
     torch.cuda.empty_cache()
@@ -3743,13 +3815,25 @@ def main() -> int:
                      "attention_backward, the same plus dout.contiguous()"),
         summary(rows, paths, "splat_sum", cu + "splat.cu",
                 "diffcodec_tpu/ops/softsplat_pallas.py:112", "decode",
+                # the C >= 16 kernel's heaviest shape (the residual
+                # shapes' bounds are larger; the small channels' shapes
+                # are on their own `kernel` lines)
+                heaviest=lambda r: r["shape"][-1] >= 16,
                 note="splat_sum_kernel (C >= 16): a warp a pixel, each "
                      "corner's row in v4 reductions (red.global.add.v4.f32) "
                      "over its 16-byte-aligned body and scalar ones over "
-                     "its unaligned head and tail; splat_small_kernel "
-                     "(C < 16, the occlusion splats and the residue "
-                     "transform's at [8, 512, 512, 4] and [8, 512, 512, 3]):"
-                     " one scalar reduction a channel and corner"),
+                     "its unaligned head and tail; C = 3 on rows padded "
+                     "to 4 floats; splat_tile_kernel (C = 3, 4 from 256 x "
+                     "256 an image and 2^21 pixels a launch: the residue "
+                     "transform's [16, 512, 512, c], the DDPM's [32, 256, "
+                     "256, c]): a block a 32 x 32 tile, its corners sorted "
+                     "by destination in shared memory (integer atomics), "
+                     "one v4 reduction a destination row; splat_rows_kernel"
+                     " (C = 3, 4 below, the decode's occlusion splats): a "
+                     "thread a pixel, lane pairs, corners shared with the "
+                     "next lane merged; splat_small_kernel (C = 1, 2 and "
+                     "5-15, no path's): 8 lanes a pixel, a scalar reduction"
+                     " a channel and corner"),
         summary(rows, paths, "gn_silu_conv3x3", cu + "conv3x3.cu",
                 "diffcodec_tpu/ops/conv_pallas.py:211", "decode_fusedconv",
                 note="conv3x3_hopper where O > 8 (its launches include the "

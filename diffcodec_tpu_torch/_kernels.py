@@ -56,6 +56,7 @@ _SIGNATURES = {
     "dc_attention_fwd": [_P] * 5 + [_I] * 4 + [_F, _P],
     "dc_attention_bwd": [_P] * 11 + [_I] * 4 + [_F, _P],
     "dc_splat_sum": [_P, _P, _P, _I, _I, _I, _I, _P],
+    "dc_splat_row": [_I],
     "dc_conv3x3": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "dc_upsample_conv3x3": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "dc_downsample_conv3x3": [_P] * 4 + [_I] * 6 + [_P],

@@ -81,7 +81,8 @@ def splat_sum(vals: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
     and flow.
 
     On a CPU tensor this is `splat_sum_reference`.  On a CUDA tensor it
-    launches `csrc/splat.cu` on that tensor's device or raises;
+    launches `csrc/splat.cu` on that tensor's device or raises, and
+    returns a view where the kernel pads the rows (C = 3 into rows of 4);
     `splat_sum.launches` counts the launches.  The gradient is autograd's
     of `splat_sum_reference` on either device, as the JAX package's is the
     VJP of its XLA form (`ops/softsplat.py::_splat_sum_auto_bwd`).
@@ -109,17 +110,20 @@ def _splat_sum_fast(vals: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
         if not t.is_contiguous():
             raise ValueError(f"splat_sum: {name} must be contiguous")
     B, H, W, C = vals.shape
-    out = torch.zeros_like(vals)
-    if out.numel() == 0:
-        return out
+    if vals.numel() == 0:
+        return torch.zeros_like(vals)
     lib = _kernels.lib()
+    # the kernel's rows may be wider than C (3 channels go out as 16-byte
+    # v4 reductions onto rows of 4): the result is the view of C of them
+    row = lib.dc_splat_row(C)
+    out = torch.zeros(B, H, W, row, dtype=torch.float32, device=vals.device)
     with torch.cuda.device(vals.device):
         code = lib.dc_splat_sum(vals.data_ptr(), flow.data_ptr(),
                                 out.data_ptr(), B, H, W, C,
                                 _kernels.stream_ptr(vals.device))
     _kernels.check(code, "dc_splat_sum")
     splat_sum.launches += 1
-    return out
+    return out if row == C else out[..., :C]
 
 
 splat_sum.launches = 0

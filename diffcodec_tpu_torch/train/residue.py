@@ -12,8 +12,11 @@ The JAX package's two deliberate fixes over the reference are kept: image2
 is warped by flow2 (the reference warps image1 for both directions), and
 the fusion weighs each warp by its validity (1 - occlusion), falling back
 to the plain average where both are occluded.  The warp and fusion run in
-an fp32 island; on the card each of the four splats (two warps, two
-occlusion checks) is one launch of the splat kernel.
+an fp32 island.  Both anchors are warped by one splat over the 2B batch,
+and both occlusion checks are one `compute_occlusion_mask` call over it,
+as the extractors' `_warp_both` batches its directions: two launches of
+the splat kernel on the card, where the JAX package makes four splats.
+Each sample is splatted on its own, so the result is JAX's.
 """
 
 from __future__ import annotations
@@ -37,12 +40,15 @@ def warp_and_fuse(img1: torch.Tensor, img2: torch.Tensor,
     img* [B, H, W, 3] (any range), flow* [B, H, W, 2] in pixels (flow1:
     img1 -> target, flow2: img2 -> target).  Returns (fused, occ1, occ2),
     fp32."""
-    ones = torch.ones(flow1.shape[:3] + (1,), dtype=torch.float32,
-                      device=flow1.device)
-    warped1 = softsplat(img1.float(), flow1.float(), ones, "soft")
-    warped2 = softsplat(img2.float(), flow2.float(), ones, "soft")
-    occ1 = compute_occlusion_mask(flow2, flow1)
-    occ2 = compute_occlusion_mask(flow1, flow2)
+    flows = torch.cat([flow1, flow2], dim=0).float()
+    ones = torch.ones(flows.shape[:3] + (1,), dtype=torch.float32,
+                      device=flows.device)
+    warped1, warped2 = softsplat(
+        torch.cat([img1, img2], dim=0).float(), flows, ones,
+        "soft").chunk(2, dim=0)
+    # occ1 splats flow2 along flow1, occ2 flow1 along flow2
+    occ1, occ2 = compute_occlusion_mask(
+        torch.cat([flow2, flow1], dim=0), flows).chunk(2, dim=0)
     w1 = 1.0 - occ1
     w2 = 1.0 - occ2
     denom = w1 + w2

@@ -207,6 +207,125 @@ def test_splat_kernel_matches_plain_with_local_and_wide_flows(
                                atol=1e-5, rtol=1e-5)
 
 
+def _smooth_flow(rng, B, H, W):
+    """A smooth field as RAFT's flows are: per sample a translation of up
+    to 8 pixels plus a field at 1/32 of the frame, upsampled bilinearly,
+    ~2 pixels; with a NaN, an infinite and an off-frame flow."""
+    g = (max(1, H // 32), max(1, W // 32))
+    field = torch.nn.functional.interpolate(
+        torch.from_numpy(rng.standard_normal((B, 2) + g).astype(np.float32)),
+        size=(H, W), mode="bilinear", align_corners=False)
+    field = field * (2.0 / field.std().clamp_min(1e-6))
+    shift = torch.from_numpy(rng.uniform(-8, 8, (B, 2, 1, 1)).astype(
+        np.float32))
+    f = (field + shift).permute(0, 2, 3, 1).contiguous()
+    f[0, 1, 2, 0] = float("nan")
+    f[-1, 0, 0, 1] = float("inf")
+    f[:, :, -1, 0] = W + 3.0
+    return f
+
+
+def _splat_flow(rng, kind, B, H, W):
+    """'local' (0.5 pixels), 'wide' (6 pixels), 'smooth' (`_smooth_flow`)
+    or 'converge' (every pixel of a 32 x 32 block to its centre plus 0,
+    1/4 or 1/2 pixel: a tile's corners in a few destinations, with
+    weights that are multiples of 1/16)."""
+    if kind == "smooth":
+        return _smooth_flow(rng, B, H, W)
+    if kind == "converge":
+        yy, xx = np.mgrid[0:H, 0:W].astype(np.float32)
+        f = np.stack([xx // 32 * 32 + 16 - xx, yy // 32 * 32 + 16 - yy],
+                     -1)[None].repeat(B, 0)
+        f += rng.choice(np.float32([0, 0.25, 0.5]), f.shape)
+        return torch.from_numpy(np.ascontiguousarray(f))
+    return _flow(rng, B, H, W) * ({"local": 0.5, "wide": 6.0}[kind] / 2.5)
+
+
+def _misaligned(t, floats):
+    """A contiguous copy of `t` whose data starts `floats` floats past a
+    16-byte boundary."""
+    buf = torch.empty(t.numel() + 4, dtype=t.dtype, device=t.device)
+    out = buf[floats:floats + t.numel()].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["local", "wide", "smooth"])
+@pytest.mark.parametrize("C", list(range(1, 16)))
+def test_splat_rows_kernel_matches_plain(cuda_device, C, kind):
+    """Below 16 channels (the rows kernel at C = 3, 4, rows padded to
+    whole v4s at 3; the first design's 8 lanes a pixel otherwise): odd H
+    and W, so that unpadded rows start at every offset mod 4 floats, local,
+    wide and smooth flows (lane pairs and merged corners),
+    with a NaN, an infinite, an off-frame and a -1e9 flow; the result is
+    [B, H, W, C] whatever width the kernel's rows have."""
+    rng = np.random.default_rng(100 * C + len(kind))
+    B, H, W = 3, 37, 45
+    vals = torch.from_numpy(rng.standard_normal((B, H, W, C)).astype(
+        np.float32))
+    flow = _splat_flow(rng, kind, B, H, W)
+    flow[1, 2, :, 1] = -1e9
+    before = splat_sum.launches
+    got = splat_sum(vals.to(cuda_device), flow.to(cuda_device))
+    assert splat_sum.launches == before + 1
+    assert tuple(got.shape) == (B, H, W, C)
+    # fp32 reductions add in a varying order
+    torch.testing.assert_close(got.cpu(), splat_sum_reference(vals, flow),
+                               atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["local", "wide", "smooth", "converge"])
+@pytest.mark.parametrize("B,H,W,C", [
+    (1, 512, 512, 3), (8, 512, 512, 4), (8, 512, 512, 3), (16, 512, 512, 4),
+    (16, 512, 512, 3), (16, 512, 512, 7), (16, 512, 512, 15),
+    (32, 256, 256, 3), (16, 256, 256, 4), (27, 263, 301, 4),
+    (27, 263, 301, 3), (32, 255, 257, 4)])
+def test_splat_small_channels_match_plain_at_full_frames(cuda_device, B, H,
+                                                         W, C, kind):
+    """The residue transform's full frames, B up to 16 (both directions
+    of a batch of 8), the DDPM's 256 px at B = 32 (the tile kernel) and 16
+    (under 2^21 pixels: the rows kernel), and frames the tile kernel cuts
+    into ragged tiles (263 x 301) or leaves to the rows kernel (255 x 257,
+    under 256 x 256 pixels an image), against the plain version on the
+    card; 'converge' sends a whole tile's corners (~1000 a pixel) into a
+    few window slots, with integer values in [-2, 2], so that every
+    product and sum is exact in fp32 and any order of the additions gives
+    the plain version's result."""
+    rng = np.random.default_rng(B * C + H + len(kind))
+    vals = (rng.integers(-2, 3, (B, H, W, C)) if kind == "converge"
+            else rng.standard_normal((B, H, W, C)))
+    vals = torch.from_numpy(vals.astype(np.float32)).to(cuda_device)
+    flow = _splat_flow(rng, kind, B, H, W).to(cuda_device)
+    got = splat_sum(vals, flow)
+    assert tuple(got.shape) == (B, H, W, C)
+    # fp32 reductions add in a varying order
+    torch.testing.assert_close(got, splat_sum_reference(vals, flow),
+                               atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H,W", [(19, 23), (256, 260)])
+@pytest.mark.parametrize("C", [3, 4, 8, 161])
+@pytest.mark.parametrize("vals_off,flow_off", [(1, 0), (0, 1), (2, 3)])
+def test_splat_kernel_matches_plain_on_misaligned_inputs(cuda_device, C,
+                                                         vals_off, flow_off,
+                                                         H, W):
+    """vals and flow contiguous but not 16- or 8-byte aligned (a view into
+    a larger buffer): the kernels read them with scalar loads (the rows
+    kernel at 2 x 19 x 23, the tile kernel at 32 x 256 x 260)."""
+    rng = np.random.default_rng(C + 10 * vals_off + flow_off)
+    B = 2 if H < 256 else 32
+    vals = torch.from_numpy(rng.standard_normal((B, H, W, C)).astype(
+        np.float32))
+    flow = _splat_flow(rng, "wide", B, H, W)
+    got = splat_sum(_misaligned(vals.to(cuda_device), vals_off),
+                    _misaligned(flow.to(cuda_device), flow_off))
+    torch.testing.assert_close(got.cpu(), splat_sum_reference(vals, flow),
+                               atol=1e-5, rtol=1e-5)
+
+
 @pytest.mark.cuda
 def test_softsplat_soft_on_card_matches_cpu(cuda_device):
     rng = np.random.default_rng(3)
