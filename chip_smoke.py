@@ -78,6 +78,27 @@ Phases, each printed as one JSON line with the elapsed seconds `t`:
              the tiny pipeline tiled over a 112 x 168 frame (12 tiles of
              64, overlap 16), exact and distilled, fused VAE: the card
              against the CPU on the same weights and noise
+  fullwidth  SD-1.5's widths at one layer a block (the UNet's and the
+             ControlNet's 320/640/1280/1280, 8 heads, 77 x 768 text,
+             inject widths (320, 320, 640, 1280); the whole VAE
+             decoder), 64 px frames, batch 1, seeded random weights: the
+             `DualFlowControlNet` call (the pyramid's four features, 8
+             down residuals, mid residual at scale 1.35), the UNet call
+             with the CPU's fp32 residuals and FreeU, the VAE decoder
+             unfused and fused; on the card in bf16 with its kernels, on
+             the host's CPU in bf16 and in fp32 with the plain versions.
+             With relL2(a, b) = ||a - b|| / ||b||, e_ref = relL2(cpu_bf16,
+             cpu_fp32), e_card = relL2(card_bf16, cpu_fp32) and d =
+             relL2(card_bf16, cpu_bf16), every output holds e_card <=
+             1.5 e_ref + 1e-3 and d <= 2.5 e_ref + 1e-3
+             (`tests/test_torch_port_fullwidth.py`'s rule, the host's bf16
+             in JAX's place).  Launches asserted, count and shape (BH, Lq,
+             Lk, D) / (B, H, W, C) / (B, H, W, C, O), as the C entries
+             received them: attention at head dims 40/80/160 over 64, 16,
+             4 and 1 positions and 77 text tokens, the splats at the
+             inject widths' halves plus the metric (161/161/321/641) and
+             3, the fused decoder's 29 GN+SiLU+conv (the head's among
+             them) and 3 upsample launches
   kernel     (training shapes) the attention forward with its log-sum-exp
              and the backward kernel (dQ, dK and dV in one launch, with its
              delta and dQ-cast passes) against autograd of the plain
@@ -278,7 +299,8 @@ from diffcodec_tpu_torch.ops.attention import (attention, attention_backward,
                                                attention_bwd,
                                                attention_forward,
                                                attention_reference)
-from diffcodec_tpu_torch.ops.launches import count_launches
+from diffcodec_tpu_torch.ops.launches import (count_launches,
+                                              recorded_launches)
 from diffcodec_tpu_torch.ops.softsplat import splat_sum, splat_sum_reference
 from diffcodec_tpu_torch.ops.tiling import merge_tiles
 from diffcodec_tpu_torch.models.clip_text import CLIPTextEncoder
@@ -1806,6 +1828,165 @@ def tiled_reference():
                 and out["mean_abs_err"] <= tol["mean_abs"]):
             raise AssertionError(f"tiled tiny decode on the card disagrees "
                                  f"with the CPU: {out}")
+
+
+FULLWIDTH_RES, FULLWIDTH_T = 64, 500
+# one ControlNet + UNet call at batch 1 over 8 x 8 latents, one layer a
+# block: a self- and a cross-attention (77 tokens) in each transformer, 8
+# heads of 40/80/160 over 64/16/4 positions and the mid block's 1 (the
+# ControlNet's 3 levels and mid, 8 launches; the UNet's down 6, mid 2, up
+# 3 levels x 2 layers x 2, 20); two splats a pyramid level, both flow
+# directions in one launch: the features' half of the inject width plus
+# the metric, and the 3-channel occlusion check
+FULLWIDTH_ATTENTION = {(8, L, Lk, D) for L, D in ((64, 40), (16, 80),
+                                                  (4, 160), (1, 160))
+                       for Lk in (L, 77)}
+FULLWIDTH_SPLATS = {(2, h, h, c) for h, C in ((8, 161), (4, 161), (2, 321),
+                                              (1, 641)) for c in (C, 3)}
+FULLWIDTH_LAUNCHES = {"attention": 28, "splat_sum": 8}
+# The bf16 rule, here and in tests/test_torch_port_fullwidth.py, which
+# takes it from this module: with e_ref the reference's own bf16 error
+# against its fp32 (the CPU's here, JAX's there), a bf16 result's error
+# against that fp32 within e_scale e_ref, and its distance from the
+# reference's bf16 within d_scale e_ref (two independent roundings of one
+# size put it near 1.41), each plus floor
+FULLWIDTH_RULE = dict(e_scale=1.5, d_scale=2.5, floor=1e-3)
+
+
+def within_bf16_rule(e_ref: float, e_got: float, d: float) -> bool:
+    r = FULLWIDTH_RULE
+    return (e_got <= r["e_scale"] * e_ref + r["floor"]
+            and d <= r["d_scale"] * e_ref + r["floor"])
+
+
+def _fullwidth_nets(models, device, dtype) -> dict:
+    """`models` moved to `device` in `dtype` (in place), with a fused
+    copy of the VAE."""
+    nets = {k: m.to(device, dtype).eval() for k, m in models.items()}
+    nets["vae_fused"] = fused_vae_of(nets["vae"])
+    return nets
+
+
+@torch.no_grad()
+def _fullwidth_run(nets, x, dtype, residuals=None):
+    """{'controlnet': [4 pyramid features, 8 down residuals, mid],
+    'unet': [eps], 'vae': [images], 'vae_fused': [images]} on the nets'
+    device, float32 on the CPU; the UNet takes `residuals` (fp32, cast),
+    else the ControlNet's own."""
+    dev = next(nets["unet"].parameters()).device
+    cast = {k: v.to(dev, dtype) if k in ("cond", "flow", "text")
+            else v.to(dev) for k, v in x.items()}
+    pyr = nets["controlnet"].extract_pyramid(cast["cond"], cast["flow"])
+    down, mid = nets["controlnet"].backbone(cast["noise"], FULLWIDTH_T,
+                                            cast["text"], pyr, 1.35)
+    cn = [*pyr, *down, mid]
+    res = ([r.to(dev, dtype) for r in residuals] if residuals is not None
+           else cn[len(pyr):])
+    s = SamplerConfig()
+    eps = nets["unet"](cast["noise"], FULLWIDTH_T, cast["text"],
+                       down_block_additional_residuals=res[:-1],
+                       mid_block_additional_residual=res[-1],
+                       freeu=(s.freeu_s1, s.freeu_s2, s.freeu_b1,
+                              s.freeu_b2))
+    out = {"controlnet": cn, "unet": [eps]}
+    for k in ("vae", "vae_fused"):
+        out[k] = [decode_from_latents(nets[k], cast["latents"])]
+    return {k: [t.float().cpu() for t in v] for k, v in out.items()}
+
+
+def fullwidth():
+    """SD-1.5's widths at one layer a block, 64 px, batch 1 (see the
+    module's docstring): the card's bf16 against the CPU's bf16 and fp32,
+    output by output, and its launches."""
+    unet_cfg = UNetConfig(layers_per_block=1)
+    cn_cfg, vae_cfg = ControlNetConfig(unet=unet_cfg), VAEConfig()
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(19)
+    models = {}
+    for name, make in (("controlnet", lambda: DualFlowControlNet(cn_cfg)),
+                       ("unet", lambda: UNet2DConditionModel(unet_cfg)),
+                       ("vae", lambda: AutoencoderKL(vae_cfg))):
+        with torch.device("meta"):
+            m = make()
+        models[name] = m.to_empty(device="cuda")
+        fill_params(models[name], gen)
+    models = {k: m.cpu() for k, m in models.items()}
+    B, H, h = 1, FULLWIDTH_RES, FULLWIDTH_RES // 8
+    g = torch.Generator().manual_seed(20)
+    x = dict(cond=torch.rand((B, H, H, 6), generator=g) * 2 - 1,
+             flow=torch.randn((B, H, H, 4), generator=g) * 2,
+             text=torch.randn((B, 77, unet_cfg.cross_attention_dim),
+                              generator=g) * 0.1,
+             noise=torch.randn((B, h, h, 4), generator=g),
+             latents=torch.randn((B, h, h, 4), generator=g))
+
+    # the same weights in turn: fp32 and bf16 on the CPU, bf16 on the card
+    runs = {}
+    nets = _fullwidth_nets(models, "cpu", torch.float32)
+    runs["cpu_fp32"], cpu32_s = timed(lambda: _fullwidth_run(
+        nets, x, torch.float32))
+    residuals = runs["cpu_fp32"]["controlnet"][len(cn_cfg.inject_channels):]
+    nets = _fullwidth_nets(models, "cpu", torch.bfloat16)
+    runs["cpu_bf16"], cpu16_s = timed(lambda: _fullwidth_run(
+        nets, x, torch.bfloat16, residuals))
+    nets = _fullwidth_nets(models, "cuda", torch.bfloat16)
+    _fullwidth_run(nets, x, torch.bfloat16, residuals)  # warm-up
+
+    (runs["card_bf16"], launches, calls), card_s = timed(
+        lambda: recorded_launches(lambda: _fullwidth_run(
+            nets, x, torch.bfloat16, residuals)))
+    del nets, models
+    torch.cuda.empty_cache()
+
+    outputs, failed = {}, []
+    for net in ("controlnet", "unet", "vae", "vae_fused"):
+        rows = []
+        for i, (f32, b16, got) in enumerate(zip(
+                runs["cpu_fp32"][net], runs["cpu_bf16"][net],
+                runs["card_bf16"][net])):
+            if not torch.isfinite(got).all() or got.shape != f32.shape:
+                failed.append((net, i, "shape or non-finite"))
+            e_ref = rel_norm(b16, f32)
+            e_card, d = rel_norm(got, f32), rel_norm(got, b16)
+            rows.append([e_ref, e_card, d])
+            if not within_bf16_rule(e_ref, e_card, d):
+                failed.append((net, i, e_ref, e_card, d))
+        outputs[net] = rows
+
+    check_launches("fullwidth", launches, {
+        **FULLWIDTH_LAUNCHES, **FUSED_VAE_LAUNCHES, "silu_conv3x3": 0,
+        **NO_TRAIN_KERNELS})
+    shapes = {"attention": set(calls.get("dc_attention_fwd", [])),
+              "splat_sum": set(calls.get("dc_splat_sum", []))}
+    for name, want in (("attention", FULLWIDTH_ATTENTION),
+                       ("splat_sum", FULLWIDTH_SPLATS)):
+        if shapes[name] != want:
+            failed.append((name, sorted(shapes[name]), sorted(want)))
+    # B, H, W, C, O (the conv entry takes its prologue after them)
+    convs = [c[:5] for c in calls.get("dc_conv3x3", [])]
+    ups = calls.get("dc_upsample_conv3x3", [])
+    if (len(convs) != FUSED_VAE_LAUNCHES["gn_silu_conv3x3"]
+            or len(ups) != FUSED_VAE_LAUNCHES["upsample_conv3x3"]
+            or (B, H, H, vae_cfg.base_channels, 3) not in convs):
+        failed.append(("vae_fused", convs, ups))
+
+    rows = [r for v in outputs.values() for r in v]
+    out = dict(res=H, batch=B, layers_per_block=unet_cfg.layers_per_block,
+               timestep=FULLWIDTH_T, rule=FULLWIDTH_RULE,
+               columns=["e_ref", "e_card", "d"], errors=outputs,
+               worst=dict(e_card_over_e_ref=max(r[1] / max(r[0], 1e-30)
+                                                for r in rows),
+                          d_over_e_ref=max(r[2] / max(r[0], 1e-30)
+                                           for r in rows)),
+               launches=launches,
+               shapes={k: sorted(v) for k, v in shapes.items()},
+               conv_shapes=sorted(set(convs)), upsample_shapes=sorted(
+                   set(ups)),
+               card_s=card_s, cpu_bf16_s=cpu16_s, cpu_fp32_s=cpu32_s,
+               seconds=time.perf_counter() - t0)
+    log("fullwidth", **out)
+    if failed:
+        raise AssertionError(f"fullwidth: {failed}")
 
 
 def attention_bwd_bound(BH, Lq, Lk, D):
@@ -3731,6 +3912,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     reference_check()
     tiled_reference()
+    fullwidth()
 
     rows += (check_attention_train(gen) + check_downsample(gen)
              + check_gn_conv(gen, ENCODER_GN_SHAPES)

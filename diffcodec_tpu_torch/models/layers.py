@@ -180,10 +180,13 @@ class Attention(nn.Module):
         self.to_out = nn.ModuleList([nn.Linear(inner, query_dim)])
 
     def _heads(self, t):
+        """[B, L, heads * D] -> [B * heads, L, D], contiguous, as the
+        kernel takes its operands (at B = 1 the reshape alone is a
+        strided view)."""
         B, L, _ = t.shape
         return (t.reshape(B, L, self.heads, self.dim_head)
                 .permute(0, 2, 1, 3).reshape(B * self.heads, L,
-                                              self.dim_head))
+                                              self.dim_head).contiguous())
 
     def forward(self, x, context=None):
         context = x if context is None else context

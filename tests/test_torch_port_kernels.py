@@ -790,6 +790,34 @@ def test_build_compiles_the_sources_and_not_the_headers(monkeypatch,
                             for s in _kernels._Library().sources()}
 
 
+def test_recorded_launches_take_each_entrys_integer_arguments(monkeypatch):
+    """`ops.launches.recorded_launches` records the ints of each entry's
+    `_SIGNATURES` row, in order, lets every call through, puts the
+    library back, and counts as `count_launches` does."""
+    from diffcodec_tpu_torch.ops import launches
+
+    class FakeLibrary:
+        def __getattr__(self, name):
+            assert name in _kernels._SIGNATURES
+            return lambda *args: len(args)
+    fake = FakeLibrary()
+    monkeypatch.setattr(_kernels.LIBRARY, "_lib", fake)
+
+    def run():
+        lib = _kernels.lib()
+        attention.launches += 1
+        return (lib.dc_attention_fwd(*[None] * 5, 8, 64, 77, 40, 0.5, None),
+                lib.dc_conv3x3(*[None] * 7, 1, 64, 64, 128, 3, 1, None),
+                lib.dc_splat_sum(None, None, None, 2, 8, 8, 161, None))
+    out, counts, calls = launches.recorded_launches(run)
+    assert out == (11, 14, 8)
+    assert counts["attention"] == 1 and counts["splat_sum"] == 0
+    assert calls == {"dc_attention_fwd": [(8, 64, 77, 40)],
+                     "dc_conv3x3": [(1, 64, 64, 128, 3, 1)],
+                     "dc_splat_sum": [(2, 8, 8, 161)]}
+    assert _kernels.LIBRARY._lib is fake
+
+
 def _csrc(name):
     with open(os.path.join(_kernels.CSRC_DIR, name)) as f:
         return f.read()
