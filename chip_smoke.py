@@ -19,7 +19,9 @@ Phases, each printed as one JSON line with the elapsed seconds `t`:
              full width, 7 frames (one GOP-8) at 512 x 512, 30 UniPC steps
              with CFG 3.5, ControlNet scale 1.35 and FreeU, bf16, seeded
              random weights; launch counts are zeroed just before and read
-             just after
+             just after; a second decode of the same inputs (and a second
+             denoise loop) against the first: images and final latents
+             within the splat's atomics' spread (`DECODE_REPEAT_TOL`)
   decode_fusedconv
              the same decode with `fused_conv=True` (the JAX package's
              `exact_fusedconv` point): every conv3x3 of the VAE decoder
@@ -99,6 +101,15 @@ Phases, each printed as one JSON line with the elapsed seconds `t`:
              inject widths' halves plus the metric (161/161/321/641) and
              3, the fused decoder's 29 GN+SiLU+conv (the head's among
              them) and 3 upsample launches
+  fulldepth  SD-1.5 whole (2 layers a block: 12 down residuals) at the
+             decode's operating point: 512 px (64 x 64 latents), one frame
+             with CFG (batch 2), the pyramid, then one step's ControlNet
+             call and UNet call (the CPU's fp32 residuals, FreeU) at
+             timestep 500, seeded random weights; the card's bf16 against
+             the CPU's bf16 and fp32 by `fullwidth`'s rule, output by
+             output (12 down residuals, mid, eps); 46 attention launches
+             (7 each at 4096, 1024 and 256 positions, 2 at 64, self and
+             cross) and 8 splats, counted and recorded by shape
   kernel     (training shapes) the attention forward with its log-sum-exp
              and the backward kernel (dQ, dK and dV in one launch, with its
              delta and dQ-cast passes) against autograd of the plain
@@ -260,6 +271,7 @@ last {"ok": true, "device": {...}}.  Any failure raises and exits non-zero.
 
 from __future__ import annotations
 
+import collections
 import copy
 import dataclasses
 import json
@@ -994,6 +1006,18 @@ def check_images(label, images, frames=FRAMES, res=RES):
         raise AssertionError(f"{label}: non-finite values")
 
 
+# decode: the main path against itself on the same inputs (no draws: the
+# noise comes in).  On one pyramid every kernel it launches is
+# deterministic, so two denoise loops agree bit for bit.  A pyramid made
+# again differs by the order of the splat's fp32 atomics, ~1e-7 relative
+# before its bf16 rounding: each level within one bf16 rounding (2^-8)
+# of the first, by relL2.  The 30 bf16 steps of random-weight networks
+# carry that to the images further than the 4-step decode's ~0.04 max and
+# ~0.004 mean (the checkpoint phase's `repeat_*`): 0.045-0.049 and
+# 0.0030-0.0053 in three pairs on the H100, so two whole decodes' images
+# are held to the reference phase's bf16 limits
+DECODE_REPEAT_TOL = dict(pyramid_rel=2.0 ** -8, image_max_abs=0.25,
+                         image_mean_abs=0.02)
 # a decode runs no backward and no encoder
 NO_TRAIN_KERNELS = {"attention_bwd": 0, "downsample_conv3x3": 0}
 
@@ -1026,25 +1050,66 @@ def decode(gen):
         "conv3x3_head": 0, "upsample_conv3x3": 0, "silu_conv3x3": 0,
         **NO_TRAIN_KERNELS})
 
-    _, second_s = timed(lambda: run(pipe, x))
+    images2, second_s = timed(lambda: run(pipe, x))
     # the pyramid alone, the denoise loop (pyramid included), the VAE
     with torch.no_grad():
         _, pyramid_s = timed(lambda: pipe.controlnet.extract_pyramid(
             x["cond"], x["flow"]))
+
     final, denoise_s = timed(lambda: pipe.denoise(
         x["latents"], x["text"], x["uncond"], x["cond"], x["flow"]))
     with torch.no_grad():
         _, vae_s = timed(lambda: decode_from_latents(pipe.vae, final))
+    repeat = decode_repeat(pipe, x, images, images2, final)
     out = dict(frames=FRAMES, res=RES, steps=STEPS, first_s=first_s,
                second_s=second_s, frames_per_s=FRAMES / second_s,
                stages_s=dict(pyramid=pyramid_s, denoise=denoise_s,
                              vae=vae_s),
                peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
-               launches=launches,
+               launches=launches, repeat=repeat,
                image_mean_abs=images.float().abs().mean().item(),
                image_std=images.float().std().item())
     log("decode", **out)
+    if not repeat["ok"]:
+        raise AssertionError(f"decode: a second decode of the same inputs "
+                             f"differs past the splat's atomics: {repeat}")
     return out, pipe, x, final
+
+
+@torch.no_grad()
+def decode_repeat(pipe, x, images, images2, final) -> dict:
+    """The main path against itself on the same inputs: two denoise loops
+    on one pyramid (the splat's atomics run once) bit for bit, latents and
+    images; a pyramid made again within a bf16 rounding of the first, level
+    by level; two whole decodes' images within the reference phase's
+    limits (DECODE_REPEAT_TOL), their latents' difference logged."""
+    pyramid = pipe.controlnet.extract_pyramid(x["cond"], x["flow"])
+    pyramid2 = pipe.controlnet.extract_pyramid(x["cond"], x["flow"])
+    pipe.controlnet.extract_pyramid = lambda cond, flow: pyramid
+    try:
+        again = [pipe.denoise(x["latents"], x["text"], x["uncond"],
+                              x["cond"], x["flow"]) for _ in range(2)]
+    finally:
+        del pipe.controlnet.extract_pyramid
+    shown = [decode_from_latents(pipe.vae, z) for z in again]
+    di = (images2.float() - images.float()).abs()
+    dl = (again[0].float() - final.float()).abs()
+    ref = final.float().abs()
+    out = dict(one_pyramid_equal=dict(
+                   latents=torch.equal(again[0], again[1]),
+                   images=torch.equal(shown[0], shown[1])),
+               pyramid_rel=[rel_norm(b, a) for a, b in zip(pyramid,
+                                                           pyramid2)],
+               image_max_abs=di.max().item(), image_mean_abs=di.mean().item(),
+               latent_max_rel=(dl.max() / ref.max()).item(),
+               latent_mean_rel=(dl.mean() / ref.mean()).item(),
+               tol=DECODE_REPEAT_TOL)
+    tol = DECODE_REPEAT_TOL
+    out["ok"] = (all(out["one_pyramid_equal"].values())
+                 and max(out["pyramid_rel"]) <= tol["pyramid_rel"]
+                 and out["image_max_abs"] <= tol["image_max_abs"]
+                 and out["image_mean_abs"] <= tol["image_mean_abs"])
+    return out
 
 
 def fused_vae_of(vae: AutoencoderKL) -> AutoencoderKL:
@@ -1861,10 +1926,73 @@ def within_bf16_rule(e_ref: float, e_got: float, d: float) -> bool:
 
 def _fullwidth_nets(models, device, dtype) -> dict:
     """`models` moved to `device` in `dtype` (in place), with a fused
-    copy of the VAE."""
+    copy of the VAE where there is one."""
     nets = {k: m.to(device, dtype).eval() for k, m in models.items()}
-    nets["vae_fused"] = fused_vae_of(nets["vae"])
+    if "vae" in nets:
+        nets["vae_fused"] = fused_vae_of(nets["vae"])
     return nets
+
+
+def _seeded_models(makers: dict, seed: int) -> dict:
+    """{name: module}: each made on the meta device, allocated on the card
+    and filled by `fill_params` from one seeded generator there, then
+    moved to the CPU in fp32."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    models = {}
+    for name, make in makers.items():
+        with torch.device("meta"):
+            m = make()
+        models[name] = m.to_empty(device="cuda")
+        fill_params(models[name], gen)
+    return {k: m.cpu() for k, m in models.items()}
+
+
+def _card_against_cpu(models: dict, run, residuals_of) -> tuple:
+    """The same weights in turn: run(nets, dtype, residuals) in fp32 and
+    bf16 on the CPU, in bf16 on the card (after a warm-up, its launches
+    counted and recorded), the bf16 runs' UNet fed the residuals that
+    residuals_of picks from the fp32 run.  `models` ends on the card and
+    is emptied.  Returns (errors: {net: [[e_ref, e_card, d], ...]},
+    failed, launches, calls, seconds of each run)."""
+    runs = {}
+    nets = _fullwidth_nets(models, "cpu", torch.float32)
+    runs["cpu_fp32"], cpu32_s = timed(lambda: run(nets, torch.float32,
+                                                  None))
+    residuals = residuals_of(runs["cpu_fp32"])
+    nets = _fullwidth_nets(models, "cpu", torch.bfloat16)
+    runs["cpu_bf16"], cpu16_s = timed(lambda: run(nets, torch.bfloat16,
+                                                  residuals))
+    nets = _fullwidth_nets(models, "cuda", torch.bfloat16)
+    run(nets, torch.bfloat16, residuals)  # warm-up
+    (runs["card_bf16"], launches, calls), card_s = timed(
+        lambda: recorded_launches(lambda: run(nets, torch.bfloat16,
+                                              residuals)))
+    del nets
+    models.clear()
+    torch.cuda.empty_cache()
+
+    errors, failed = {}, []
+    for net, f32s in runs["cpu_fp32"].items():
+        rows = []
+        for i, (f32, b16, got) in enumerate(zip(
+                f32s, runs["cpu_bf16"][net], runs["card_bf16"][net])):
+            if not torch.isfinite(got).all() or got.shape != f32.shape:
+                failed.append((net, i, "shape or non-finite"))
+            e_ref = rel_norm(b16, f32)
+            e_card, d = rel_norm(got, f32), rel_norm(got, b16)
+            rows.append([e_ref, e_card, d])
+            if not within_bf16_rule(e_ref, e_card, d):
+                failed.append((net, i, e_ref, e_card, d))
+        errors[net] = rows
+    return errors, failed, launches, calls, dict(
+        card_s=card_s, cpu_bf16_s=cpu16_s, cpu_fp32_s=cpu32_s)
+
+
+def _worst(errors: dict) -> dict:
+    rows = [r for v in errors.values() for r in v]
+    return dict(e_card_over_e_ref=max(r[1] / max(r[0], 1e-30)
+                                      for r in rows),
+                d_over_e_ref=max(r[2] / max(r[0], 1e-30) for r in rows))
 
 
 @torch.no_grad()
@@ -1901,16 +2029,10 @@ def fullwidth():
     unet_cfg = UNetConfig(layers_per_block=1)
     cn_cfg, vae_cfg = ControlNetConfig(unet=unet_cfg), VAEConfig()
     t0 = time.perf_counter()
-    gen = torch.Generator(device="cuda").manual_seed(19)
-    models = {}
-    for name, make in (("controlnet", lambda: DualFlowControlNet(cn_cfg)),
-                       ("unet", lambda: UNet2DConditionModel(unet_cfg)),
-                       ("vae", lambda: AutoencoderKL(vae_cfg))):
-        with torch.device("meta"):
-            m = make()
-        models[name] = m.to_empty(device="cuda")
-        fill_params(models[name], gen)
-    models = {k: m.cpu() for k, m in models.items()}
+    models = _seeded_models(
+        {"controlnet": lambda: DualFlowControlNet(cn_cfg),
+         "unet": lambda: UNet2DConditionModel(unet_cfg),
+         "vae": lambda: AutoencoderKL(vae_cfg)}, 19)
     B, H, h = 1, FULLWIDTH_RES, FULLWIDTH_RES // 8
     g = torch.Generator().manual_seed(20)
     x = dict(cond=torch.rand((B, H, H, 6), generator=g) * 2 - 1,
@@ -1919,39 +2041,9 @@ def fullwidth():
                               generator=g) * 0.1,
              noise=torch.randn((B, h, h, 4), generator=g),
              latents=torch.randn((B, h, h, 4), generator=g))
-
-    # the same weights in turn: fp32 and bf16 on the CPU, bf16 on the card
-    runs = {}
-    nets = _fullwidth_nets(models, "cpu", torch.float32)
-    runs["cpu_fp32"], cpu32_s = timed(lambda: _fullwidth_run(
-        nets, x, torch.float32))
-    residuals = runs["cpu_fp32"]["controlnet"][len(cn_cfg.inject_channels):]
-    nets = _fullwidth_nets(models, "cpu", torch.bfloat16)
-    runs["cpu_bf16"], cpu16_s = timed(lambda: _fullwidth_run(
-        nets, x, torch.bfloat16, residuals))
-    nets = _fullwidth_nets(models, "cuda", torch.bfloat16)
-    _fullwidth_run(nets, x, torch.bfloat16, residuals)  # warm-up
-
-    (runs["card_bf16"], launches, calls), card_s = timed(
-        lambda: recorded_launches(lambda: _fullwidth_run(
-            nets, x, torch.bfloat16, residuals)))
-    del nets, models
-    torch.cuda.empty_cache()
-
-    outputs, failed = {}, []
-    for net in ("controlnet", "unet", "vae", "vae_fused"):
-        rows = []
-        for i, (f32, b16, got) in enumerate(zip(
-                runs["cpu_fp32"][net], runs["cpu_bf16"][net],
-                runs["card_bf16"][net])):
-            if not torch.isfinite(got).all() or got.shape != f32.shape:
-                failed.append((net, i, "shape or non-finite"))
-            e_ref = rel_norm(b16, f32)
-            e_card, d = rel_norm(got, f32), rel_norm(got, b16)
-            rows.append([e_ref, e_card, d])
-            if not within_bf16_rule(e_ref, e_card, d):
-                failed.append((net, i, e_ref, e_card, d))
-        outputs[net] = rows
+    outputs, failed, launches, calls, times = _card_against_cpu(
+        models, lambda nets, dtype, res: _fullwidth_run(nets, x, dtype, res),
+        lambda cpu: cpu["controlnet"][len(cn_cfg.inject_channels):])
 
     check_launches("fullwidth", launches, {
         **FULLWIDTH_LAUNCHES, **FUSED_VAE_LAUNCHES, "silu_conv3x3": 0,
@@ -1970,23 +2062,113 @@ def fullwidth():
             or (B, H, H, vae_cfg.base_channels, 3) not in convs):
         failed.append(("vae_fused", convs, ups))
 
-    rows = [r for v in outputs.values() for r in v]
     out = dict(res=H, batch=B, layers_per_block=unet_cfg.layers_per_block,
                timestep=FULLWIDTH_T, rule=FULLWIDTH_RULE,
                columns=["e_ref", "e_card", "d"], errors=outputs,
-               worst=dict(e_card_over_e_ref=max(r[1] / max(r[0], 1e-30)
-                                                for r in rows),
-                          d_over_e_ref=max(r[2] / max(r[0], 1e-30)
-                                           for r in rows)),
-               launches=launches,
+               worst=_worst(outputs), launches=launches,
                shapes={k: sorted(v) for k, v in shapes.items()},
                conv_shapes=sorted(set(convs)), upsample_shapes=sorted(
                    set(ups)),
-               card_s=card_s, cpu_bf16_s=cpu16_s, cpu_fp32_s=cpu32_s,
-               seconds=time.perf_counter() - t0)
+               **times, seconds=time.perf_counter() - t0)
     log("fullwidth", **out)
     if failed:
         raise AssertionError(f"fullwidth: {failed}")
+
+
+FULLDEPTH_RES, FULLDEPTH_T = 512, 500
+# one CFG step of the 512 px decode at SD-1.5's depth (2 layers a block):
+# the ControlNet's 7 transformers (2 a level at 64/32/16 latents, the mid
+# block's at 8) and the UNet's 16 (2 a level down, the mid block's, 3 a
+# level up), a self- and a cross-attention (77 tokens) each, 8 heads of 2
+# samples: 46 launches, 7 a shape at 4096/1024/256 positions and 2 at the
+# mid block's 64; the pyramid's 8 splats at one frame's both directions
+FULLDEPTH_ATTENTION = collections.Counter(
+    {(16, L, Lk, D): n for L, D, n in ((4096, 40, 7), (1024, 80, 7),
+                                       (256, 160, 7), (64, 160, 2))
+     for Lk in (L, 77)})
+FULLDEPTH_SPLATS = collections.Counter(
+    {(2, h, h, c): 1 for h, C in ((64, 161), (32, 161), (16, 321), (8, 641))
+     for c in (C, 3)})
+FULLDEPTH_LAUNCHES = {"attention": 46, "splat_sum": 8}
+
+
+@torch.no_grad()
+def _fulldepth_run(nets, x, dtype, residuals=None):
+    """{'controlnet': [12 down residuals, mid], 'unet': [eps]}: the
+    pyramid of one frame, then one step of the CFG decode at FULLDEPTH_T
+    (the batch doubled, [uncond, text]), on the nets' device, float32 on
+    the CPU; the UNet takes `residuals` (fp32, cast), else the
+    ControlNet's own."""
+    dev = next(nets["unet"].parameters()).device
+    cast = {k: v.to(dev, dtype) if k in ("cond", "flow", "text", "uncond")
+            else v.to(dev) for k, v in x.items()}
+    pyramid = [torch.cat([p, p]) for p in nets["controlnet"].extract_pyramid(
+        cast["cond"], cast["flow"])]
+    ctx = torch.cat([cast["uncond"], cast["text"]])
+    lat = torch.cat([cast["latents"], cast["latents"]])
+    s = SamplerConfig()
+    down, mid = nets["controlnet"].backbone(
+        lat, FULLDEPTH_T, ctx, pyramid, s.controlnet_conditioning_scale)
+    res = ([r.to(dev, dtype) for r in residuals] if residuals is not None
+           else [*down, mid])
+    eps = nets["unet"](lat, FULLDEPTH_T, ctx,
+                       down_block_additional_residuals=res[:-1],
+                       mid_block_additional_residual=res[-1],
+                       freeu=(s.freeu_s1, s.freeu_s2, s.freeu_b1,
+                              s.freeu_b2))
+    out = {"controlnet": [*down, mid], "unet": [eps]}
+    return {k: [t.float().cpu() for t in v] for k, v in out.items()}
+
+
+def fulldepth() -> dict:
+    """SD-1.5 whole (2 layers a block) at the decode's operating point:
+    512 px, CFG batch 2, one step at a mid timestep, FreeU; the card's
+    bf16 against the CPU's bf16 and fp32 by `within_bf16_rule`, output by
+    output (12 down residuals, mid, eps), and its launches, counted and
+    recorded by shape.  Returns the launches."""
+    unet_cfg = UNetConfig()
+    cn_cfg = ControlNetConfig(unet=unet_cfg)
+    t0 = time.perf_counter()
+    models = _seeded_models(
+        {"controlnet": lambda: DualFlowControlNet(cn_cfg),
+         "unet": lambda: UNet2DConditionModel(unet_cfg)}, 21)
+    H, h, D = FULLDEPTH_RES, FULLDEPTH_RES // 8, unet_cfg.cross_attention_dim
+    g = torch.Generator().manual_seed(22)
+    x = dict(cond=torch.rand((1, H, H, 6), generator=g) * 2 - 1,
+             flow=torch.randn((1, H, H, 4), generator=g) * 4,
+             text=torch.randn((1, 77, D), generator=g) * 0.1,
+             uncond=torch.randn((1, 77, D), generator=g) * 0.1,
+             latents=torch.randn((1, h, h, 4), generator=g))
+    errors, failed, launches, calls, times = _card_against_cpu(
+        models, lambda nets, dtype, res: _fulldepth_run(nets, x, dtype, res),
+        lambda cpu: cpu["controlnet"])
+    if len(errors["controlnet"]) != 13:
+        failed.append(("controlnet outputs", len(errors["controlnet"])))
+
+    check_launches("fulldepth", launches, {
+        **FULLDEPTH_LAUNCHES, "gn_silu_conv3x3": 0, "conv3x3_head": 0,
+        "upsample_conv3x3": 0, "silu_conv3x3": 0, **NO_TRAIN_KERNELS})
+    shapes = {"attention": collections.Counter(calls.get("dc_attention_fwd",
+                                                         [])),
+              "splat_sum": collections.Counter(calls.get("dc_splat_sum",
+                                                         []))}
+    for name, want in (("attention", FULLDEPTH_ATTENTION),
+                       ("splat_sum", FULLDEPTH_SPLATS)):
+        if shapes[name] != want:
+            failed.append((name, sorted(shapes[name].items()),
+                           sorted(want.items())))
+
+    out = dict(res=H, batch=2, layers_per_block=unet_cfg.layers_per_block,
+               timestep=FULLDEPTH_T, rule=FULLWIDTH_RULE,
+               columns=["e_ref", "e_card", "d"], errors=errors,
+               worst=_worst(errors), launches=launches,
+               shapes={k: sorted([list(s), n] for s, n in v.items())
+                       for k, v in shapes.items()},
+               **times, seconds=time.perf_counter() - t0)
+    log("fulldepth", **out)
+    if failed:
+        raise AssertionError(f"fulldepth: {failed}")
+    return launches
 
 
 def attention_bwd_bound(BH, Lq, Lk, D):
@@ -3913,6 +4095,8 @@ def main() -> int:
     reference_check()
     tiled_reference()
     fullwidth()
+    deep_launches = fulldepth()
+    torch.cuda.empty_cache()
 
     rows += (check_attention_train(gen) + check_downsample(gen)
              + check_gn_conv(gen, ENCODER_GN_SHAPES)
@@ -3971,6 +4155,7 @@ def main() -> int:
              "train_cli": cli_out["launches"][1],
              "train_cli_validation": cli_out["validation_launches"][0],
              "approx_drift": drift_launches,
+             "fulldepth": deep_launches,
              "cmp_train": cmp_trained["launches"],
              "mesh": meshed["step"]["launches"],
              "mesh_cli": meshed["cli"]["launches"],

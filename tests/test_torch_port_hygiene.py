@@ -17,9 +17,12 @@ scripts, `scripts/profile_torch_decode.py` (which also profiles the
 residual training points), `scripts/conv_kernel_breakdown.py`,
 `scripts/conv_kernel_ab.py`, `scripts/attention_bwd_ab.py`,
 `scripts/attention_fwd_ab.py` and `scripts/splat_kernel_ab.py` (without
-running them).
+running them).  The parity tests at SD-1.5's depth and at the bf16 islands
+import JAX for their reference side; their port-side imports run under
+the same hook.
 """
 
+import ast
 import os
 import pathlib
 import re
@@ -31,7 +34,7 @@ PKG = REPO / "diffcodec_tpu_torch"
 BLOCKED = ("jax", "jaxlib", "flax", "optax", "PIL", "safetensors",
            "matplotlib", "transformers", "triton", "yaml", "diffcodec_tpu")
 
-_CHILD = r"""
+_HOOK = r"""
 import importlib, importlib.abc, pkgutil, sys
 
 BLOCKED = set(sys.argv[1].split(","))
@@ -45,6 +48,9 @@ class Refuse(importlib.abc.MetaPathFinder):
 
 
 sys.meta_path.insert(0, Refuse())
+"""
+
+_CHILD = _HOOK + r"""
 import diffcodec_tpu_torch
 names = ["diffcodec_tpu_torch"] + [
     m.name for m in pkgutil.walk_packages(diffcodec_tpu_torch.__path__,
@@ -113,3 +119,50 @@ def test_port_sources_name_no_jax():
         text = p.read_text()
         assert not re.search(r"^\s*(import|from)\s+(jax|flax|diffcodec_tpu)\b",
                              text, re.M), p
+
+
+# the parity tests at SD-1.5's depth and at the bf16 islands: JAX's side is
+# their own, the port's side comes from the port alone
+PARITY_TESTS = ("test_torch_port_fulldepth.py",
+                "test_torch_port_bf16_sites.py")
+PORT_SIDE = ("diffcodec_tpu_torch", "chip_smoke")
+
+
+def _port_side_imports(path: pathlib.Path) -> list:
+    """The import statements of a test file that name the port's side."""
+    out = []
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.ImportFrom) and node.module:
+            names = [node.module]
+        elif isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        else:
+            continue
+        if any(n.split(".")[0] in PORT_SIDE for n in names):
+            assert all(n.split(".")[0] in PORT_SIDE for n in names), (
+                path.name, ast.unparse(node))
+            out.append(ast.unparse(node))
+    return out
+
+
+def test_parity_tests_import_the_port_side_without_jax():
+    """Every port-side import of the full-depth and per-site tests runs
+    with jax, flax and the JAX package refused: what they hold against JAX
+    is the port's own code, not a module that leans on the reference."""
+    lines = []
+    for name in PARITY_TESTS:
+        found = _port_side_imports(REPO / "tests" / name)
+        assert found, name
+        lines += found
+    child = _HOOK + "\n".join(lines) + r"""
+loaded = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
+assert not loaded, loaded
+print("ok")
+"""
+    env = dict(os.environ)
+    env.pop("PYTHONPATH", None)
+    proc = subprocess.run(
+        [sys.executable, "-c", child, ",".join(BLOCKED)], cwd=REPO, env=env,
+        capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0 and proc.stdout.split() == ["ok"], (
+        proc.stderr)
