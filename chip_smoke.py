@@ -19,9 +19,10 @@ Phases, each printed as one JSON line with the elapsed seconds `t`:
              full width, 7 frames (one GOP-8) at 512 x 512, 30 UniPC steps
              with CFG 3.5, ControlNet scale 1.35 and FreeU, bf16, seeded
              random weights; launch counts are zeroed just before and read
-             just after; a second decode of the same inputs (and a second
-             denoise loop) against the first: images and final latents
-             within the splat's atomics' spread (`DECODE_REPEAT_TOL`)
+             just after; two more whole decodes of the same inputs (and two
+             denoise loops on one pyramid) against the first: the three
+             pairs' images within the splat's atomics' spread
+             (`DECODE_REPEAT_TOL` and the tighter `DECODE_REPEAT_TIGHT`)
   decode_fusedconv
              the same decode with `fused_conv=True` (the JAX package's
              `exact_fusedconv` point): every conv3x3 of the VAE decoder
@@ -110,6 +111,18 @@ Phases, each printed as one JSON line with the elapsed seconds `t`:
              output (12 down residuals, mid, eps); 46 attention launches
              (7 each at 4096, 1024 and 256 positions, 2 at 64, self and
              cross) and 8 splats, counted and recorded by shape
+  longrun    SD-1.5 whole at bench.py's decode point over all its steps:
+             `DualFlowPipeline.sample` of one frame at 128 px (CFG batch 2,
+             30 UniPC steps, CFG 3.5, ControlNet scale 1.35, FreeU),
+             seeded random weights, on the host's CPU in fp32 and in bf16
+             and on the card in bf16; the latents after every step (read
+             through a subclass of UniPC in the pipeline module's place)
+             and the images held by `fullwidth`'s rule, card against CPU,
+             the pyramid's four levels too; a second card decode on the
+             CPU's bf16 pyramid (the splat's atomics taken out: what is
+             left is the networks' carry), logged beside the first; each
+             run's launches counted and recorded by shape (30 x 46
+             attention, 8 splats and 0)
   kernel     (training shapes) the attention forward with its log-sum-exp
              and the backward kernel (dQ, dK and dV in one launch, with its
              delta and dQ-cast passes) against autograd of the plain
@@ -272,6 +285,7 @@ last {"ok": true, "device": {...}}.  Any failure raises and exits non-zero.
 from __future__ import annotations
 
 import collections
+import contextlib
 import copy
 import dataclasses
 import json
@@ -325,9 +339,11 @@ from diffcodec_tpu_torch.models.i3d import InceptionI3D
 from diffcodec_tpu_torch.models.unet2d import UNet2DModel
 from diffcodec_tpu_torch.models.unet2d_condition import UNet2DConditionModel
 from diffcodec_tpu_torch.models.vae import AutoencoderKL, decode_from_latents
+from diffcodec_tpu_torch.sampling import pipeline as sampling_pipeline
 from diffcodec_tpu_torch.sampling.distilled import DistilledPipeline
 from diffcodec_tpu_torch.sampling.pipeline import DualFlowPipeline
-from diffcodec_tpu_torch.sampling.schedulers import NoiseSchedule, ddpm_step
+from diffcodec_tpu_torch.sampling.schedulers import (NoiseSchedule, UniPC,
+                                                     ddpm_step)
 from diffcodec_tpu_torch.sampling.tiled import (_crop_batch, sample_tiled,
                                                 tile_grid, unit_from_uint8)
 from diffcodec_tpu_torch.cli import train_cmp
@@ -1013,11 +1029,13 @@ def check_images(label, images, frames=FRAMES, res=RES):
 # before its bf16 rounding: each level within one bf16 rounding (2^-8)
 # of the first, by relL2.  The 30 bf16 steps of random-weight networks
 # carry that to the images further than the 4-step decode's ~0.04 max and
-# ~0.004 mean (the checkpoint phase's `repeat_*`): 0.045-0.049 and
-# 0.0030-0.0053 in three pairs on the H100, so two whole decodes' images
-# are held to the reference phase's bf16 limits
+# ~0.004 mean (the checkpoint phase's `repeat_*`): 0.043-0.055 and
+# 0.0030-0.0056 in nine pairs on the H100, so whole decodes' images are
+# held to the reference phase's bf16 limits, and, each pair of three
+# whole decodes, to about twice the worst pair read (DECODE_REPEAT_TIGHT)
 DECODE_REPEAT_TOL = dict(pyramid_rel=2.0 ** -8, image_max_abs=0.25,
                          image_mean_abs=0.02)
+DECODE_REPEAT_TIGHT = dict(image_max_abs=0.1, image_mean_abs=0.01)
 # a decode runs no backward and no encoder
 NO_TRAIN_KERNELS = {"attention_bwd": 0, "downsample_conv3x3": 0}
 
@@ -1071,8 +1089,8 @@ def decode(gen):
                image_std=images.float().std().item())
     log("decode", **out)
     if not repeat["ok"]:
-        raise AssertionError(f"decode: a second decode of the same inputs "
-                             f"differs past the splat's atomics: {repeat}")
+        raise AssertionError(f"decode: whole decodes of the same inputs "
+                             f"differ past the splat's atomics: {repeat}")
     return out, pipe, x, final
 
 
@@ -1081,8 +1099,14 @@ def decode_repeat(pipe, x, images, images2, final) -> dict:
     """The main path against itself on the same inputs: two denoise loops
     on one pyramid (the splat's atomics run once) bit for bit, latents and
     images; a pyramid made again within a bf16 rounding of the first, level
-    by level; two whole decodes' images within the reference phase's
-    limits (DECODE_REPEAT_TOL), their latents' difference logged."""
+    by level; three whole decodes (`images`, `images2` and `final`'s, each
+    with its own pyramid), every pair's images within the reference
+    phase's limits (DECODE_REPEAT_TOL) and within DECODE_REPEAT_TIGHT;
+    the latents' difference logged."""
+    whole = [images, images2,
+             decode_from_latents(pipe.vae, final).clamp(-1.0, 1.0)]
+    pairs = [(whole[i].float() - whole[j].float()).abs()
+             for i, j in ((0, 1), (0, 2), (1, 2))]
     pyramid = pipe.controlnet.extract_pyramid(x["cond"], x["flow"])
     pyramid2 = pipe.controlnet.extract_pyramid(x["cond"], x["flow"])
     pipe.controlnet.extract_pyramid = lambda cond, flow: pyramid
@@ -1092,7 +1116,6 @@ def decode_repeat(pipe, x, images, images2, final) -> dict:
     finally:
         del pipe.controlnet.extract_pyramid
     shown = [decode_from_latents(pipe.vae, z) for z in again]
-    di = (images2.float() - images.float()).abs()
     dl = (again[0].float() - final.float()).abs()
     ref = final.float().abs()
     out = dict(one_pyramid_equal=dict(
@@ -1100,15 +1123,19 @@ def decode_repeat(pipe, x, images, images2, final) -> dict:
                    images=torch.equal(shown[0], shown[1])),
                pyramid_rel=[rel_norm(b, a) for a, b in zip(pyramid,
                                                            pyramid2)],
-               image_max_abs=di.max().item(), image_mean_abs=di.mean().item(),
+               image_pairs=[[d.max().item(), d.mean().item()]
+                            for d in pairs],
                latent_max_rel=(dl.max() / ref.max()).item(),
                latent_mean_rel=(dl.mean() / ref.mean()).item(),
-               tol=DECODE_REPEAT_TOL)
-    tol = DECODE_REPEAT_TOL
+               tol=DECODE_REPEAT_TOL, tight=DECODE_REPEAT_TIGHT)
+    out["image_max_abs"] = max(m for m, _ in out["image_pairs"])
+    out["image_mean_abs"] = max(m for _, m in out["image_pairs"])
     out["ok"] = (all(out["one_pyramid_equal"].values())
-                 and max(out["pyramid_rel"]) <= tol["pyramid_rel"]
-                 and out["image_max_abs"] <= tol["image_max_abs"]
-                 and out["image_mean_abs"] <= tol["image_mean_abs"])
+                 and max(out["pyramid_rel"]) <= DECODE_REPEAT_TOL[
+                     "pyramid_rel"]
+                 and all(out[k] <= tol[k] for tol in (DECODE_REPEAT_TOL,
+                                                      DECODE_REPEAT_TIGHT)
+                         for k in ("image_max_abs", "image_mean_abs")))
     return out
 
 
@@ -1971,11 +1998,23 @@ def _card_against_cpu(models: dict, run, residuals_of) -> tuple:
     models.clear()
     torch.cuda.empty_cache()
 
-    errors, failed = {}, []
-    for net, f32s in runs["cpu_fp32"].items():
+    failed = []
+    errors = _bf16_rows(runs["cpu_fp32"], runs["cpu_bf16"],
+                        runs["card_bf16"], failed)
+    return errors, failed, launches, calls, dict(
+        card_s=card_s, cpu_bf16_s=cpu16_s, cpu_fp32_s=cpu32_s)
+
+
+def _bf16_rows(cpu_fp32: dict, cpu_bf16: dict, card: dict,
+               failed: list) -> dict:
+    """{net: [[e_ref, e_card, d], ...]} of a card run against the CPU's
+    two, output by output; each output off `within_bf16_rule`, of another
+    shape or not finite is appended to `failed`."""
+    errors = {}
+    for net, f32s in cpu_fp32.items():
         rows = []
-        for i, (f32, b16, got) in enumerate(zip(
-                f32s, runs["cpu_bf16"][net], runs["card_bf16"][net])):
+        for i, (f32, b16, got) in enumerate(zip(f32s, cpu_bf16[net],
+                                                card[net])):
             if not torch.isfinite(got).all() or got.shape != f32.shape:
                 failed.append((net, i, "shape or non-finite"))
             e_ref = rel_norm(b16, f32)
@@ -1984,8 +2023,7 @@ def _card_against_cpu(models: dict, run, residuals_of) -> tuple:
             if not within_bf16_rule(e_ref, e_card, d):
                 failed.append((net, i, e_ref, e_card, d))
         errors[net] = rows
-    return errors, failed, launches, calls, dict(
-        card_s=card_s, cpu_bf16_s=cpu16_s, cpu_fp32_s=cpu32_s)
+    return errors
 
 
 def _worst(errors: dict) -> dict:
@@ -2082,13 +2120,26 @@ FULLDEPTH_RES, FULLDEPTH_T = 512, 500
 # level up), a self- and a cross-attention (77 tokens) each, 8 heads of 2
 # samples: 46 launches, 7 a shape at 4096/1024/256 positions and 2 at the
 # mid block's 64; the pyramid's 8 splats at one frame's both directions
-FULLDEPTH_ATTENTION = collections.Counter(
-    {(16, L, Lk, D): n for L, D, n in ((4096, 40, 7), (1024, 80, 7),
-                                       (256, 160, 7), (64, 160, 2))
-     for Lk in (L, 77)})
-FULLDEPTH_SPLATS = collections.Counter(
-    {(2, h, h, c): 1 for h, C in ((64, 161), (32, 161), (16, 321), (8, 641))
-     for c in (C, 3)})
+def fulldepth_attention(res: int, steps: int = 1) -> collections.Counter:
+    """The attention launches of `steps` CFG steps of one frame at
+    `res` px, SD-1.5 whole, by shape (BH, Lq, Lk, D)."""
+    n = (res // 8) ** 2
+    return collections.Counter(
+        {(16, L, Lk, D): k * steps
+         for L, D, k in ((n, 40, 7), (n // 4, 80, 7), (n // 16, 160, 7),
+                         (n // 64, 160, 2)) for Lk in (L, 77)})
+
+
+def fulldepth_splats(res: int) -> collections.Counter:
+    """The splats of one frame's pyramid at `res` px, by shape."""
+    return collections.Counter(
+        {(2, res // f, res // f, c): 1
+         for f, C in ((8, 161), (16, 161), (32, 321), (64, 641))
+         for c in (C, 3)})
+
+
+FULLDEPTH_ATTENTION = fulldepth_attention(FULLDEPTH_RES)
+FULLDEPTH_SPLATS = fulldepth_splats(FULLDEPTH_RES)
 FULLDEPTH_LAUNCHES = {"attention": 46, "splat_sum": 8}
 
 
@@ -2168,6 +2219,159 @@ def fulldepth() -> dict:
     log("fulldepth", **out)
     if failed:
         raise AssertionError(f"fulldepth: {failed}")
+    return launches
+
+
+# bench.py's decode point over all its steps, at SD-1.5's depth, at the
+# largest of 256 and 128 px at which the CPU's fp32 and bf16 decodes fit
+# ~150 s together: the H100 machine's 8-core CPU took 4.5 s (fp32) and
+# 6.2 s (bf16) a step at 256 px, ~320 s for 30 steps, and 116 s for both
+# decodes at 128 px
+LONGRUN_RES, LONGRUN_STEPS = 128, 30
+LONGRUN_SAMPLER = dict(guidance_scale=3.5, controlnet_conditioning_scale=1.35,
+                       freeu=True)
+
+
+@contextlib.contextmanager
+def recorded_steps():
+    """The latents after each UniPC step of `DualFlowPipeline.denoise`
+    while inside, float32 on the CPU: a subclass of UniPC that records
+    them stands in the pipeline module's place."""
+    steps = []
+
+    class RecordingUniPC(UniPC):
+        def step(self, tables, state, model_output, i):
+            state = super().step(tables, state, model_output, i)
+            steps.append(state.sample.float().cpu())
+            return state
+
+    sampling_pipeline.UniPC = RecordingUniPC
+    try:
+        yield steps
+    finally:
+        sampling_pipeline.UniPC = UniPC
+
+
+@torch.no_grad()
+def _longrun_run(nets, x, dtype, steps: int, pyramid=None) -> dict:
+    """{'pyramid': [4 levels], 'latents': [after each step], 'images':
+    [images]}: `DualFlowPipeline.sample` of x's frame on the nets' device
+    in `dtype` over `steps` steps, on the CPU (the pyramid in its own
+    dtype, the rest float32); `pyramid` (levels on the CPU) in place of
+    the ControlNet's own."""
+    dev = next(nets["unet"].parameters()).device
+    cast = {k: v.to(dev, dtype) if k in ("cond", "flow", "text", "uncond")
+            else v.to(dev) for k, v in x.items()}
+    pipe = DualFlowPipeline(
+        unet=nets["unet"], controlnet=nets["controlnet"], vae=nets["vae"],
+        schedule=NoiseSchedule.create(SchedulerConfig()),
+        sampler=SamplerConfig(num_inference_steps=steps, **LONGRUN_SAMPLER))
+    extract, used = pipe.controlnet.extract_pyramid, []
+
+    def recorded_extract(cond, flow):
+        used.append(extract(cond, flow) if pyramid is None
+                    else [p.to(dev) for p in pyramid])
+        return used[-1]
+
+    pipe.controlnet.extract_pyramid = recorded_extract
+    try:
+        with recorded_steps() as latents:
+            images = pipe.sample(cast["latents"], cast["text"],
+                                 cast["uncond"], cast["cond"], cast["flow"])
+    finally:
+        del pipe.controlnet.extract_pyramid
+    return {"pyramid": [p.cpu() for p in used[0]], "latents": latents,
+            "images": [images.float().cpu()]}
+
+
+def longrun(res: int = LONGRUN_RES, steps: int = LONGRUN_STEPS) -> dict:
+    """SD-1.5 whole at bench.py's decode point over its 30 steps, one frame
+    at `res` px: the card's bf16 decode against the CPU's bf16 and fp32 by
+    `within_bf16_rule` at every step (the pyramid, the latents after each
+    step, the images); then the card again on the CPU's bf16 pyramid,
+    logged beside it.  Launches counted and recorded by shape in both.
+    Returns the first card run's launches."""
+    unet_cfg = UNetConfig()
+    cn_cfg = ControlNetConfig(unet=unet_cfg)
+    t0 = time.perf_counter()
+    models = _seeded_models(
+        {"controlnet": lambda: DualFlowControlNet(cn_cfg),
+         "unet": lambda: UNet2DConditionModel(unet_cfg),
+         "vae": lambda: AutoencoderKL(VAEConfig())}, 23)
+    h, D = res // 8, unet_cfg.cross_attention_dim
+    g = torch.Generator().manual_seed(24)
+    x = dict(cond=torch.rand((1, res, res, 6), generator=g) * 2 - 1,
+             flow=torch.randn((1, res, res, 4), generator=g) * 2,
+             text=torch.randn((1, 77, D), generator=g) * 0.1,
+             uncond=torch.randn((1, 77, D), generator=g) * 0.1,
+             latents=torch.randn((1, h, h, 4), generator=g))
+    runs, seconds = {}, {}
+    for name, dtype in (("cpu_fp32", torch.float32),
+                        ("cpu_bf16", torch.bfloat16)):
+        nets = {k: m.to("cpu", dtype).eval() for k, m in models.items()}
+        runs[name], seconds[name] = timed(
+            lambda: _longrun_run(nets, x, dtype, steps))
+    nets = {k: m.to("cuda", torch.bfloat16) for k, m in models.items()}
+    (runs["card"], launches, calls), seconds["card"] = timed(
+        lambda: recorded_launches(lambda: _longrun_run(
+            nets, x, torch.bfloat16, steps)))
+    (runs["card_cpu_pyramid"], launches2, calls2), seconds[
+        "card_cpu_pyramid"] = timed(lambda: recorded_launches(
+            lambda: _longrun_run(nets, x, torch.bfloat16, steps,
+                                 runs["cpu_bf16"]["pyramid"])))
+    del nets
+    models.clear()
+    torch.cuda.empty_cache()
+
+    failed = []
+    errors = {"card": _bf16_rows(runs["cpu_fp32"], runs["cpu_bf16"],
+                                 runs["card"], failed),
+              # logged, not held: the pyramid is the CPU's own here
+              "card_cpu_pyramid": _bf16_rows(
+                  runs["cpu_fp32"], runs["cpu_bf16"],
+                  runs["card_cpu_pyramid"], [])}
+    if len(errors["card"]["latents"]) != steps:
+        failed.append(("steps recorded", len(errors["card"]["latents"])))
+    shapes = {}
+    for run, got, got_calls, splats in (
+            ("card", launches, calls, fulldepth_splats(res)),
+            ("card_cpu_pyramid", launches2, calls2, collections.Counter())):
+        try:
+            check_launches(f"longrun {run}", got, {
+                "attention": 46 * steps, "splat_sum": sum(splats.values()),
+                "gn_silu_conv3x3": 0, "conv3x3_head": 0,
+                "upsample_conv3x3": 0, "silu_conv3x3": 0,
+                **NO_TRAIN_KERNELS})
+        except AssertionError as e:
+            failed.append(str(e))
+        shapes[run] = {
+            "attention": collections.Counter(got_calls.get(
+                "dc_attention_fwd", [])),
+            "splat_sum": collections.Counter(got_calls.get("dc_splat_sum",
+                                                           []))}
+        for name, want in (("attention", fulldepth_attention(res, steps)),
+                           ("splat_sum", splats)):
+            if shapes[run][name] != want:
+                failed.append((run, name, sorted(shapes[run][name].items()),
+                               sorted(want.items())))
+
+    ratios = {run: [e_card / e_ref for e_ref, e_card, _ in e["latents"]]
+              for run, e in errors.items()}
+    out = dict(res=res, frames=1, batch=2, steps=steps,
+               layers_per_block=unet_cfg.layers_per_block,
+               sampler=LONGRUN_SAMPLER, rule=FULLWIDTH_RULE,
+               columns=["e_ref", "e_card", "d"], errors=errors,
+               worst={run: _worst(e) for run, e in errors.items()},
+               latent_ratio_by_step=ratios,
+               launches={"card": launches, "card_cpu_pyramid": launches2},
+               shapes={run: {k: sorted([list(s), n] for s, n in v.items())
+                             for k, v in by.items()}
+                       for run, by in shapes.items()},
+               image_mean_abs=runs["card"]["images"][0].abs().mean().item(),
+               seconds_by_run=seconds, seconds=time.perf_counter() - t0)
+    log("longrun", **out)
+    if failed:
+        raise AssertionError(f"longrun: {failed}")
     return launches
 
 
@@ -4097,6 +4301,8 @@ def main() -> int:
     fullwidth()
     deep_launches = fulldepth()
     torch.cuda.empty_cache()
+    long_launches = longrun()
+    torch.cuda.empty_cache()
 
     rows += (check_attention_train(gen) + check_downsample(gen)
              + check_gn_conv(gen, ENCODER_GN_SHAPES)
@@ -4156,6 +4362,7 @@ def main() -> int:
              "train_cli_validation": cli_out["validation_launches"][0],
              "approx_drift": drift_launches,
              "fulldepth": deep_launches,
+             "longrun": long_launches,
              "cmp_train": cmp_trained["launches"],
              "mesh": meshed["step"]["launches"],
              "mesh_cli": meshed["cli"]["launches"],

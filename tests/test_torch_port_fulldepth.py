@@ -20,12 +20,11 @@ Each package runs its own entry point: JAX's jitted `DualFlowPipeline.
 sample` (the loop one `lax.fori_loop`) and the port's eager one, in fp32
 and in bf16 as `bench.py` runs it (the modules' dtype bf16, the parameters
 cast inside the jitted function, the prompts, conditioning and flows cast,
-the noise fp32).  What is compared is taken from inside those calls: every
-ControlNet call's input latents, timestep, 12 down residuals and mid
-residual (JAX's through `jax.debug.callback` in a subclass of its
-ControlNet, the port's by wrapping `backbone`), the final latents (JAX's
-VAE input times the scaling factor, the port's `denoise` output) and the
-images.
+the noise fp32).  What is compared is taken from inside those calls by
+`decode_tape` (JAX's through `jax.debug.callback` in subclasses of its
+ControlNet and UniPC, the port's by wrapping `backbone` and UniPC's
+`step`): the first ControlNet call's 12 down residuals and mid residual,
+the latents after each step and the images.
 
 fp32: the port against JAX element by element at the tiny pipeline test's
 limits, atol 1e-3 and rtol 1e-3 (`test_torch_port_pipeline.py`: UniPC's
@@ -62,19 +61,15 @@ from diffcodec_tpu.models.controlnet import DualFlowControlNet as JControlNet
 from diffcodec_tpu.models.unet2d_condition import (
     UNet2DConditionModel as JUNet)
 from diffcodec_tpu.models.vae import AutoencoderKL as JVAE
-from diffcodec_tpu.sampling.pipeline import DualFlowPipeline as JPipeline
-from diffcodec_tpu.sampling.schedulers import NoiseSchedule as JSchedule
 
-from chip_smoke import within_bf16_rule
+import decode_tape as tape
 from diffcodec_tpu_torch import config as tcfg
 from diffcodec_tpu_torch import weights
 from diffcodec_tpu_torch.models import weights as checkpoints
 from diffcodec_tpu_torch.models.controlnet import DualFlowControlNet
 from diffcodec_tpu_torch.models.unet2d_condition import UNet2DConditionModel
 from diffcodec_tpu_torch.models.vae import AutoencoderKL
-from diffcodec_tpu_torch.sampling.pipeline import DualFlowPipeline
-from diffcodec_tpu_torch.sampling.schedulers import NoiseSchedule
-from test_torch_port_fullwidth import _draw, rel_l2
+from test_torch_port_fullwidth import _draw
 
 H, FRAMES, L, STEPS = 64, 1, 77, 3
 # the tiny pipeline test's limits (test_torch_port_pipeline.py)
@@ -84,9 +79,7 @@ SAMPLER = dict(num_inference_steps=STEPS, guidance_scale=3.5,
 JU, TU = jcfg.UNetConfig(), tcfg.UNetConfig()
 JC, TC = jcfg.ControlNetConfig(), tcfg.ControlNetConfig()
 JV, TV = jcfg.VAEConfig(), tcfg.VAEConfig()
-N_DOWN = 12
-# the inputs that bench.py casts to the compute dtype
-CAST = ("text", "uncond", "cond", "flow")
+N_DOWN = tape.n_down(JU)
 
 
 def _inputs():
@@ -118,154 +111,24 @@ def _shapes():
     }
 
 
-# ---- what each run records from inside its sample call ----
-
-_TAPE = {"controlnet": [], "vae": []}
-
-
-def _tape(kind):
-    def record(*args):
-        _TAPE[kind].append(jax.tree.map(
-            lambda a: np.array(a, np.float32), args))
-    return record
-
-
-class _RecordingControlNet(JControlNet):
-    """JAX's DualFlowControlNet, its backbone's inputs and outputs sent to
-    the host at every call (one a UniPC step, inside the fori_loop)."""
-
-    def backbone(self, sample, timesteps, encoder_hidden_states, pyramid,
-                 conditioning_scale=1.0):
-        down, mid = super().backbone(sample, timesteps, encoder_hidden_states,
-                                     pyramid, conditioning_scale)
-        jax.debug.callback(_tape("controlnet"), sample, timesteps, down, mid)
-        return down, mid
-
-
-class _RecordingVAE(JVAE):
-    """JAX's AutoencoderKL, the latents it decodes sent to the host."""
-
-    def decode(self, z):
-        jax.debug.callback(_tape("vae"), z)
-        return super().decode(z)
-
-
-def _result(calls, final, images):
-    """{name: float32 array}: the first ControlNet call's 12 down
-    residuals and mid residual, the latents after each step and the
-    images; `timesteps` the ControlNet calls' timesteps."""
-    first_down, first_mid = calls[0][2], calls[0][3]
-    out = {f"down{i}": d for i, d in enumerate(first_down)}
-    out["mid"] = first_mid
-    # a step's ControlNet input is the last step's latents, CFG-doubled
-    for i, call in enumerate(calls[1:]):
-        out[f"latents_step{i + 1}"] = call[0][:FRAMES]
-    out[f"latents_step{len(calls)}"] = final
-    out["images"] = images
-    out["timesteps"] = np.asarray([int(c[1]) for c in calls])
-    return out
-
-
-def _cast(params, dtype):
-    return jax.tree.map(lambda a: a.astype(dtype), params)
-
-
-def _jax_run(params, dtype):
-    """JAX's jitted DualFlowPipeline.sample in `dtype`."""
-    pipe = JPipeline(unet=JUNet(JU, dtype=dtype),
-                     controlnet=_RecordingControlNet(JC, dtype=dtype),
-                     vae=_RecordingVAE(JV, dtype=dtype),
-                     schedule=JSchedule.create(jcfg.SchedulerConfig()),
-                     sampler=jcfg.SamplerConfig(**SAMPLER))
-
-    def sample(p, x):
-        return pipe.sample(_cast(p, dtype), jax.random.PRNGKey(0), x["text"],
-                           x["uncond"], x["cond"], x["flow"],
-                           latents=x["latents"])
-
-    x = {k: jnp.asarray(v).astype(dtype) if k in CAST else jnp.asarray(v)
-         for k, v in X.items()}
-    for tape in _TAPE.values():
-        tape.clear()
-    images = np.array(jax.jit(sample)(params, x), np.float32)
-    jax.effects_barrier()
-    (z,) = _TAPE["vae"][-1]
-    out = _result(list(_TAPE["controlnet"]),
-                  z * np.float32(JV.scaling_factor), images)
-    jax.clear_caches()
-    return out
-
-
-def _port_pipeline(params):
-    """The port's pipeline in fp32 on the CPU, each network made on the
-    meta device, allocated and filled by the bridge; `params` is emptied
-    network by network as the port takes it over."""
-    made = {}
-    for name, make, name_map in (
-            ("vae", lambda: AutoencoderKL(TV), weights.vae_name_map(TV)),
-            ("controlnet", lambda: DualFlowControlNet(TC),
-             weights.controlnet_name_map(TC)),
-            ("unet", lambda: UNet2DConditionModel(TU),
-             weights.unet_name_map(TU))):
-        with torch.device("meta"):
-            module = make()
-        module = module.to_empty(device="cpu")
-        weights.load_flax_params(module, params.pop(name), name_map)
-        made[name] = module.eval().requires_grad_(False)
-        gc.collect()
-    return DualFlowPipeline(
-        unet=made["unet"], controlnet=made["controlnet"], vae=made["vae"],
-        schedule=NoiseSchedule.create(tcfg.SchedulerConfig()),
-        sampler=tcfg.SamplerConfig(**SAMPLER))
-
-
-def _port_run(pipe, dtype):
-    """The port's DualFlowPipeline.sample with its modules in `dtype`."""
-    for m in (pipe.unet, pipe.controlnet, pipe.vae):
-        m.to(dtype)
-    calls, finals = [], []
-    backbone, denoise = pipe.controlnet.backbone, pipe.denoise
-
-    def recording_backbone(sample, t, *args):
-        down, mid = backbone(sample, t, *args)
-        calls.append((sample.float().numpy(), t,
-                      [d.float().numpy() for d in down],
-                      mid.float().numpy()))
-        return down, mid
-
-    def recording_denoise(*args):
-        final = denoise(*args)
-        finals.append(final.float().numpy())
-        return final
-
-    pipe.controlnet.backbone = recording_backbone
-    pipe.denoise = recording_denoise
-    try:
-        x = {k: torch.from_numpy(v).to(dtype) if k in CAST
-             else torch.from_numpy(v) for k, v in X.items()}
-        images = pipe.sample(x["latents"], x["text"], x["uncond"], x["cond"],
-                             x["flow"])
-    finally:
-        del pipe.controlnet.backbone, pipe.denoise
-    return _result(calls, finals[0], images.float().numpy())
-
-
 @pytest.fixture(scope="module")
 def runs():
-    """{'jax_fp32', 'jax_bf16', 'port_fp32', 'port_bf16': _result}."""
+    """{'jax_fp32', 'jax_bf16', 'port_fp32', 'port_bf16':
+    decode_tape.result}."""
     # one copy of the parameters, JAX's, which both JAX runs share and
     # the port's bridge reads network by network (~5.2 GB in fp32)
     params = {name: jax.tree.map(jnp.asarray, _draw(shapes, seed))
               for seed, (name, shapes) in enumerate(_shapes().items())}
-    out = {"jax_fp32": _jax_run(params, jnp.float32),
-           "jax_bf16": _jax_run(params, jnp.bfloat16)}
-    pipe = _port_pipeline(params)
+    out = {f"jax_{n}": tape.jax_sample((JU, JC, JV), SAMPLER, params, X,
+                                       dtype)
+           for n, dtype in (("fp32", jnp.float32), ("bf16", jnp.bfloat16))}
+    pipe = tape.port_pipeline((TU, TC, TV), SAMPLER, params)
     del params
-    with torch.no_grad():
-        out["port_fp32"] = _port_run(pipe, torch.float32)
-        out["port_bf16"] = _port_run(pipe, torch.bfloat16)
+    out["port_fp32"] = tape.port_sample(pipe, X, torch.float32)
+    out["port_bf16"] = tape.port_sample(pipe, X, torch.bfloat16)
     del pipe
     gc.collect()
+    tape.summary("fulldepth", out, STEPS)
     return out
 
 
@@ -280,6 +143,8 @@ def test_each_package_calls_the_controlnet_once_a_step(runs):
     assert len(want) == STEPS and len(set(want.tolist())) == STEPS
     for name, run in runs.items():
         np.testing.assert_array_equal(run["timesteps"], want, err_msg=name)
+        np.testing.assert_array_equal(run["controlnet_timesteps"], want,
+                                      err_msg=name)
 
 
 def test_shapes_are_sd15s_at_full_depth(runs):
@@ -309,18 +174,10 @@ def test_fp32_matches_jax(runs, name):
                                rtol=FP32_RTOL, err_msg=name)
 
 
-def bf16_errors(runs, name):
-    """(e_jax, e_port, d) of one output."""
-    jf, jb, pb = (runs[k][name] for k in ("jax_fp32", "jax_bf16",
-                                          "port_bf16"))
-    return rel_l2(jb, jf), rel_l2(pb, jf), rel_l2(pb, jb)
-
-
 @pytest.mark.parametrize("name", OUTPUTS + STEP_LATENTS[:-1])
 def test_bf16_within_jax_rounding(runs, name):
-    e_jax, e_port, d = bf16_errors(runs, name)
-    assert np.isfinite(e_jax) and e_jax > 0, name
-    assert within_bf16_rule(e_jax, e_port, d), (name, e_jax, e_port, d)
+    ok, *errors = tape.within_jax_rounding(runs, name)
+    assert ok, (name, errors)
 
 
 # ---- the name maps at full depth, shapes only ----

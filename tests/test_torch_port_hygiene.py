@@ -17,9 +17,10 @@ scripts, `scripts/profile_torch_decode.py` (which also profiles the
 residual training points), `scripts/conv_kernel_breakdown.py`,
 `scripts/conv_kernel_ab.py`, `scripts/attention_bwd_ab.py`,
 `scripts/attention_fwd_ab.py` and `scripts/splat_kernel_ab.py` (without
-running them).  The parity tests at SD-1.5's depth and at the bf16 islands
-import JAX for their reference side; their port-side imports run under
-the same hook.
+running them).  The parity tests at SD-1.5's depth, at the bf16 islands
+and over the 30-step decode, and the recorder they share
+(`tests/decode_tape.py`), import JAX for their reference side; their
+port-side imports run under the same hook.
 """
 
 import ast
@@ -121,10 +122,14 @@ def test_port_sources_name_no_jax():
                              text, re.M), p
 
 
-# the parity tests at SD-1.5's depth and at the bf16 islands: JAX's side is
-# their own, the port's side comes from the port alone
+# the parity tests at SD-1.5's depth, at the bf16 islands and over the
+# 30-step decode, and the recorder they share: JAX's side is their own,
+# the port's side comes from the port alone
 PARITY_TESTS = ("test_torch_port_fulldepth.py",
-                "test_torch_port_bf16_sites.py")
+                "test_torch_port_bf16_sites.py",
+                "test_torch_port_longrun.py",
+                "test_torch_port_fulldepth_longrun.py",
+                "decode_tape.py")
 PORT_SIDE = ("diffcodec_tpu_torch", "chip_smoke")
 
 
@@ -146,9 +151,10 @@ def _port_side_imports(path: pathlib.Path) -> list:
 
 
 def test_parity_tests_import_the_port_side_without_jax():
-    """Every port-side import of the full-depth and per-site tests runs
-    with jax, flax and the JAX package refused: what they hold against JAX
-    is the port's own code, not a module that leans on the reference."""
+    """Every port-side import of the full-depth, per-site and 30-step
+    tests and of their recorder runs with jax, flax and the JAX package
+    refused: what they hold against JAX is the port's own code, not a
+    module that leans on the reference."""
     lines = []
     for name in PARITY_TESTS:
         found = _port_side_imports(REPO / "tests" / name)
