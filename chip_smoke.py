@@ -2120,20 +2120,24 @@ FULLDEPTH_RES, FULLDEPTH_T = 512, 500
 # level up), a self- and a cross-attention (77 tokens) each, 8 heads of 2
 # samples: 46 launches, 7 a shape at 4096/1024/256 positions and 2 at the
 # mid block's 64; the pyramid's 8 splats at one frame's both directions
-def fulldepth_attention(res: int, steps: int = 1) -> collections.Counter:
-    """The attention launches of `steps` CFG steps of one frame at
-    `res` px, SD-1.5 whole, by shape (BH, Lq, Lk, D)."""
+def fulldepth_attention(res: int, steps: int = 1,
+                        batch: int = 2) -> collections.Counter:
+    """The attention launches of `steps` steps of SD-1.5 whole over
+    `batch` samples (a CFG step of one frame: 2) at `res` px, by shape
+    (BH, Lq, Lk, D)."""
     n = (res // 8) ** 2
     return collections.Counter(
-        {(16, L, Lk, D): k * steps
+        {(batch * HEADS, L, Lk, D): k * steps
          for L, D, k in ((n, 40, 7), (n // 4, 80, 7), (n // 16, 160, 7),
                          (n // 64, 160, 2)) for Lk in (L, 77)})
 
 
-def fulldepth_splats(res: int) -> collections.Counter:
-    """The splats of one frame's pyramid at `res` px, by shape."""
+def fulldepth_splats(res: int, frames: int = 1) -> collections.Counter:
+    """The splats of the pyramid of `frames` frames at `res` px, by shape
+    (B, H, W, C): both flow directions in one launch, a feature and an
+    occlusion splat a level."""
     return collections.Counter(
-        {(2, res // f, res // f, c): 1
+        {(2 * frames, res // f, res // f, c): 1
          for f, C in ((8, 161), (16, 161), (32, 321), (64, 641))
          for c in (C, 3)})
 
@@ -2747,6 +2751,200 @@ def train_reference():
                 and out["grad_cosine"] >= TRAIN_REF_TOL["grad_cosine"]):
             raise AssertionError(f"tiny training step on the card disagrees "
                                  f"with the CPU: {out}")
+
+
+# scripts/bench_train.py's training step at SD-1.5's depth, card against
+# the CPU: batch 2 at the largest of 512 and 256 px at which the CPU's
+# fp32 and bf16 steps take ~150 s together.  The H100 machine's 8-core CPU
+# took 32.9 s (fp32) and 41.6 s (bf16) at 256 px, 74.5 s together; 512 px
+# has 4x the pixels and 16x the attention logits, ~300 s or more
+TRAIN_FULLDEPTH_RES, TRAIN_FULLDEPTH_BATCH = 256, 2
+
+
+def train_group(name: str) -> str:
+    """A ControlNet parameter's group, by its name in the port
+    (`weights.controlnet_name_map`, `rescontrolnet_name_map`): the
+    extractor, the trunk's input (conv_in, the time embedding), the FDNs,
+    each down block, the mid block, each down zero-conv head, the mid
+    head."""
+    head, *rest = name.split(".")
+    if head in ("feature_extractor", "warp_extractor"):
+        return "extractor"
+    if head in ("conv_in", "time_embedding"):
+        return "input"
+    if head.startswith("fdn"):
+        return "fdn"
+    if head == "down_blocks":
+        return f"down{rest[0]}"
+    if head == "mid_block":
+        return "mid"
+    if head == "controlnet_down_blocks":
+        return f"head{rest[0]}"
+    if head == "controlnet_mid_block":
+        return "head_mid"
+    raise KeyError(name)
+
+
+def train_fulldepth_backward(res: int, batch: int) -> collections.Counter:
+    """The attention backward launches of one training step at SD-1.5's
+    depth, by shape (BH, Lq, Lk, D), self and 77-token cross each: those
+    of the forwards (`fulldepth_attention`) after the first residual, the
+    ControlNet's 7 transformers and the UNet's up path, 3 a level (its
+    down path and mid block do not depend on the ControlNet)."""
+    n = (res // 8) ** 2
+    return collections.Counter(
+        {(batch * HEADS, L, Lk, D): k
+         for L, D, k in ((n, 40, 5), (n // 4, 80, 5), (n // 16, 160, 5),
+                         (n // 64, 160, 1))
+         for Lk in (L, 77)})
+
+
+def encoder_convs(res: int, batch: int) -> tuple:
+    """(GN+SiLU+conv, stride-2) launches of the fused VAE encoder at `res`
+    px, by (B, H, W, C, O): 2 resnets of 2 convs a level, 2 in the mid
+    block, a downsampler after each level but the last."""
+    r = res
+    gn = collections.Counter({
+        (batch, r, r, 128, 128): 4,
+        (batch, r // 2, r // 2, 128, 256): 1,
+        (batch, r // 2, r // 2, 256, 256): 3,
+        (batch, r // 4, r // 4, 256, 512): 1,
+        (batch, r // 4, r // 4, 512, 512): 3,
+        (batch, r // 8, r // 8, 512, 512): 8})
+    down = collections.Counter({(batch, r, r, 128, 128): 1,
+                                (batch, r // 2, r // 2, 256, 256): 1,
+                                (batch, r // 4, r // 4, 512, 512): 1})
+    return gn, down
+
+
+def _grouped(tensors: dict) -> dict:
+    """{group: the group's tensors flattened into one fp32 CPU vector, in
+    parameter order}, and 'all'."""
+    out = {}
+    for name, t in tensors.items():
+        out.setdefault(train_group(name), []).append(
+            t.detach().float().flatten().cpu())
+    out = {g: torch.cat(v) for g, v in out.items()}
+    out["all"] = torch.cat(list(out.values()))
+    return out
+
+
+def _train_step_run(models: dict, x: dict, cfg: TrainConfig, device,
+                    dtype) -> dict:
+    """One training step of copies of the fp32 `models` on `device` in
+    `dtype`, built by `make_trainer` (fp32 masters), on x's batch and
+    draws: {'loss': [loss], 'grad': [by group], 'move': [the masters' move
+    by group]} and the groups' names, on the CPU in fp32."""
+    copies = {k: copy.deepcopy(m).to(device) for k, m in models.items()}
+    trainer, state = make_trainer(copies["unet"], copies["controlnet"],
+                                  copies["vae"], cfg, dtype)
+    masters0 = {n: p.clone() for n, p in state.params.items()}
+    batch = {k: v.to(device) if k == "flow" else v.to(device, dtype)
+             for k, v in x["batch"].items()}
+    loss, _ = trainer.loss_fn(batch, **{k: v.to(device)
+                                        for k, v in x["draws"].items()})
+    loss.backward()
+    grads = _grouped(trainer.gradients())
+    trainer.update(state)
+    moves = _grouped({n: p - masters0[n] for n, p in state.params.items()})
+    return {"loss": [loss.detach().float().cpu().reshape(1)],
+            "grad": list(grads.values()), "move": list(moves.values()),
+            "groups": list(grads)}
+
+
+def train_fulldepth(res: int = TRAIN_FULLDEPTH_RES,
+                    batch: int = TRAIN_FULLDEPTH_BATCH) -> dict:
+    """SD-1.5 whole (2 layers a block) with the DualFlow ControlNet at
+    scripts/bench_train.py's operating point, one step at `res` px and
+    `batch`, seeded weights: the card's bf16 (kernels) against the CPU's
+    bf16 and fp32 (plain versions) by `within_bf16_rule`, the gradient and
+    the masters' move after one AdamW update group by group and whole, the
+    loss within TRAIN_REF_TOL's loss_rel of the CPU's fp32; the launches
+    counted and recorded by shape.  Returns the launches."""
+    unet_cfg, cfg = UNetConfig(), TrainConfig()
+    cn_cfg, vae_cfg = ControlNetConfig(unet=unet_cfg), VAEConfig()
+    t0 = time.perf_counter()
+    models = _seeded_models(
+        {"controlnet": lambda: DualFlowControlNet(cn_cfg),
+         "unet": lambda: UNet2DConditionModel(unet_cfg),
+         "vae": lambda: AutoencoderKL(vae_cfg, fused_conv=True)}, 25)
+    positive_confidence(models["controlnet"])
+    g = torch.Generator().manual_seed(26)
+    h = res // 8
+    x = dict(batch=train_batch(g, batch, res, unet_cfg.cross_attention_dim,
+                               "cpu", torch.float32),
+             draws=dict(noise=torch.randn((batch, h, h, 4), generator=g),
+                        timesteps=torch.randint(0, 1000, (batch,),
+                                                generator=g),
+                        latent_eps=torch.randn((batch, h, h, 4),
+                                               generator=g)))
+    runs, seconds = {}, {}
+    for name, dtype in (("cpu_fp32", torch.float32),
+                        ("cpu_bf16", torch.bfloat16)):
+        runs[name], seconds[name] = timed(
+            lambda: _train_step_run(models, x, cfg, "cpu", dtype))
+    (runs["card"], launches, calls), seconds["card"] = timed(
+        lambda: recorded_launches(lambda: _train_step_run(
+            models, x, cfg, "cuda", torch.bfloat16)))
+    models.clear()
+    torch.cuda.empty_cache()
+
+    failed = []
+    groups = runs["cpu_fp32"].pop("groups")
+    for run in ("cpu_bf16", "card"):
+        if runs[run].pop("groups") != groups:
+            failed.append((run, "groups"))
+    errors = _bf16_rows({k: runs["cpu_fp32"][k] for k in ("grad", "move")},
+                        {k: runs["cpu_bf16"][k] for k in ("grad", "move")},
+                        {k: runs["card"][k] for k in ("grad", "move")},
+                        failed)
+    loss = {run: r["loss"][0].item() for run, r in runs.items()}
+    loss_rel = {run: abs(loss[run] - loss["cpu_fp32"]) / abs(
+        loss["cpu_fp32"]) for run in ("cpu_bf16", "card")}
+    if not (math.isfinite(loss["card"])
+            and loss_rel["card"] <= TRAIN_REF_TOL["loss_rel"]):
+        failed.append(("loss", loss, loss_rel))
+
+    fwd = fulldepth_attention(res, batch=batch)
+    bwd = train_fulldepth_backward(res, batch)
+    splats = fulldepth_splats(res, batch)
+    gn, down = encoder_convs(res, batch)
+    want = {"dc_attention_fwd": fwd, "dc_attention_bwd": bwd,
+            "dc_splat_sum": splats, "dc_conv3x3": gn,
+            "dc_downsample_conv3x3": down}
+    shapes = {entry: collections.Counter(
+        c[:5] if entry in ("dc_conv3x3", "dc_downsample_conv3x3") else c
+        for c in calls.get(entry, [])) for entry in want}
+    for entry, counter in want.items():
+        if shapes[entry] != counter:
+            failed.append((entry, sorted(shapes[entry].items()),
+                           sorted(counter.items())))
+    try:
+        check_launches("train_fulldepth", launches, {
+            "attention": sum(fwd.values()), "attention_bwd": sum(
+                bwd.values()),
+            "splat_sum": sum(splats.values()), **ENCODER_LAUNCHES,
+            "upsample_conv3x3": 0,
+            "conv3x3_head": 0, "silu_conv3x3": 0})
+    except AssertionError as e:
+        failed.append(str(e))
+
+    out = dict(res=res, batch=batch,
+               layers_per_block=unet_cfg.layers_per_block,
+               train={k: getattr(cfg, k) for k in (
+                   "learning_rate", "adam_weight_decay", "adam_epsilon",
+                   "max_grad_norm")},
+               rule=FULLWIDTH_RULE, columns=["e_ref", "e_card", "d"],
+               groups=groups, errors=errors, worst=_worst(errors),
+               loss=loss, loss_rel=loss_rel,
+               loss_tol=TRAIN_REF_TOL["loss_rel"], launches=launches,
+               shapes={k: sorted([list(s), n] for s, n in v.items())
+                       for k, v in shapes.items()},
+               seconds_by_run=seconds, seconds=time.perf_counter() - t0)
+    log("train_fulldepth", **out)
+    if failed:
+        raise AssertionError(f"train_fulldepth: {failed}")
+    return launches
 
 
 def residual_raw_batch(gen, B, res, device):
@@ -4310,6 +4508,8 @@ def main() -> int:
     trained = train(gen)
     torch.cuda.empty_cache()
     train_reference()
+    deep_train_launches = train_fulldepth()
+    torch.cuda.empty_cache()
 
     ddpm_shapes = [(DDPM_RES, c) for _, c in RESIDUE_SPLAT_SHAPES]
     rows += (check_splat(gen, 2 * TRAIN_BATCH, RESIDUE_SPLAT_SHAPES)
@@ -4363,6 +4563,7 @@ def main() -> int:
              "approx_drift": drift_launches,
              "fulldepth": deep_launches,
              "longrun": long_launches,
+             "train_fulldepth": deep_train_launches,
              "cmp_train": cmp_trained["launches"],
              "mesh": meshed["step"]["launches"],
              "mesh_cli": meshed["cli"]["launches"],

@@ -19,7 +19,8 @@ residual training points), `scripts/conv_kernel_breakdown.py`,
 `scripts/attention_fwd_ab.py` and `scripts/splat_kernel_ab.py` (without
 running them).  The parity tests at SD-1.5's depth, at the bf16 islands
 and over the 30-step decode, and the recorder they share
-(`tests/decode_tape.py`), import JAX for their reference side; their
+(`tests/decode_tape.py`), and the training step's comparison
+(`tests/train_parity.py`) import JAX for their reference side; their
 port-side imports run under the same hook.
 """
 
@@ -123,13 +124,14 @@ def test_port_sources_name_no_jax():
 
 
 # the parity tests at SD-1.5's depth, at the bf16 islands and over the
-# 30-step decode, and the recorder they share: JAX's side is their own,
-# the port's side comes from the port alone
+# 30-step decode, the recorder they share, and the training step's
+# comparison at SD-1.5's width and depth: JAX's side is their own, the
+# port's side comes from the port alone
 PARITY_TESTS = ("test_torch_port_fulldepth.py",
                 "test_torch_port_bf16_sites.py",
                 "test_torch_port_longrun.py",
                 "test_torch_port_fulldepth_longrun.py",
-                "decode_tape.py")
+                "decode_tape.py", "train_parity.py")
 PORT_SIDE = ("diffcodec_tpu_torch", "chip_smoke")
 
 

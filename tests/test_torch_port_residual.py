@@ -46,6 +46,7 @@ from diffcodec_tpu_torch.models.vae import AutoencoderKL
 from diffcodec_tpu_torch.sampling.schedulers import NoiseSchedule, ddpm_step
 from diffcodec_tpu_torch.train import residue as tres
 from diffcodec_tpu_torch.train import trainer as ttrainer
+from train_parity import LOSS_RTOL, assert_grads_close, draws
 
 # fp32 ops with a few sums in another order (the JAX Pallas tests' fp32
 # tolerance), for the small modules and the residue transform
@@ -54,13 +55,6 @@ OP_TOL = dict(atol=2e-5, rtol=1e-4)
 # 1280, the UNets' ~30 layers): held to 1e-5 of the output's largest value
 # and 1e-5 of each element; they differ by at most ~2e-6 of the largest
 DEEP_RTOL = 1e-5
-# gradients, as `test_torch_port_train.py` holds them: 1e-4 of each tensor's
-# largest value and of each element, plus 1e-6 of the largest gradient of
-# all (the biases that a GroupNorm follows have an exact gradient of 0,
-# which both sides compute as rounding noise); the loss to 1e-6
-GRAD_RTOL = 1e-4
-GRAD_FLOOR = 1e-6
-LOSS_RTOL = 1e-6
 
 INJECT = (320, 320, 640, 1280)
 VAE_KW = dict(base_channels=8, channel_mults=(1, 1, 2, 2), layers_per_block=1)
@@ -312,16 +306,6 @@ def _jax_value_and_grad(setup, rng):
     return float(loss), grads
 
 
-def _draws(rng):
-    """JAX's loss_fn draws from `rng`: (noise, timesteps, latent_eps)."""
-    rng_noise, rng_t, rng_lat = jax.random.split(rng, 3)
-    shape = (B, RES // 8, RES // 8, 4)
-    return dict(noise=_t(jax.random.normal(rng_noise, shape, jnp.float32)),
-                timesteps=_t(jax.random.randint(rng_t, (B,), 0, 1000)),
-                latent_eps=_t(jax.random.normal(rng_lat, shape,
-                                                jnp.float32)))
-
-
 def _port_trainer(jparams, cfg):
     ccfg, vcfg = tcfg.ControlNetConfig.tiny(), tcfg.VAEConfig(**VAE_KW)
     unet = UNet2DConditionModel(tcfg.UNetConfig.tiny())
@@ -353,18 +337,11 @@ def test_residual_loss_fn_and_gradients_match_jax(res_setup):
         other, _ = tr.vae.encode(batch["image"])
     torch.testing.assert_close(mean, want_mean, rtol=0, atol=0)
     assert not torch.allclose(mean, other)
-    loss, _ = tr.loss_fn(batch, **_draws(rng))
+    loss, _ = tr.loss_fn(batch, **draws(rng, B, RES))
     loss.backward()
     assert abs(loss.item() - want_loss) <= LOSS_RTOL * abs(want_loss)
     got = tr.gradients()
-    want = _torch_layout(want_grads)
-    assert set(got) == set(want)
-    top = max(float(np.abs(w).max()) for w in want.values())
-    for name, w in want.items():
-        np.testing.assert_allclose(
-            got[name].numpy(), w, rtol=GRAD_RTOL,
-            atol=GRAD_RTOL * float(np.abs(w).max()) + GRAD_FLOOR * top,
-            err_msg=name)
+    assert_grads_close(got, _torch_layout(want_grads))
     # the warped prediction reaches the ControlNet: its warp extractor and
     # the residue extractor upstream of the splats get gradients
     for prefix in ("warp_extractor.enc1.", "feature_extractor.prev_pre.",
@@ -391,7 +368,7 @@ def test_residual_train_step_matches_jax(res_setup):
     state = ttrainer.TrainState.create(dict(tr.controlnet.named_parameters()),
                                        ttrainer.Optimizer(tr.config))
     batch = {k: _t(v) for k, v in res_setup["batch"].items()}
-    state, metrics = tr.train_step(state, batch, **_draws(rng))
+    state, metrics = tr.train_step(state, batch, **draws(rng, B, RES))
     assert state.step == 1 and np.isfinite(float(metrics["loss"]))
     for name, w in want.items():
         delta_w = w - before[name].numpy()

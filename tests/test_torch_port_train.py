@@ -53,17 +53,8 @@ from diffcodec_tpu_torch.train import checkpoint as tckpt
 from diffcodec_tpu_torch.train import latent_cache as tcache
 from diffcodec_tpu_torch.train import lpips as tlpips
 from diffcodec_tpu_torch.train import trainer as ttrainer
+from train_parity import LOSS_RTOL, assert_grads_close, draws
 
-# fp32 through the encoder, the ControlNet and the UNet, forward and
-# backward: convs, matmuls and GroupNorm statistics sum in another order in
-# XLA and in PyTorch's CPU kernels.  A gradient tensor is held to 1e-4 of
-# its own largest value and of each element, plus 1e-6 of the largest
-# gradient of all: the biases that a GroupNorm follows have an exact
-# gradient of 0, which both sides compute as rounding noise of ~1e-9.  The
-# loss is held to 1e-6.
-GRAD_RTOL = 1e-4
-GRAD_FLOOR = 1e-6
-LOSS_RTOL = 1e-6
 # fp32 ops with a few sums in another order
 OP_TOL = dict(atol=2e-5, rtol=1e-4)
 
@@ -145,17 +136,6 @@ def _port_trainer(jparams, cfg):
         schedule=NoiseSchedule.create(tcfg.SchedulerConfig()), config=cfg)
 
 
-def _draws(rng):
-    """JAX's loss_fn draws from `rng`, as numpy: (noise, timesteps,
-    latent_eps)."""
-    rng_noise, rng_t, rng_lat = jax.random.split(rng, 3)
-    shape = (B, RES // 8, RES // 8, 4)
-    return dict(noise=_t(jax.random.normal(rng_noise, shape, jnp.float32)),
-                timesteps=_t(jax.random.randint(rng_t, (B,), 0, 1000)),
-                latent_eps=_t(jax.random.normal(rng_lat, shape,
-                                                jnp.float32)))
-
-
 @functools.lru_cache(maxsize=None)
 def _jax_grad_fn(cfg_items):
     """jit(value_and_grad(loss_fn)) of JAX's trainer, one per loss config
@@ -179,15 +159,6 @@ def _torch_layout(tree):
         tree, weights.controlnet_name_map(tcfg.ControlNetConfig.tiny()))
 
 
-def _assert_grads_close(got, want):
-    assert set(got) == set(want)
-    top = max(float(np.abs(w).max()) for w in want.values())
-    for name, w in want.items():
-        atol = GRAD_RTOL * float(np.abs(w).max()) + GRAD_FLOOR * top
-        np.testing.assert_allclose(got[name].numpy(), w, rtol=GRAD_RTOL,
-                                   atol=atol, err_msg=name)
-
-
 @pytest.mark.parametrize("variant", ["mse", "edge", "remat"])
 def test_loss_fn_and_gradients_match_jax(setup, variant):
     kw = {"mse": {}, "edge": {"edge_weight": 0.5},
@@ -196,11 +167,11 @@ def test_loss_fn_and_gradients_match_jax(setup, variant):
     want_loss, want_grads = _jax_value_and_grad(setup, rng, **kw)
     tr = _port_trainer(setup["jparams"], tcfg.TrainConfig(**kw))
     batch = {k: _t(v) for k, v in setup["batch"].items()}
-    loss, metrics = tr.loss_fn(batch, **_draws(rng))
+    loss, metrics = tr.loss_fn(batch, **draws(rng, B, RES))
     loss.backward()
     assert abs(loss.item() - want_loss) <= LOSS_RTOL * abs(want_loss)
     assert ("loss_edge" in metrics) == (variant == "edge")
-    _assert_grads_close(tr.gradients(), _torch_layout(want_grads))
+    assert_grads_close(tr.gradients(), _torch_layout(want_grads))
     # the frozen models get no gradient
     assert all(p.grad is None for m in (tr.unet, tr.vae)
                for p in m.parameters())
@@ -228,7 +199,7 @@ def test_loss_fn_with_lpips_matches_jax(setup):
     tr = _port_trainer(jp, tcfg.TrainConfig(**cfg_kw))
     tr = dataclasses.replace(tr, lpips=lp)
     batch = {k: _t(v) for k, v in setup["batch"].items()}
-    loss, metrics = tr.loss_fn(batch, **_draws(rng))
+    loss, metrics = tr.loss_fn(batch, **draws(rng, B, RES))
     loss.backward()
     assert abs(float(want_metrics["loss_lpips"])) > 1e-4
     np.testing.assert_allclose(metrics["loss_lpips"].item(),
@@ -236,7 +207,7 @@ def test_loss_fn_with_lpips_matches_jax(setup):
                                rtol=LOSS_RTOL * 10)
     assert abs(loss.item() - float(want_loss)) <= LOSS_RTOL * abs(
         float(want_loss))
-    _assert_grads_close(tr.gradients(), _torch_layout(want_grads))
+    assert_grads_close(tr.gradients(), _torch_layout(want_grads))
     assert all(p.grad is None for p in lp.parameters())
 
 
@@ -284,7 +255,7 @@ def test_train_step_matches_jax(setup, variant):
     batch = {k: _t(v) for k, v in setup["batch"].items()}
     for step in range(n_steps):
         rng = jax.random.fold_in(jax.random.PRNGKey(9), step)
-        state, _ = tr.train_step(state, batch, **_draws(rng))
+        state, _ = tr.train_step(state, batch, **draws(rng, B, RES))
         if variant == "accum" and step == 0:  # no update yet
             for n, p in tr.controlnet.named_parameters():
                 torch.testing.assert_close(p.detach(), before[n], atol=0,
@@ -402,12 +373,12 @@ def test_loss_fn_takes_cached_moments(setup):
     the online encode with the same draws."""
     tr = _port_trainer(setup["jparams"], tcfg.TrainConfig())
     batch = {k: _t(v) for k, v in setup["batch"].items()}
-    draws = _draws(jax.random.PRNGKey(3))
+    drawn = draws(jax.random.PRNGKey(3), B, RES)
     with torch.no_grad():
         mean, logvar = tr.vae.encode(batch["image"])
-        online, _ = tr.loss_fn(batch, **draws)
+        online, _ = tr.loss_fn(batch, **drawn)
         cached, _ = tr.loss_fn(dict(batch, latent_moments=torch.cat(
-            [mean, logvar], dim=-1)), **draws)
+            [mean, logvar], dim=-1)), **drawn)
     assert float(cached) == float(online)
 
 
