@@ -151,6 +151,18 @@ Phases, each printed as one JSON line with the elapsed seconds `t`:
              ControlNet's gradients; again with the LPIPS term (the
              full-width AlexNet LPIPS) and the edge term, the term beside
              its value with the LPIPS network in bf16
+  train_fulldepth
+             one ControlNet training step of SD-1.5 whole at 256 px, batch
+             2: the card's bf16 against the CPU's bf16 and fp32 by
+             `within_bf16_rule`, the gradient and the masters' move group
+             by group; the launches by shape
+  distill_fulldepth
+             one distillation step of SD-1.5 whole (teacher and student
+             seeded apart, the EMA target the student's) at 128 px, batch
+             2, lr 1e-3: the card's bf16 against the CPU's bf16 and fp32 by
+             the rule, the loss's terms and, group by group, the gradient,
+             the masters' and the EMA's moves; the loss within 2% of the
+             CPU's fp32; the launches by shape
   kernel     (residual shapes) the splat's small-channel kernel at the
              residue transform's full-frame shapes: [16, 512, 512, 4] (both
              anchors' RGB and its metric, one launch) and [16, 512, 512, 3]
@@ -1951,6 +1963,51 @@ def within_bf16_rule(e_ref: float, e_got: float, d: float) -> bool:
             and d <= r["d_scale"] * e_ref + r["floor"])
 
 
+# a loss that is the mean of N terms: its bf16 error is the mean of the
+# terms' errors, whose roundings cancel by chance, so one mean is no scale
+# for `within_bf16_rule`.  Its scale is the standard error of that mean,
+# the spread of the reference's own bf16 terms about its fp32 ones over
+# sqrt(N); a run's loss is held to MEAN_SIGMAS of them, times the rule's
+# e_scale
+MEAN_SIGMAS = 4.0
+
+
+def mean_limit(ref_terms: torch.Tensor, ref_bf16_terms: torch.Tensor) -> float:
+    """The largest |loss - the reference's fp32 loss| a bf16 run may read,
+    of a loss that is the mean of these terms (MEAN_SIGMAS)."""
+    diff = (ref_bf16_terms.double() - ref_terms.double()).flatten()
+    return (FULLWIDTH_RULE["e_scale"] * MEAN_SIGMAS * float(diff.std())
+            / math.sqrt(diff.numel()))
+
+
+def _sq(t: torch.Tensor) -> float:
+    return float(torch.sum(t * t, dtype=torch.float64))
+
+
+class GroupSums:
+    """The bf16 rule's three relL2s summed tensor by tensor, group by group
+    (and over everything, as 'all'), so that no run's whole result is
+    flattened at once: `add(group, ref, ref_bf16, got)` with the
+    reference's fp32 and bf16 values of a tensor and the one held."""
+
+    def __init__(self):
+        self.sums = {}
+
+    def add(self, group, ref, ref_bf16, got):
+        vals = (_sq(ref_bf16 - ref), _sq(ref), _sq(got - ref),
+                _sq(got - ref_bf16), _sq(ref_bf16))
+        for g in (group, "all"):
+            acc = self.sums.setdefault(g, [0.0] * len(vals))
+            for i, v in enumerate(vals):
+                acc[i] += v
+
+    def errors(self) -> dict:
+        """{group: [e_ref, e_got, d]}."""
+        return {g: [math.sqrt(b_r / r), math.sqrt(g_r / r),
+                    math.sqrt(g_b / b)]
+                for g, (b_r, r, g_r, g_b, b) in self.sums.items()}
+
+
 def _fullwidth_nets(models, device, dtype) -> dict:
     """`models` moved to `device` in `dtype` (in place), with a fused
     copy of the VAE where there is one."""
@@ -2785,6 +2842,21 @@ def train_group(name: str) -> str:
     raise KeyError(name)
 
 
+def distill_group(name: str) -> str:
+    """A student parameter's group, by its `denoiser` name: 'controlnet.'
+    and its `train_group`, or 'unet.' and the UNet's part (its input, each
+    down block, the mid block, each up block, the out head)."""
+    net, rest = name.split(".", 1)
+    if net == "controlnet":
+        return f"controlnet.{train_group(rest)}"
+    head, *tail = rest.split(".")
+    part = {"conv_in": "input", "time_embedding": "input",
+            "mid_block": "mid", "conv_norm_out": "out", "conv_out": "out"}
+    if head in ("down_blocks", "up_blocks"):
+        return f"unet.{head.split('_')[0]}{tail[0]}"
+    return f"unet.{part[head]}"
+
+
 def train_fulldepth_backward(res: int, batch: int) -> collections.Counter:
     """The attention backward launches of one training step at SD-1.5's
     depth, by shape (BH, Lq, Lk, D), self and 77-token cross each: those
@@ -2817,39 +2889,57 @@ def encoder_convs(res: int, batch: int) -> tuple:
     return gn, down
 
 
-def _grouped(tensors: dict) -> dict:
-    """{group: the group's tensors flattened into one fp32 CPU vector, in
-    parameter order}, and 'all'."""
-    out = {}
-    for name, t in tensors.items():
-        out.setdefault(train_group(name), []).append(
-            t.detach().float().flatten().cpu())
-    out = {g: torch.cat(v) for g, v in out.items()}
-    out["all"] = torch.cat(list(out.values()))
-    return out
+def _add_held(sums: dict, key: str, group: str, refs, got, device):
+    """One tensor into the bf16 rule's sums (`GroupSums`), on `device`:
+    the CPU runs' fp32 and bf16 values `refs` against a card run's
+    `got`."""
+    sums[key].add(group, *(r.to(device).float() for r in refs),
+                  got.to(device).float())
+
+
+def _rule_failures(errors: dict) -> list:
+    """Each {tree: {group: [e_ref, e_card, d]}} row off `within_bf16_rule`
+    or not finite."""
+    return [(key, group, e_ref, e_card, d)
+            for key, rows in errors.items()
+            for group, (e_ref, e_card, d) in rows.items()
+            if not (math.isfinite(e_card) and math.isfinite(d)
+                    and within_bf16_rule(e_ref, e_card, d))]
 
 
 def _train_step_run(models: dict, x: dict, cfg: TrainConfig, device,
-                    dtype) -> dict:
+                    dtype, sums=None, held=None) -> tuple:
     """One training step of copies of the fp32 `models` on `device` in
     `dtype`, built by `make_trainer` (fp32 masters), on x's batch and
-    draws: {'loss': [loss], 'grad': [by group], 'move': [the masters' move
-    by group]} and the groups' names, on the CPU in fp32."""
+    draws.  The gradient and the masters' move tensor by tensor: with
+    `sums` ({'grad', 'move'} of GroupSums) added against `held` (the CPU's
+    fp32 and bf16 runs), else returned as {name: (grad, move)} on the CPU.
+    Returns (loss, that dict or None, the groups in order)."""
     copies = {k: copy.deepcopy(m).to(device) for k, m in models.items()}
     trainer, state = make_trainer(copies["unet"], copies["controlnet"],
                                   copies["vae"], cfg, dtype)
+    del copies
     masters0 = {n: p.clone() for n, p in state.params.items()}
     batch = {k: v.to(device) if k == "flow" else v.to(device, dtype)
              for k, v in x["batch"].items()}
     loss, _ = trainer.loss_fn(batch, **{k: v.to(device)
                                         for k, v in x["draws"].items()})
     loss.backward()
-    grads = _grouped(trainer.gradients())
+    grads = {n: g.detach() for n, g in trainer.gradients().items()}
     trainer.update(state)
-    moves = _grouped({n: p - masters0[n] for n, p in state.params.items()})
-    return {"loss": [loss.detach().float().cpu().reshape(1)],
-            "grad": list(grads.values()), "move": list(moves.values()),
-            "groups": list(grads)}
+    out, groups = {} if sums is None else None, []
+    for n, g in grads.items():
+        group = train_group(n)
+        if group not in groups:
+            groups.append(group)
+        got = (g, state.params[n] - masters0[n])
+        if sums is None:
+            out[n] = tuple(t.cpu() for t in got)
+            continue
+        for i, key in enumerate(("grad", "move")):
+            _add_held(sums, key, group, [held[run][n][i] for run in (
+                "cpu_fp32", "cpu_bf16")], got[i], device)
+    return loss.item(), out, groups
 
 
 def train_fulldepth(res: int = TRAIN_FULLDEPTH_RES,
@@ -2878,27 +2968,24 @@ def train_fulldepth(res: int = TRAIN_FULLDEPTH_RES,
                                                 generator=g),
                         latent_eps=torch.randn((batch, h, h, 4),
                                                generator=g)))
-    runs, seconds = {}, {}
+    loss, held, seconds = {}, {}, {}
     for name, dtype in (("cpu_fp32", torch.float32),
                         ("cpu_bf16", torch.bfloat16)):
-        runs[name], seconds[name] = timed(
+        (loss[name], held[name], groups), seconds[name] = timed(
             lambda: _train_step_run(models, x, cfg, "cpu", dtype))
-    (runs["card"], launches, calls), seconds["card"] = timed(
+    sums = {k: GroupSums() for k in ("grad", "move")}
+    ((loss["card"], _, card_groups), launches, calls), seconds["card"] = timed(
         lambda: recorded_launches(lambda: _train_step_run(
-            models, x, cfg, "cuda", torch.bfloat16)))
+            models, x, cfg, "cuda", torch.bfloat16, sums, held)))
+    del held
     models.clear()
     torch.cuda.empty_cache()
 
     failed = []
-    groups = runs["cpu_fp32"].pop("groups")
-    for run in ("cpu_bf16", "card"):
-        if runs[run].pop("groups") != groups:
-            failed.append((run, "groups"))
-    errors = _bf16_rows({k: runs["cpu_fp32"][k] for k in ("grad", "move")},
-                        {k: runs["cpu_bf16"][k] for k in ("grad", "move")},
-                        {k: runs["card"][k] for k in ("grad", "move")},
-                        failed)
-    loss = {run: r["loss"][0].item() for run, r in runs.items()}
+    if card_groups != groups:
+        failed.append(("groups", card_groups))
+    errors = {k: v.errors() for k, v in sums.items()}
+    failed += _rule_failures(errors)
     loss_rel = {run: abs(loss[run] - loss["cpu_fp32"]) / abs(
         loss["cpu_fp32"]) for run in ("cpu_bf16", "card")}
     if not (math.isfinite(loss["card"])
@@ -2935,7 +3022,9 @@ def train_fulldepth(res: int = TRAIN_FULLDEPTH_RES,
                    "learning_rate", "adam_weight_decay", "adam_epsilon",
                    "max_grad_norm")},
                rule=FULLWIDTH_RULE, columns=["e_ref", "e_card", "d"],
-               groups=groups, errors=errors, worst=_worst(errors),
+               groups=groups, errors=errors,
+               worst=_worst({k: list(v.values())
+                             for k, v in errors.items()}),
                loss=loss, loss_rel=loss_rel,
                loss_tol=TRAIN_REF_TOL["loss_rel"], launches=launches,
                shapes={k: sorted([list(s), n] for s, n in v.items())
@@ -3253,8 +3342,12 @@ def make_distiller(models, cfg: TrainConfig, dtype):
 
 def distill_batch(gen, B, res, ctx_dim, device, dtype):
     """`train_batch` with the CFG teacher's uncond embeddings (zeros, the
-    JAX CLIs' empty prompt without a text encoder)."""
-    batch = train_batch(gen, B, res, ctx_dim, device, dtype)
+    JAX CLIs' empty prompt without a text encoder), the frames fp32 as the
+    distillation script's dataset gives them (the noisy samples take their
+    dtype, as in the JAX package)."""
+    batch = train_batch(gen, B, res, ctx_dim, device, torch.float32)
+    batch = {k: v if k in ("image", "flow") else v.to(dtype)
+             for k, v in batch.items()}
     batch["uncond_embeds"] = torch.zeros_like(batch["text_embeds"])
     return batch
 
@@ -3400,6 +3493,212 @@ def distill(gen) -> tuple:
     return out, ema_params
 
 
+# the distillation step at SD-1.5's depth, card against the CPU: batch 2 at
+# 128 px, so that the CPU's fp32 and bf16 steps (a CFG teacher at batch 4,
+# the student's forward and backward, the target, an update of 1.28 B
+# masters and the EMA, each from a copy of the teacher) fit the phase's
+# ~150 s; at DISTILL_REF_TRAIN's lr 1e-3, at which the EMA's first move
+# (0.005 of the masters') stands above the fp32 rounding of the weights
+DISTILL_FULLDEPTH_RES, DISTILL_FULLDEPTH_BATCH = 128, 2
+
+
+def distill_fulldepth_launches(res: int, batch: int) -> dict:
+    """A distillation step's kernel launches at SD-1.5's depth by C entry
+    and shape: the attention of the CFG teacher (2 x batch), the student
+    and the target, the student's backward at every one of its 46 calls
+    (its UNet trains too), a pyramid a network, the encoder's convs."""
+    gn, down = encoder_convs(res, batch)
+    return {"dc_attention_fwd": fulldepth_attention(res, batch=2 * batch)
+            + fulldepth_attention(res, batch=batch)
+            + fulldepth_attention(res, batch=batch),
+            "dc_attention_bwd": fulldepth_attention(res, batch=batch),
+            "dc_splat_sum": fulldepth_splats(res, 2 * batch)
+            + fulldepth_splats(res, batch) + fulldepth_splats(res, batch),
+            "dc_conv3x3": gn, "dc_downsample_conv3x3": down}
+
+
+def distill_loss_terms(d: ConsistencyDistiller, batch: dict,
+                       draws: dict) -> tuple:
+    """`d.loss_fn(batch, **draws)`'s loss and its terms: the Huber of
+    f_student - f_target element by element (the loss is their mean),
+    fp32, on the CPU."""
+    f = []  # the student's and the target's consistency functions
+
+    def consistency_fn(*args):
+        f.append(ConsistencyDistiller.consistency_fn(d, *args))
+        return f[-1]
+
+    d.consistency_fn = consistency_fn
+    try:
+        loss, _ = d.loss_fn(batch, **draws)
+    finally:
+        del d.consistency_fn
+    err = (f[0] - f[1]).detach().float()
+    c = d.config.huber_c
+    return loss, (torch.sqrt(err * err + c * c) - c).cpu()
+
+
+def _distill_step_run(models: dict, x: dict, device, dtype, sums=None,
+                      held=None) -> tuple:
+    """One distillation step on `device` in `dtype`: `make_distiller` over
+    copies of the fp32 teacher `models`, its masters, EMA and working
+    copies then given the student's weights (models['student'], by
+    `denoiser` name: a new state's EMA is its masters), on x's batch and
+    draws.  The loss's terms (the Huber of f_student - f_target element by
+    element), and the gradient, the masters' move and the EMA's move tensor
+    by tensor: with `sums` ({'loss', 'grad', 'move', 'ema'} of GroupSums)
+    added against `held` (the CPU's fp32 and bf16 runs), else returned as
+    {'terms': terms, name: (grad, move, ema)} on the CPU (the grad in its
+    dtype).  Returns (loss, that dict or None, the groups in order)."""
+    copies = [copy.deepcopy(models[k]).to(device)
+              for k in ("unet", "controlnet", "vae")]
+    d, state = make_distiller(copies, DISTILL_REF_TRAIN, dtype)
+    del copies
+    start = models["student"]
+    with torch.no_grad():
+        for n, p in state.params.items():
+            p.copy_(start[n])
+            state.ema_params[n].copy_(start[n])
+    d.load_params(state)
+    batch = {k: v.to(device) if k in ("image", "flow") else v.to(device, dtype)
+             for k, v in x["batch"].items()}
+    loss, terms = distill_loss_terms(d, batch, {
+        k: v.to(device) for k, v in x["draws"].items()})
+    loss.backward()
+    grads = {n: g.detach() for n, g in d.gradients().items()}
+    d.update(state)
+
+    out, groups = {"terms": terms} if sums is None else None, []
+    if sums is not None:
+        _add_held(sums, "loss", "terms", [held[run]["terms"] for run in (
+            "cpu_fp32", "cpu_bf16")], terms, device)
+    for n, g in grads.items():
+        group = distill_group(n)
+        if group not in groups:
+            groups.append(group)
+        s = start[n].to(device)
+        got = (g, state.params[n] - s, state.ema_params[n] - s)
+        if sums is None:
+            out[n] = tuple(t.cpu() for t in got)
+            continue
+        for i, key in enumerate(("grad", "move", "ema")):
+            _add_held(sums, key, group, [held[run][n][i] for run in (
+                "cpu_fp32", "cpu_bf16")], got[i], device)
+    return loss.item(), out, groups
+
+
+def distill_fulldepth_inputs(res: int, batch: int, seed: int = 0) -> tuple:
+    """(models, x) of `distill_fulldepth`: the seeded fp32 teacher (UNet,
+    ControlNet, VAE) with the student's weights by `denoiser` name under
+    'student', and x's batch and draws; `seed` > 0 draws all of them
+    anew."""
+    unet_cfg = UNetConfig()
+    cn_cfg, vae_cfg = ControlNetConfig(unet=unet_cfg), VAEConfig()
+    seeds = [s + 100 * seed for s in (27, 29, 28)]
+    models = _seeded_models(
+        {"controlnet": lambda: DualFlowControlNet(cn_cfg),
+         "unet": lambda: UNet2DConditionModel(unet_cfg),
+         "vae": lambda: AutoencoderKL(vae_cfg, fused_conv=True)}, seeds[0])
+    student = _seeded_models(
+        {"controlnet": lambda: DualFlowControlNet(cn_cfg),
+         "unet": lambda: UNet2DConditionModel(unet_cfg)}, seeds[1])
+    for m in (models["controlnet"], student["controlnet"]):
+        positive_confidence(m)
+    models["student"] = {n: p.detach() for n, p in denoiser(
+        student["unet"], student["controlnet"]).named_parameters()}
+    del student
+    g = torch.Generator().manual_seed(seeds[2])
+    h = res // 8
+    x = dict(batch=distill_batch(g, batch, res, unet_cfg.cross_attention_dim,
+                                 "cpu", torch.float32),
+             draws=dict(latent_eps=torch.randn((batch, h, h, 4), generator=g),
+                        idx=torch.randint(0, DistillConfig().num_teacher_steps
+                                          - 1, (batch,), generator=g),
+                        noise=torch.randn((batch, h, h, 4), generator=g)))
+    return models, x
+
+
+def distill_fulldepth(res: int = DISTILL_FULLDEPTH_RES,
+                      batch: int = DISTILL_FULLDEPTH_BATCH) -> dict:
+    """SD-1.5 whole (2 layers a block) as the teacher, the student and the
+    EMA target at scripts/train_distill.py's DistillConfig (CFG 3.5,
+    ControlNet scale 1.35, 50 teacher steps, Huber, FreeU), one step at
+    `res` px and `batch` from a new state, seeded weights (the teacher's
+    and the student's apart, so that a network used in the other's place
+    shows; the EMA target the student's): the card's bf16 (kernels) against
+    the CPU's bf16 and fp32 (plain versions) by `within_bf16_rule`, the
+    loss's terms, and group by group and whole the student's gradient, the
+    masters' move and the EMA's move after the update; the loss, the
+    terms' mean, within `mean_limit` of the CPU's fp32; the launches
+    counted and recorded by shape.  Returns the launches."""
+    unet_cfg = UNetConfig()
+    t0 = time.perf_counter()
+    models, x = distill_fulldepth_inputs(res, batch)
+    loss, held, seconds = {}, {}, {}
+    for name, dtype in (("cpu_fp32", torch.float32),
+                        ("cpu_bf16", torch.bfloat16)):
+        (loss[name], held[name], groups), seconds[name] = timed(
+            lambda: _distill_step_run(models, x, "cpu", dtype))
+    loss_limit = mean_limit(held["cpu_fp32"]["terms"],
+                            held["cpu_bf16"]["terms"])
+    sums = {k: GroupSums() for k in ("loss", "grad", "move", "ema")}
+    ((loss["card"], _, card_groups), launches, calls), seconds["card"] = timed(
+        lambda: recorded_launches(lambda: _distill_step_run(
+            models, x, "cuda", torch.bfloat16, sums, held)))
+    del held
+    models.clear()
+    torch.cuda.empty_cache()
+
+    failed = []
+    if card_groups != groups:
+        failed.append(("groups", card_groups))
+    errors = {k: v.errors() for k, v in sums.items()}
+    failed += _rule_failures(errors)
+    # the loss, the mean of the terms held above, within `mean_limit`
+    loss_rel = {run: abs(loss[run] - loss["cpu_fp32"]) / abs(loss["cpu_fp32"])
+                for run in ("cpu_bf16", "card")}
+    loss_tol = loss_limit / abs(loss["cpu_fp32"])
+    if not (math.isfinite(loss["card"]) and loss_rel["card"] <= loss_tol):
+        failed.append(("loss", loss, loss_rel, loss_tol))
+
+    want = distill_fulldepth_launches(res, batch)
+    shapes = {entry: collections.Counter(
+        c[:5] if entry in ("dc_conv3x3", "dc_downsample_conv3x3") else c
+        for c in calls.get(entry, [])) for entry in want}
+    for entry, counter in want.items():
+        if shapes[entry] != counter:
+            failed.append((entry, sorted(shapes[entry].items()),
+                           sorted(counter.items())))
+    try:
+        check_launches("distill_fulldepth", launches, DISTILL_LAUNCHES)
+    except AssertionError as e:
+        failed.append(str(e))
+
+    for key, rows in errors.items():
+        for group, (e_ref, e_card, d) in rows.items():
+            log("distill_fulldepth_group", tree=key, group=group,
+                e_ref=e_ref, e_card_over_e_ref=e_card / max(e_ref, 1e-30),
+                d_over_e_ref=d / max(e_ref, 1e-30))
+    out = dict(res=res, batch=batch,
+               layers_per_block=unet_cfg.layers_per_block,
+               train={k: getattr(DISTILL_REF_TRAIN, k) for k in (
+                   "learning_rate", "adam_weight_decay", "adam_epsilon",
+                   "max_grad_norm")},
+               rule=FULLWIDTH_RULE, columns=["e_ref", "e_card", "d"],
+               groups=groups, errors=errors,
+               worst=_worst({k: list(v.values())
+                             for k, v in errors.items()}),
+               loss=loss, loss_rel=loss_rel, loss_tol=loss_tol,
+               launches=launches,
+               shapes={k: sorted([list(s), n] for s, n in v.items())
+                       for k, v in shapes.items()},
+               seconds_by_run=seconds, seconds=time.perf_counter() - t0)
+    log("distill_fulldepth", **out)
+    if failed:
+        raise AssertionError(f"distill_fulldepth: {failed}")
+    return launches
+
+
 def distill_decode(ema_params, gen) -> dict:
     """The `distill` phase's EMA masters put into a fresh fused-conv
     pipeline (`train.distill.load_student`), then the K = 4 512 px
@@ -3471,7 +3770,7 @@ def distill_reference(workdir: str):
                      idx=torch.randint(0, 49, (2,), generator=g),
                      noise=torch.randn(2, 8, 8, 4, generator=g))
         if dtype == torch.bfloat16:
-            batch = {k: v.to(device) if k == "flow"
+            batch = {k: v.to(device) if k in ("image", "flow")
                      else v.to(device, torch.bfloat16)
                      for k, v in batch.items()}
             draws = {k: v.to(device) for k, v in draws.items()}
@@ -4510,6 +4809,8 @@ def main() -> int:
     train_reference()
     deep_train_launches = train_fulldepth()
     torch.cuda.empty_cache()
+    deep_distill_launches = distill_fulldepth()
+    torch.cuda.empty_cache()
 
     ddpm_shapes = [(DDPM_RES, c) for _, c in RESIDUE_SPLAT_SHAPES]
     rows += (check_splat(gen, 2 * TRAIN_BATCH, RESIDUE_SPLAT_SHAPES)
@@ -4564,6 +4865,7 @@ def main() -> int:
              "fulldepth": deep_launches,
              "longrun": long_launches,
              "train_fulldepth": deep_train_launches,
+             "distill_fulldepth": deep_distill_launches,
              "cmp_train": cmp_trained["launches"],
              "mesh": meshed["step"]["launches"],
              "mesh_cli": meshed["cli"]["launches"],

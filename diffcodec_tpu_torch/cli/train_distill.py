@@ -197,7 +197,9 @@ def train(args, distiller, state, batches, embed_text, logger):
             seen += 1
             text = raw["text_embeds"].to(dtype)
             batch = {
-                "image": torch.from_numpy(raw["image"]).to(device, dtype),
+                # fp32, as the JAX script's dataset gives it: the noisy
+                # samples take the image's dtype
+                "image": torch.from_numpy(raw["image"]).to(device),
                 "cond": torch.from_numpy(raw["cond"]).to(device, dtype),
                 "flow": torch.from_numpy(raw["flow"]).to(device),
                 "text_embeds": text,

@@ -259,7 +259,6 @@ class ConsistencyDistiller:
         given.  On a mesh the batch and the draws are the global batch's
         and this rank's loss is its data rows' (`row_taker`)."""
         c = self.config
-        dtype = self.dtype
         n = batch["cond"].shape[0]
         take = row_taker(self.layout, n)
         batch = shard_batch(self.layout and self.layout.mesh, batch)
@@ -284,12 +283,16 @@ class ConsistencyDistiller:
             noise = torch.randn((n, *latents.shape[1:]),
                                 generator=generator, device=dev)
         noise = take(noise)
-        x_tn = self.schedule.add_noise(latents, noise, t_n).to(dtype)
+        # the noisy samples in the image's dtype, as JAX casts them
+        # (`distill.py:201`, `:210`): fp32 from the script's fp32 batch,
+        # whatever the networks' dtype
+        image_dtype = batch["image"].dtype
+        x_tn = self.schedule.add_noise(latents, noise, t_n).to(image_dtype)
 
         text, uncond = batch["text_embeds"], batch["uncond_embeds"]
         cond, flow = batch["cond"], batch["flow"]
         eps_t = self.teacher_eps(x_tn, t_n, text, uncond, cond, flow)
-        x_tm = ddim_step(self.schedule, x_tn, eps_t, t_n, t_m).to(dtype)
+        x_tm = ddim_step(self.schedule, x_tn, eps_t, t_n, t_m).to(image_dtype)
 
         f_student = self.consistency_fn(self.student, x_tn, t_n, text, cond,
                                         flow)

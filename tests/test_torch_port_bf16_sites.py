@@ -87,6 +87,9 @@ from diffcodec_tpu_torch.models.vae import AutoencoderKL, decode_from_latents
 from diffcodec_tpu_torch.ops.conv import gn_silu_conv3x3
 from diffcodec_tpu_torch.ops.flow import compute_occlusion_mask
 from diffcodec_tpu_torch.ops.softsplat import softsplat
+from torch_threads import few_torch_threads
+
+_few_torch_threads = few_torch_threads(2)
 
 BF16 = torch.bfloat16
 

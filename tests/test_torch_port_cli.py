@@ -38,6 +38,9 @@ from diffcodec_tpu_torch.models.vae import AutoencoderKL
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "scripts"))
 import run_codec as jcli  # noqa: E402  (scripts/run_codec.py)
+from torch_threads import few_torch_threads
+
+_few_torch_threads = few_torch_threads(1)
 
 PSNR_RTOL = 1e-5
 SSIM_TOL = dict(atol=2e-5, rtol=1e-4)

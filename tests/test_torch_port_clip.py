@@ -28,6 +28,9 @@ from diffcodec_tpu_torch import weights
 from diffcodec_tpu_torch.models.clip_text import CLIPTextEncoder
 from diffcodec_tpu_torch.sampling.pipeline import DualFlowPipeline
 from diffcodec_tpu_torch.utils import tokenizer as ttok
+from torch_threads import few_torch_threads
+
+_few_torch_threads = few_torch_threads(1)
 
 # fp32 through the encoder: matmuls, softmaxes and LayerNorm statistics sum
 # in another order in XLA and in PyTorch's CPU kernels.  The output is a

@@ -22,6 +22,9 @@ from diffcodec_tpu.models import cmp as jcmp
 from diffcodec_tpu_torch import weights
 from diffcodec_tpu_torch.codec import runner
 from diffcodec_tpu_torch.models import cmp
+from torch_threads import few_torch_threads
+
+_few_torch_threads = few_torch_threads(1)
 
 LOGIT_REL = 1e-4
 FLOW_ATOL = 2e-3

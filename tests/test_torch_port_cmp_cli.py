@@ -27,6 +27,7 @@ from diffcodec_tpu.train import cmp_train as jtrain
 from diffcodec_tpu_torch import weights
 from diffcodec_tpu_torch.cli import train_cmp
 from diffcodec_tpu_torch.train import checkpoint, cmp_config, cmp_train
+from torch_threads import few_torch_threads
 
 SCRIPTS = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "scripts")
@@ -35,14 +36,7 @@ if SCRIPTS not in sys.path:
 import train_cmp as jscript  # noqa: E402  (scripts/)
 
 
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """One torch thread while this module runs (the lane runs six test
-    processes on the host's cores)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+_one_torch_thread = few_torch_threads(1)
 
 
 SHIPPED_YAML = """

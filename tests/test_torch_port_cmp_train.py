@@ -29,16 +29,10 @@ from diffcodec_tpu.train import cmp_train as jtrain
 from diffcodec_tpu_torch import weights
 from diffcodec_tpu_torch.models import cmp
 from diffcodec_tpu_torch.train import cmp_train
+from torch_threads import few_torch_threads
 
 
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """One torch thread while this module runs (the lane runs six test
-    processes on the host's cores)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+_one_torch_thread = few_torch_threads(1)
 
 
 def _edge_sweep(nbins=99, fmax=50.0):

@@ -20,6 +20,7 @@ from diffcodec_tpu.models import cmp as jcmp
 
 from diffcodec_tpu_torch import weights
 from diffcodec_tpu_torch.models import cmp
+from torch_threads import few_torch_threads
 
 LOGIT_REL = 1e-4
 FLOW_ATOL = 2e-3
@@ -32,14 +33,7 @@ VARIANTS = [(99, "resnet50", "skip", (1, 2, 4)),
             (9, "resnet50", "plain", (2, 8))]
 
 
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """One torch thread while this module runs (the lane runs six test
-    processes on the host's cores)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+_one_torch_thread = few_torch_threads(1)
 
 
 @pytest.mark.parametrize("variant", VARIANTS)

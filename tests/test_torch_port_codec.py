@@ -26,6 +26,9 @@ from diffcodec_tpu.codec import sparse_flow as jsf
 
 from diffcodec_tpu_torch import config
 from diffcodec_tpu_torch.codec import bits, gop, runner, sparse_flow
+from torch_threads import few_torch_threads
+
+_few_torch_threads = few_torch_threads(1)
 
 H, W = 48, 64
 

@@ -15,6 +15,8 @@ handed to the port's `loss_fn`):
     `ConsistencyDistiller.loss_fn`, Huber with FreeU and L2 without;
   * two `train_step`s: masters, EMA and Adam's moments against JAX's
     `train_step` (`make_optimizer` at the distillation script's settings);
+  * with bf16 networks, the noisy samples in the image's dtype, as JAX
+    casts them;
   * the `DistillState` checkpoint: a resumed step bit-identical to an
     uninterrupted one, rotation, and the EMA put into fresh modules.
 """
@@ -46,6 +48,9 @@ from diffcodec_tpu_torch.sampling.schedulers import NoiseSchedule
 from diffcodec_tpu_torch.train import checkpoint as tckpt
 from diffcodec_tpu_torch.train import distill as tdistill
 from diffcodec_tpu_torch.train.trainer import Optimizer
+from torch_threads import few_torch_threads
+
+_few_torch_threads = few_torch_threads(1)
 
 # fp32 through the encoder, three ControlNet + UNet calls and their
 # backward: sums in another order in XLA and PyTorch's CPU kernels (the
@@ -384,6 +389,58 @@ def test_train_step_matches_jax(setup):
                         (td.target, state.ema_params)):
         for n, p in net.named_parameters():
             torch.testing.assert_close(p.detach(), params[n], atol=0, rtol=0)
+
+
+def _sample_dtypes(consistency_fn):
+    """A wrapper of a `consistency_fn` (JAX's or the port's) that records
+    the dtype of each noisy sample it is given, and the list it fills."""
+    seen = []
+
+    def wrapped(self, net, x, *args, **kwargs):
+        seen.append(str(x.dtype).replace("torch.", ""))
+        return consistency_fn(self, net, x, *args, **kwargs)
+
+    return wrapped, seen
+
+
+@pytest.mark.parametrize("image", ["float32", "bfloat16"])
+def test_noisy_samples_take_the_images_dtype(setup, image):
+    """Both noisy samples, x_tn (the student's) and x_tm (the target's),
+    in the image's dtype whatever the networks' (JAX's `distill.py:201`,
+    `:210`): bf16 networks given the script's fp32 frames see fp32 samples,
+    and the boundary term c_skip(t) x keeps them unrounded.  Read from
+    JAX's loss_fn traced with bf16 modules (shapes only) and the port's run
+    in bf16."""
+    jd = jdistill.ConsistencyDistiller(
+        unet=JUNet(jcfg.UNetConfig.tiny(), dtype=jnp.bfloat16),
+        controlnet=JControlNet(jcfg.ControlNetConfig.tiny(),
+                               dtype=jnp.bfloat16),
+        vae=JVAE(jcfg.VAEConfig(**VAE_KW), dtype=jnp.bfloat16),
+        schedule=JSchedule.create(jcfg.SchedulerConfig()),
+        config=jcfg.DistillConfig())
+    wrapped, want = _sample_dtypes(
+        jdistill.ConsistencyDistiller.consistency_fn)
+    batch = {k: jax.ShapeDtypeStruct(v.shape, jnp.dtype(image)
+                                     if k == "image" else jnp.float32)
+             for k, v in setup["batch"].items()}
+    nets = setup["nets"]
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jdistill.ConsistencyDistiller, "consistency_fn", wrapped)
+        jax.eval_shape(jd.loss_fn, nets["student"], nets["ema"],
+                       _frozen(setup), batch, jax.random.PRNGKey(7))
+
+    td = _port_distiller(setup)
+    for m in (td.teacher, td.student, td.target, td.vae):
+        m.to(torch.bfloat16)
+    wrapped, got = _sample_dtypes(tdistill.ConsistencyDistiller.consistency_fn)
+    tbatch = {k: v.to(getattr(torch, image)) if k == "image"
+              else v if k == "flow" else v.to(torch.bfloat16)
+              for k, v in _tbatch(setup).items()}
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(tdistill.ConsistencyDistiller, "consistency_fn", wrapped)
+        with torch.no_grad():
+            td.loss_fn(tbatch, **_draws(jax.random.PRNGKey(7)))
+    assert want == [image, image] and got == want, (want, got)
 
 
 def test_distill_checkpoint_resume_is_bit_identical(setup, tmp_path):

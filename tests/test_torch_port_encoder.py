@@ -28,6 +28,9 @@ from diffcodec_tpu_torch import weights
 from diffcodec_tpu_torch.models import layers as tlayers
 from diffcodec_tpu_torch.models.vae import AutoencoderKL, encode_to_latents
 from diffcodec_tpu_torch.ops import conv as tconv
+from torch_threads import few_torch_threads
+
+_few_torch_threads = few_torch_threads(1)
 
 # the Pallas kernel against plain convs in fp32 (JAX's own limits,
 # tests/test_conv_pallas.py): the same sums in another order

@@ -55,6 +55,9 @@ from diffcodec_tpu_torch.eval import (anchors_data, bd_rate, codec_eval,
 from diffcodec_tpu_torch.models import i3d
 from diffcodec_tpu_torch.train import lpips
 from diffcodec_tpu_torch.utils import flo_io
+from torch_threads import few_torch_threads
+
+_few_torch_threads = few_torch_threads(1)
 
 SSIM_TOL = dict(atol=2e-5, rtol=1e-4)
 PSNR_RTOL = 1e-5

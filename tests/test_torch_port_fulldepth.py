@@ -70,6 +70,9 @@ from diffcodec_tpu_torch.models.controlnet import DualFlowControlNet
 from diffcodec_tpu_torch.models.unet2d_condition import UNet2DConditionModel
 from diffcodec_tpu_torch.models.vae import AutoencoderKL
 from test_torch_port_fullwidth import _draw
+from torch_threads import few_torch_threads
+
+_few_torch_threads = few_torch_threads(2)
 
 H, FRAMES, L, STEPS = 64, 1, 77, 3
 # the tiny pipeline test's limits (test_torch_port_pipeline.py)

@@ -68,6 +68,9 @@ from diffcodec_tpu_torch.models import layers
 from diffcodec_tpu_torch.models.controlnet import DualFlowControlNet
 from diffcodec_tpu_torch.models.unet2d_condition import UNet2DConditionModel
 from diffcodec_tpu_torch.models.vae import AutoencoderKL, decode_from_latents
+from torch_threads import few_torch_threads
+
+_few_torch_threads = few_torch_threads(2)
 
 H, B, L, T = 64, 1, 77, 500
 # fp32: the tiny configs' limits (`test_torch_port_models.py`), not
@@ -86,27 +89,33 @@ FREEU = (SAMPLER.freeu_s1, SAMPLER.freeu_s2, SAMPLER.freeu_b1,
 SCALE = SAMPLER.controlnet_conditioning_scale
 
 
-def _draw(shapes, seed):
-    """Seeded float32 values for a tree of shapes, drawn as float32."""
-    rng = np.random.default_rng(seed)
-
-    def uniform(shape, lo, hi):
+def draw_leaf(rng, name: str, shape) -> np.ndarray:
+    """A parameter leaf's seeded float32 values, drawn as float32: norm
+    scales in [0.7, 1.3], biases in [-0.1, 0.1], kernels uniform with the
+    variance 1 / fan_in."""
+    def uniform(lo, hi):
         v = rng.random(shape, np.float32)
         v *= np.float32(hi - lo)
         v += np.float32(lo)
         return v
 
-    def leaf(path, s):
-        name = str(getattr(path[-1], "key", path[-1]))
-        if name == "scale":
-            return uniform(s.shape, 0.7, 1.3)
-        if name == "bias":
-            return uniform(s.shape, -0.1, 0.1)
-        fan_in = int(np.prod(s.shape[:-1])) if len(s.shape) > 1 else 1
-        bound = float(np.sqrt(3.0 / fan_in))
-        return uniform(s.shape, -bound, bound)
+    if name == "scale":
+        return uniform(0.7, 1.3)
+    if name == "bias":
+        return uniform(-0.1, 0.1)
+    fan_in = int(np.prod(shape[:-1])) if len(shape) > 1 else 1
+    bound = float(np.sqrt(3.0 / fan_in))
+    return uniform(-bound, bound)
 
-    return jax.tree_util.tree_map_with_path(leaf, shapes)
+
+def _draw(shapes, seed):
+    """Seeded float32 values for a tree of shapes (`draw_leaf`), one
+    generator for the tree."""
+    rng = np.random.default_rng(seed)
+    return jax.tree_util.tree_map_with_path(
+        lambda path, s: draw_leaf(rng, str(getattr(path[-1], "key",
+                                                   path[-1])), s.shape),
+        shapes)
 
 
 def _inputs():

@@ -16,12 +16,14 @@ port's
 scripts, `scripts/profile_torch_decode.py` (which also profiles the
 residual training points), `scripts/conv_kernel_breakdown.py`,
 `scripts/conv_kernel_ab.py`, `scripts/attention_bwd_ab.py`,
-`scripts/attention_fwd_ab.py` and `scripts/splat_kernel_ab.py` (without
-running them).  The parity tests at SD-1.5's depth, at the bf16 islands
-and over the 30-step decode, and the recorder they share
-(`tests/decode_tape.py`), and the training step's comparison
-(`tests/train_parity.py`) import JAX for their reference side; their
-port-side imports run under the same hook.
+`scripts/attention_fwd_ab.py`, `scripts/splat_kernel_ab.py` and
+`scripts/torch_distill_loss_seeds.py` (without running them).  The parity
+tests at SD-1.5's depth, at the bf16 islands and over the 30-step decode,
+and the recorder they share (`tests/decode_tape.py`), the training and
+the distillation steps' comparisons (`tests/train_parity.py`,
+`tests/distill_parity.py`) and the distillation loss's seeds
+(`tests/distill_loss_seeds.py`) import JAX for their reference side;
+their port-side imports run under the same hook.
 """
 
 import ast
@@ -67,6 +69,7 @@ import conv_kernel_ab
 import attention_bwd_ab
 import attention_fwd_ab
 import splat_kernel_ab
+import torch_distill_loss_seeds
 loaded = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
 assert not loaded, loaded
 print("imported", len(names), "modules:", " ".join(names))
@@ -131,7 +134,8 @@ PARITY_TESTS = ("test_torch_port_fulldepth.py",
                 "test_torch_port_bf16_sites.py",
                 "test_torch_port_longrun.py",
                 "test_torch_port_fulldepth_longrun.py",
-                "decode_tape.py", "train_parity.py")
+                "decode_tape.py", "train_parity.py", "distill_parity.py",
+                "distill_loss_seeds.py")
 PORT_SIDE = ("diffcodec_tpu_torch", "chip_smoke")
 
 

@@ -45,6 +45,7 @@ from diffcodec_tpu_torch import config as tcfg
 from diffcodec_tpu_torch.sampling.pipeline import DualFlowPipeline
 from diffcodec_tpu_torch.weights import load_pipeline_params
 from test_torch_port_pipeline import VAE_KW, _randomize
+from torch_threads import few_torch_threads
 
 FRAMES, H, L, STEPS = 2, 64, 5, 30
 # the tiny pipeline test's limits (test_torch_port_pipeline.py)
@@ -68,14 +69,7 @@ OUTPUTS = ([f"down{i}" for i in range(N_DOWN)] + ["mid"] + STEP_LATENTS
            + ["images"])
 
 
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """One torch thread while this module runs (the lane runs six test
-    processes on the host's cores)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+_one_torch_thread = few_torch_threads(1)
 
 
 @functools.lru_cache(maxsize=None)

@@ -32,6 +32,9 @@ from diffcodec_tpu_torch.models.controlnet import DualFlowControlNet
 from diffcodec_tpu_torch.models.extractors import BiDirFeatureExtractor
 from diffcodec_tpu_torch.models.unet2d_condition import UNet2DConditionModel
 from diffcodec_tpu_torch.models.vae import AutoencoderKL, decode_from_latents
+from torch_threads import few_torch_threads
+
+_few_torch_threads = few_torch_threads(1)
 
 # fp32 through a few dozen layers: convs and matmuls accumulate in another
 # order in XLA and in PyTorch's CPU kernels

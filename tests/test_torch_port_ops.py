@@ -34,6 +34,9 @@ from diffcodec_tpu_torch.ops import flow as tflow
 from diffcodec_tpu_torch.ops import softsplat as tsplat
 from diffcodec_tpu_torch.ops.attention import attention, attention_reference
 from diffcodec_tpu_torch.sampling import schedulers as tsched
+from torch_threads import few_torch_threads
+
+_few_torch_threads = few_torch_threads(1)
 
 # fp32 on both sides; the sums run in another order (index_add_ against
 # one-hot matmuls, einsum contraction order), so allow a few ulps of the

@@ -25,6 +25,9 @@ from diffcodec_tpu.sampling.schedulers import NoiseSchedule as JSchedule
 from diffcodec_tpu_torch import config as tcfg
 from diffcodec_tpu_torch.sampling.pipeline import DualFlowPipeline
 from diffcodec_tpu_torch.weights import load_pipeline_params
+from torch_threads import few_torch_threads
+
+_few_torch_threads = few_torch_threads(1)
 
 VAE_KW = dict(base_channels=8, channel_mults=(1, 1, 2, 2), layers_per_block=1)
 B, H, L = 2, 64, 5

@@ -47,6 +47,9 @@ from diffcodec_tpu_torch.sampling.schedulers import NoiseSchedule, ddpm_step
 from diffcodec_tpu_torch.train import residue as tres
 from diffcodec_tpu_torch.train import trainer as ttrainer
 from train_parity import LOSS_RTOL, assert_grads_close, draws
+from torch_threads import few_torch_threads
+
+_few_torch_threads = few_torch_threads(1)
 
 # fp32 ops with a few sums in another order (the JAX Pallas tests' fp32
 # tolerance), for the small modules and the residue transform

@@ -29,6 +29,9 @@ from diffcodec_tpu.train import residue as jres
 from diffcodec_tpu_torch.ops import softsplat as tsplat
 from diffcodec_tpu_torch.ops.flow import compute_occlusion_mask
 from diffcodec_tpu_torch.train import residue as tres
+from torch_threads import few_torch_threads
+
+_few_torch_threads = few_torch_threads(1)
 
 # fp32 on both sides, sums in another order (index_add_ against JAX's
 # scatter or one-hot matmuls): a few ulps of the largest terms, as

@@ -37,6 +37,9 @@ from diffcodec_tpu_torch.sampling import tiled
 from diffcodec_tpu_torch.sampling.distilled import DistilledPipeline
 from diffcodec_tpu_torch.sampling.pipeline import DualFlowPipeline
 from diffcodec_tpu_torch.weights import load_pipeline_params
+from torch_threads import few_torch_threads
+
+_few_torch_threads = few_torch_threads(1)
 
 
 @pytest.mark.parametrize("h,w,tile,overlap", [

@@ -56,6 +56,7 @@ from diffcodec_tpu_torch.models.vae import AutoencoderKL
 from diffcodec_tpu_torch.train import checkpoint as tckpt
 from diffcodec_tpu_torch.train import distill as tdistill
 from diffcodec_tpu_torch.train.trainer import Optimizer, TrainState
+from torch_threads import few_torch_threads
 
 SCRIPTS = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "scripts")
@@ -68,15 +69,7 @@ import weights_day as jweights_day  # noqa: E402
 H, L = 64, 5
 
 
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """One torch thread while this module runs: the lane runs six test
-    processes on the host's cores, and with torch's default of a thread
-    per core the tiny models' many small ops ran ~11x slower."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+_one_torch_thread = few_torch_threads(1)
 
 
 def _randomize(params, seed, std=None):

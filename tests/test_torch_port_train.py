@@ -54,6 +54,9 @@ from diffcodec_tpu_torch.train import latent_cache as tcache
 from diffcodec_tpu_torch.train import lpips as tlpips
 from diffcodec_tpu_torch.train import trainer as ttrainer
 from train_parity import LOSS_RTOL, assert_grads_close, draws
+from torch_threads import few_torch_threads
+
+_few_torch_threads = few_torch_threads(1)
 
 # fp32 ops with a few sums in another order
 OP_TOL = dict(atol=2e-5, rtol=1e-4)

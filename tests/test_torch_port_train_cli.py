@@ -49,6 +49,9 @@ from diffcodec_tpu_torch.train import dataset as tdataset
 from diffcodec_tpu_torch.train.distill import denoiser
 from diffcodec_tpu_torch.train import prefetch as tprefetch
 from diffcodec_tpu_torch.utils import logging as tlogging
+from torch_threads import few_torch_threads
+
+_few_torch_threads = few_torch_threads(1)
 
 RES = 32
 

@@ -52,20 +52,13 @@ from diffcodec_tpu_torch.utils import png_io
 from diffcodec_tpu_torch.weights import load_pipeline_params
 
 from tests.test_torch_port_train_cli import _write_dataset
+from torch_threads import few_torch_threads
 
 VAE_KW = dict(base_channels=8, channel_mults=(1, 1, 2, 2), layers_per_block=1)
 RES = 32
 
 
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """One torch thread while this module runs: the lane runs six test
-    processes on the host's cores, and with torch's default of a thread
-    per core the tiny models' many small ops ran ~60x slower."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+_one_torch_thread = few_torch_threads(1)
 
 
 def _randomize(params, seed):

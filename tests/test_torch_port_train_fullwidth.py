@@ -50,21 +50,14 @@ import torch
 
 import train_parity as tp
 from test_torch_port_fullwidth import rel_l2
+from torch_threads import few_torch_threads
 
 CFGS = tp.configs(layers_per_block=1)
 VARIANTS = {"dualflow": tp.Variant("dualflow", bf16_moves=False)}
 GROUPS = {name: tp.groups(CFGS, v.residual) for name, v in VARIANTS.items()}
 
 
-@pytest.fixture(scope="module", autouse=True)
-def _few_torch_threads():
-    """The lane runs six test processes on the host's cores; a full-width
-    step with torch's thread a core in each starved the others (this
-    file read 206 s alone and 1254 s there)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(min(n, 2))
-    yield
-    torch.set_num_threads(n)
+_few_torch_threads = few_torch_threads(2)
 
 
 @pytest.fixture(scope="module")

@@ -57,6 +57,9 @@ from diffcodec_tpu_torch.models.controlnet import DualFlowControlNet
 from diffcodec_tpu_torch.models.unet2d_condition import UNet2DConditionModel
 from diffcodec_tpu_torch.models.vae import AutoencoderKL
 from diffcodec_tpu_torch.utils import safetensors_io
+from torch_threads import few_torch_threads
+
+_few_torch_threads = few_torch_threads(1)
 
 OUT_RTOL, OUT_ATOL_REL = 1e-4, 2e-5
 VAE_KW = dict(base_channels=8, channel_mults=(1, 1, 2, 2), layers_per_block=1)

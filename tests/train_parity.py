@@ -76,7 +76,7 @@ from diffcodec_tpu.sampling.schedulers import NoiseSchedule as JSchedule
 from diffcodec_tpu.train import residue as jresidue
 from diffcodec_tpu.train import trainer as jtrainer
 
-from chip_smoke import (TRAIN_REF_TOL, make_trainer, train_group,
+from chip_smoke import (TRAIN_REF_TOL, GroupSums, make_trainer, train_group,
                         within_bf16_rule)
 from diffcodec_tpu_torch import config as tcfg
 from diffcodec_tpu_torch import weights
@@ -392,31 +392,6 @@ class _Torch:
             return torch.from_numpy(weights._inverse_transform(kind, node))
 
 
-def _sq(t: torch.Tensor) -> float:
-    return float(torch.sum(t * t, dtype=torch.float64))
-
-
-class _Groups:
-    """Sums of squares, group by group, for the bf16 rule's three relL2s
-    (and over everything, as 'all')."""
-
-    def __init__(self):
-        self.sums = {}
-
-    def add(self, group, jf, jb, pb):
-        vals = (_sq(jb - jf), _sq(jf), _sq(pb - jf), _sq(pb - jb), _sq(jb))
-        for g in (group, "all"):
-            acc = self.sums.setdefault(g, [0.0] * len(vals))
-            for i, v in enumerate(vals):
-                acc[i] += v
-
-    def errors(self) -> dict:
-        """{group: [e_jax, e_port, d]}."""
-        return {g: [float(np.sqrt(jb_jf / jf)), float(np.sqrt(pb_jf / jf)),
-                    float(np.sqrt(pb_jb / jb))]
-                for g, (jb_jf, jf, pb_jf, pb_jb, jb) in self.sums.items()}
-
-
 def _bridge(module, tree, name_map, pop: bool):
     """`weights.load_flax_params` child by child (each entry of a module
     list on its own), so that one child's torch-layout copy at a time is
@@ -628,7 +603,7 @@ class _Step:
         self.lap("grad_fp32")
 
     def bf16_grads(self, trainer):
-        acc = _Groups()
+        acc = GroupSums()
         for n, q in trainer.controlnet.named_parameters():
             acc.add(train_group(n), self.jf[n], self.jb[n], q.grad.float())
         self.out["grad"]["bf16"] = acc.errors()
@@ -673,7 +648,7 @@ class _Step:
             else:
                 wf = self.jax_new(setting, opt, "fp32")
                 wb = self.jax_new(setting, opt, "bf16")
-                acc = _Groups()
+                acc = GroupSums()
                 for n in self.names:
                     start = self.p0[n]
                     acc.add(train_group(n), wf[n] - start, wb[n] - start,
